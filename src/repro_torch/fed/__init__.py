@@ -1,0 +1,41 @@
+"""Federated runtime: DPASGD training over gossip plans, on one card.
+
+* :class:`~repro_torch.fed.gossip.GossipPlan` / :class:`~repro_torch.fed.gossip.PlanSlot`
+  — a consensus matrix decomposed into Birkhoff transfers, and its
+  versioned hot-swap hook;
+* :func:`~repro_torch.fed.gossip.gossip_einsum`,
+  :func:`~repro_torch.fed.gossip.gossip_permute`,
+  :func:`~repro_torch.fed.gossip.gossip_fused`,
+  :func:`~repro_torch.fed.gossip.collective_bytes_per_round` — the
+  lowerings and their traffic model;
+* :class:`~repro_torch.fed.dpasgd.DPASGDConfig`,
+  :func:`~repro_torch.fed.dpasgd.make_train_step`,
+  :func:`~repro_torch.fed.dpasgd.init_state`,
+  :func:`~repro_torch.fed.dpasgd.local_sgd_steps` — the Eq. 2 train step;
+* :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
+"""
+
+from .dpasgd import DPASGDConfig, init_state, local_sgd_steps, make_train_step
+from .gossip import (
+    GossipPlan,
+    PlanSlot,
+    collective_bytes_per_round,
+    gossip_einsum,
+    gossip_fused,
+    gossip_permute,
+)
+from .topology_runtime import plan_for_n_silos
+
+__all__ = [
+    "DPASGDConfig",
+    "init_state",
+    "local_sgd_steps",
+    "make_train_step",
+    "GossipPlan",
+    "PlanSlot",
+    "collective_bytes_per_round",
+    "gossip_einsum",
+    "gossip_fused",
+    "gossip_permute",
+    "plan_for_n_silos",
+]

@@ -1,0 +1,162 @@
+"""DPASGD (Eq. 2) — decentralized periodic averaging SGD, on one card.
+
+Each silo performs ``s`` local mini-batch steps, then mixes its model
+with its overlay in-neighbours through the consensus matrix A:
+
+    w_i(k+1) = sum_{j in N_i^+ u {i}} A_ij w_j(k)        (mix rounds)
+    w_i(k+1) = w_i(k) - alpha * grad f_i(w_i(k))          (local rounds)
+
+Counterpart of ``repro.fed.dpasgd`` on its static path.  The state keeps
+every silo's parameters and optimizer slot as rows of flat
+``[n_silos, P]`` buffers (``[P]`` for one silo).  The reference's
+``vmap`` over silos is a loop over the rows: each silo's gradient lands
+in one flat ``[P]`` buffer through per-leaf gradient views, and the
+update rewrites the silo's rows in place.  The step updates the state's
+buffers in place and returns the state; clone them first to keep the
+old values.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.params import ParamLayout, init_params_
+from repro_torch.optim import Optimizer
+from .gossip import GOSSIP_IMPLS, GossipPlan, mix
+
+
+@dataclass(frozen=True)
+class DPASGDConfig:
+    """Federation knobs of the DPASGD train step: ``local_steps`` is the
+    paper's s, ``gossip_impl`` the consensus lowering (see
+    :mod:`repro_torch.fed.gossip`), ``accum_steps`` the gradient
+    accumulation chunks per local step."""
+
+    local_steps: int = 1            # s
+    gossip_impl: str = "ppermute"   # "einsum" | "ppermute" | "pallas" | "none"
+    accum_steps: int = 1
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    def loss(params, batch):
+        return T.loss_fn(params, cfg, batch)
+
+    return loss
+
+
+def local_sgd_steps(
+    loss_fn: Callable,
+    optimizer: Optimizer,
+    params: torch.Tensor,               # flat [P] row, updated in place
+    opt_state: Optional[torch.Tensor],  # flat [P] row or None, updated in place
+    microbatches: Dict[str, torch.Tensor],  # leading dim s (+ accum dim)
+    *,
+    layout: ParamLayout,
+    accum_steps: int = 1,
+    grad: Optional[torch.Tensor] = None,  # flat [P] scratch for the gradient
+):
+    """Run s local optimizer steps on one silo's rows.
+
+    With ``accum_steps > 1`` each local step's batch carries an extra
+    leading accumulation dim ``[s, A, B_micro, ...]``: gradients are
+    summed over the A chunks and divided by A before the single update,
+    as the reference does.  Returns the mean loss over the s steps, on the
+    device."""
+    if grad is None:
+        grad = torch.empty_like(params)
+    grad_views = layout.leaf_views(grad)
+    s = microbatches["tokens"].shape[0]
+    losses = []
+    for m in range(s):
+        grad.zero_()
+        leaves = [v.detach().requires_grad_() for v in layout.leaf_views(params)]
+        for leaf, g in zip(leaves, grad_views):
+            leaf.grad = g  # backward accumulates in place into the flat buffer
+        tree = layout.unflatten(leaves)
+        micro = {k: v[m] for k, v in microbatches.items()}
+        if accum_steps > 1:
+            loss = 0.0
+            for a in range(accum_steps):
+                la = loss_fn(tree, {k: v[a] for k, v in micro.items()})
+                la.backward()
+                loss = loss + la.detach()
+            grad.div_(accum_steps)
+            loss = loss / accum_steps
+        else:
+            loss = loss_fn(tree, micro)
+            loss.backward()
+            loss = loss.detach()
+        optimizer.update(grad, opt_state, params)
+        losses.append(loss)
+    return torch.stack(losses).mean()
+
+
+def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
+                    plan: Optional[GossipPlan]) -> Callable:
+    """Build the DPASGD train step ``step_fn(state, batch) -> (state,
+    {"loss"})``.
+
+    state = ``{"params", "opt_state", "step"}`` from :func:`init_state`
+    (or ``models.params.from_jax_params`` of a reference state);
+    batch = ``{"tokens", "labels"}`` of shape ``[n_silos?, s, B, S]``.
+    The round's mix is one call of the chosen lowering; under ``pallas``
+    it writes the mixed parameters back into the state's buffer."""
+    if fed.gossip_impl not in GOSSIP_IMPLS:
+        raise KeyError(fed.gossip_impl)
+    n_silos = cfg.n_silos
+    if n_silos > 1 and fed.gossip_impl != "none" and plan is None:
+        raise ValueError(f"gossip_impl={fed.gossip_impl!r} needs a plan")
+    if plan is not None and plan.n_silos != n_silos:
+        raise ValueError(f"plan spans {plan.n_silos} silos, config has {n_silos}")
+    loss_fn = make_loss_fn(cfg)
+    layout = ParamLayout(T.model_specs(cfg))
+
+    def step_fn(state, batch):
+        params, opt_state = state["params"], state["opt_state"]
+        if params.shape[-1] != layout.size:
+            raise ValueError(f"state holds {params.shape[-1]} params per silo, "
+                             f"the config needs {layout.size}")
+        if n_silos == 1:
+            loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch,
+                                   layout=layout, accum_steps=fed.accum_steps)
+        else:
+            grad = torch.empty(layout.size, dtype=params.dtype, device=params.device)
+            losses = []
+            for i in range(n_silos):
+                losses.append(local_sgd_steps(
+                    loss_fn, optimizer, params[i],
+                    None if opt_state is None else opt_state[i],
+                    {k: v[i] for k, v in batch.items()},
+                    layout=layout, accum_steps=fed.accum_steps, grad=grad))
+            del grad  # one silo's gradient: freed before the mix allocates its stack
+            loss = torch.stack(losses).mean()
+            # consensus mix (the paper's technique)
+            with torch.no_grad():
+                params = mix(params, plan, fed.gossip_impl, out=params)
+        step = state["step"] + fed.local_steps
+        return {"params": params, "opt_state": opt_state, "step": step}, {"loss": loss}
+
+    return step_fn
+
+
+def init_state(cfg: ModelConfig, optimizer: Optimizer, *, seed: int = 0,
+               device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Training state for :func:`make_train_step`: with ``cfg.n_silos > 1``
+    the float32 params and optimizer slot are ``[n_silos, P]`` buffers, one
+    independently drawn model per silo (successive draws of one
+    ``torch.Generator`` seeded with ``seed``)."""
+    dev = resolve_device(device)
+    specs = T.model_specs(cfg)
+    layout = ParamLayout(specs)
+    n = cfg.n_silos
+    params = torch.empty((n, layout.size) if n > 1 else (layout.size,), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for row in (params if n > 1 else params[None]):
+        init_params_(row, layout, specs, gen)
+    return {"params": params, "opt_state": optimizer.init(params), "step": 0}

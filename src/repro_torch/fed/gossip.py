@@ -1,0 +1,180 @@
+"""Gossip (consensus) step of DPASGD on one card.
+
+The silos are the leading dimension of the training state, so the
+consensus matrix A (doubly stochastic, support = overlay edges) acts on
+that dimension.  Four lowerings, with the reference's names:
+
+* ``einsum``   — ``w <- einsum('ij,j...->i...', A, w)``: the dense mix,
+                 reference semantics.
+* ``ppermute`` — Birkhoff decomposition of A into permutations; each
+                 permutation is one ``index_select`` along the silo
+                 dimension (``perm[i]`` is the source of destination i),
+                 the counterpart of one ``jax.lax.ppermute``; the terms
+                 are summed in float32.
+* ``pallas``   — the same transfers, with the K-way weighted combine in
+                 the hand-written ``gossip_mix`` kernel.  Every silo
+                 shares each term's coefficient, so a round is ONE kernel
+                 launch over ``[K, n_silos * P]``.  The name is kept from
+                 the reference (whose kernel is Pallas) so the CLI flags
+                 match; here it selects the CUDA kernel.
+* ``none``     — no mixing.
+
+The one-process-per-silo lowering across cards (``torch.distributed``
+point-to-point) is a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.birkhoff import birkhoff_decomposition
+from repro_torch.kernels import ops as kops
+
+GOSSIP_IMPLS = ("einsum", "ppermute", "pallas", "none")
+
+
+@dataclass(frozen=True)
+class GossipPlan:
+    """Compiled consensus schedule: one overlay's mixing as transfers.
+
+    Attributes
+    ----------
+    matrix:
+        ``[n, n]`` doubly-stochastic consensus matrix A (support = the
+        overlay's arcs + self loops).
+    terms:
+        The Birkhoff decomposition of A as ``(coeff, perm)`` pairs, where
+        ``perm[i]`` is the silo that destination i *receives from*; each
+        non-identity term is one transfer.
+    n_silos:
+        n, the silo count.
+    """
+
+    matrix: np.ndarray                                # [n, n] doubly stochastic
+    terms: Tuple[Tuple[float, Tuple[int, ...]], ...]  # (coeff, recv-from perm)
+    n_silos: int
+
+    @staticmethod
+    def from_matrix(A: np.ndarray) -> "GossipPlan":
+        """Decompose a doubly-stochastic ``[n, n]`` matrix into a plan."""
+        terms = birkhoff_decomposition(np.asarray(A, np.float64))
+        packed = tuple((float(c), tuple(int(x) for x in p)) for c, p in terms)
+        return GossipPlan(matrix=np.asarray(A), terms=packed, n_silos=A.shape[0])
+
+    @property
+    def num_transfers(self) -> int:
+        """Non-identity permutations = point-to-point transfers per round."""
+        ident = tuple(range(self.n_silos))
+        return sum(1 for (_, p) in self.terms if p != ident)
+
+
+class PlanSlot:
+    """Hot-swap hook for the active gossip plan.
+
+    The training loop builds its step from ``slot.plan`` and rebuilds it
+    whenever ``slot.version`` moves; a controller calls :meth:`swap`
+    between rounds.  ``on_swap`` callbacks fire synchronously inside
+    :meth:`swap`; ``history`` keeps the (version, label) audit trail.
+    """
+
+    def __init__(self, plan: GossipPlan):
+        self._plan = plan
+        self.version = 0
+        self.history: List[Tuple[int, str]] = [(0, "init")]
+        self._callbacks: List[Any] = []
+
+    @property
+    def plan(self) -> GossipPlan:
+        return self._plan
+
+    def on_swap(self, callback) -> Any:
+        """Register ``callback(plan, version)``; returns it (decorator use)."""
+        self._callbacks.append(callback)
+        return callback
+
+    def swap(self, plan: GossipPlan, label: str = "", *,
+             allow_resize: bool = False) -> int:
+        """Install ``plan`` and bump ``version``.  A plan over a different
+        silo count is rejected unless ``allow_resize=True``."""
+        if not allow_resize and plan.n_silos != self._plan.n_silos:
+            raise ValueError(
+                f"plan spans {plan.n_silos} silos, slot holds {self._plan.n_silos}"
+            )
+        self._plan = plan
+        self.version += 1
+        self.history.append((self.version, label))
+        for cb in self._callbacks:
+            cb(plan, self.version)
+        return self.version
+
+
+def gossip_einsum(w: torch.Tensor, A) -> torch.Tensor:
+    """Reference gossip: ``einsum('ij,j...->i...', A, w)`` over the leading
+    silo dimension of ``w`` (size n); ``A`` is the ``[n, n]`` consensus
+    matrix."""
+    a = torch.as_tensor(np.asarray(A)).to(dtype=w.dtype, device=w.device)
+    return torch.einsum("ij,j...->i...", a, w)
+
+
+def _perm_index(perm: Sequence[int], device) -> torch.Tensor:
+    return torch.tensor(perm, dtype=torch.long, device=device)
+
+
+def gossip_permute(w: torch.Tensor, plan: GossipPlan) -> torch.Tensor:
+    """The Birkhoff schedule, one ``index_select`` along the silo
+    dimension per non-identity term, terms summed in float32 and cast
+    back (counterpart of the reference's ``ppermute`` mix)."""
+    ident = tuple(range(plan.n_silos))
+    acc = None
+    for coeff, perm in plan.terms:
+        recv = w if perm == ident else w.index_select(0, _perm_index(perm, w.device))
+        contrib = coeff * recv.to(torch.float32)
+        acc = contrib if acc is None else acc + contrib
+    return acc.to(w.dtype)
+
+
+def gossip_fused(w: torch.Tensor, plan: GossipPlan, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Birkhoff transfers gathered into one ``[K, n * M]`` stack and
+    combined by ONE ``gossip_mix`` call.
+
+    ``w`` is silo-stacked and contiguous (the training state's flat
+    ``[n, P]`` buffer: no concatenation, unlike the reference's per-leaf
+    flatten).  ``out`` may be ``w`` itself: the stack holds copies, so the
+    mix can be written back in place."""
+    ident = tuple(range(plan.n_silos))
+    flat = w.view(plan.n_silos, -1)
+    K = len(plan.terms)
+    stack = torch.empty((K,) + tuple(flat.shape), dtype=w.dtype, device=w.device)
+    for k, (_, perm) in enumerate(plan.terms):
+        if perm == ident:
+            stack[k].copy_(flat)
+        else:
+            torch.index_select(flat, 0, _perm_index(perm, w.device), out=stack[k])
+    weights = torch.tensor([c for c, _ in plan.terms], dtype=torch.float32)
+    dst = None if out is None else out.view(-1)
+    return kops.gossip_mix(stack.view(K, -1), weights, out=dst).view(w.shape)
+
+
+def mix(w: torch.Tensor, plan: Optional[GossipPlan], impl: str, *,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one gossip round with lowering ``impl`` (see module doc);
+    ``out`` is used by the ``pallas`` lowering only."""
+    if impl == "none":
+        return w
+    if impl == "einsum":
+        return gossip_einsum(w, plan.matrix)
+    if impl == "ppermute":
+        return gossip_permute(w, plan)
+    if impl == "pallas":
+        return gossip_fused(w, plan, out=out)
+    raise KeyError(impl)
+
+
+def collective_bytes_per_round(plan: GossipPlan, param_bytes: int) -> int:
+    """Predicted gossip traffic per communication round per silo."""
+    return plan.num_transfers * param_bytes

@@ -1,0 +1,42 @@
+"""Public wrappers around the hand-written kernels.
+
+Each wrapper picks its path from where its input lies: a CPU tensor goes
+through the kernel's plain PyTorch version, a CUDA tensor launches the
+kernel (or the wrapper raises).  There is no fallback from the kernel to
+the plain version.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made; a run
+resets it with :func:`reset_launch_counts` before the path it wants to
+account for and reads it after.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .gossip_mix import gossip_mix_cuda, gossip_mix_ref
+
+LAUNCHES: Dict[str, int] = {"gossip_mix": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def gossip_mix(neighbor_blocks: torch.Tensor, weights: torch.Tensor, *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[n] = sum_k weights[k] * neighbor_blocks[k, n]`` over
+    ``[K, N]`` blocks (float32 or bfloat16; own params at k=0 by
+    convention), accumulated in float32.  Counterpart of
+    ``repro.kernels.ops.gossip_mix``."""
+    weights = weights.to(device=neighbor_blocks.device, dtype=torch.float32).contiguous()
+    if neighbor_blocks.device.type == "cpu":
+        return gossip_mix_ref(neighbor_blocks, weights, out=out)
+    if neighbor_blocks.is_cuda:
+        res = gossip_mix_cuda(neighbor_blocks, weights, out=out)
+        LAUNCHES["gossip_mix"] += 1
+        return res
+    raise ValueError(f"gossip_mix: no kernel for device {neighbor_blocks.device}")

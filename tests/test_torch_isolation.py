@@ -1,0 +1,87 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, no file of it (or chip_smoke.py) imports either, its entry
+points refuse to fall back to the CPU, and chip_smoke.py fails without
+a GPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.fed import init_state  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models import from_jax_params, init_params, model_specs  # noqa: E402
+from repro_torch.optim import momentum  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_or_jax_imports(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+
+
+def _cfg():
+    return get_config("internlm2-1.8b").reduced()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: resolve_device(),
+    lambda: init_state(_cfg(), momentum(0.05)),
+    lambda: init_params(model_specs(_cfg())),
+    lambda: from_jax_params({"w": [[1.0]]}),
+    lambda: train(_cfg(), steps=1),
+], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train"])
+def test_entry_points_refuse_cpu_fallback(no_gpu, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_chip_smoke_fails_without_gpu(no_gpu):
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
