@@ -22,7 +22,27 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    size on the card and on the CPU from the same state and compares them
    (<= 2e-5: the CPU path is the one the tests hold against JAX);
 5. times the kernel at the main path's own shape and compares it with
-   its plain version there.
+   its plain version there;
+6. holds ``segment_max`` (K1) against its plain version on the card, bit
+   for bit (B in {1, 3, 16, 64} x E in {1, 7, 261, 8192} x S in {1, 5,
+   87, 1024} x four float dtypes, with -inf entries, out-of-range ids and
+   empty segments, plus a NaN case and a signed-zero case), and times it
+   at the Ebone climb's shape and the sparse scoring shape beside its
+   plain version, ``Tensor.scatter_reduce_`` and its bound;
+7. drives the design path: ``design_overlay("sparse_rewire", ...)`` on
+   the card for the paper's five networks at their real sizes, and the
+   hierarchical designer on Ebone and on a 4096-silo clustered WAN, each
+   with the counts set to 0 just before it and read just after: one
+   ``segment_max`` launch per Karp level of every scored proposal, degree
+   bounds, strong connectivity, the reported tau equal to the f64 host
+   re-price, and never worse than the Christofides ring (or the given
+   incumbent);
+8. holds the climb's score of its seeds on the card bit-identical to the
+   CPU's, on Ebone, for one universe and for padded multi-universe packs;
+9. trains on a designed plan: Gaia's overlay -> ``plan_from_overlay`` ->
+   3 DPASGD rounds (``gossip_impl="pallas"``, 11 silos, the reduced
+   internlm2-1.8b), one ``gossip_mix`` launch per round, then one round
+   pallas vs einsum (<= 1e-5).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -231,6 +251,352 @@ def slice_shape_phase(torch, dev, K: int, N: int) -> dict:
             "bound_by": by, "max_abs_err": err}
 
 
+def same_values(torch, got, ref) -> bool:
+    """Bit for bit, except that the two zeros compare equal (the kernel's
+    max(-0, +0) is +0; the plain version may return either): equal values
+    where the plain version has a number, NaN exactly where it has NaN."""
+    nan = torch.isnan(ref)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool((got[~nan] == ref[~nan]).all())
+
+
+def device_kernels(torch, fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity) and return
+    (traced wall s, {kernel name: (launches, device us)}).  An empty dict
+    means the profiler saw no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = (ev.count, float(getattr(ev, "self_device_time_total", 0.0)))
+    return wall, kernels
+
+
+def segmax_bound_ms(B: int, E: int, S: int) -> float:
+    """Least time of the segment max: each f32 value and int32 id read
+    once, each f32 output written once, over the memory rate (one compare
+    per edge is far below the operation bound)."""
+    return (B * E * (4 + 4) + B * S * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def segmax_kernel_phase(torch, dev) -> dict:
+    from repro_torch.kernels import edge_segment_max
+    from repro_torch.kernels.segment_max import edge_segment_max_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
+    n_cases = 0
+    worst = 0.0
+    for B in (1, 3, 16, 64):
+        for E in (1, 7, 261, 8192):
+            for S in (1, 5, 87, 1024):
+                base = torch.randn((B, E), generator=gen, device=dev)
+                base[torch.rand((B, E), generator=gen, device=dev) < 0.15] = float("-inf")
+                ids = torch.randint(-1, S + 1, (B, E), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                for dtype in dtypes:
+                    vals = base.to(dtype)
+                    got = edge_segment_max(vals, ids, S)
+                    torch.cuda.synchronize()
+                    ref = edge_segment_max_ref(vals, ids, S)
+                    check(got.dtype == dtype and same_values(torch, got.float(), ref.float()),
+                          f"segment_max B={B} E={E} S={S} {dtype} differs from its plain version")
+                    fin = torch.isfinite(ref)
+                    if bool(fin.any()):
+                        worst = max(worst, float((got.float() - ref.float())[fin].abs().max()))
+                    n_cases += 1
+    vals = torch.tensor([[1.0, float("nan"), 2.0, -0.0, 0.0, -0.0, 3.0]], device=dev)
+    ids = torch.tensor([[0, 0, 1, 2, 2, 3, 9]], dtype=torch.int32, device=dev)
+    got = edge_segment_max(vals, ids, 5).cpu()
+    check(bool(torch.isnan(got[0, 0])) and got[0, 1] == 2.0, "segment_max NaN case")
+    check(got[0, 2] == 0.0 and bool(torch.signbit(got[0, 3])) and bool(torch.isneginf(got[0, 4])),
+          "segment_max signed-zero / empty-segment case")
+    print(f"kernel segment_max: sweep B in (1,3,16,64) x E in (1,7,261,8192) x S in "
+          f"(1,5,87,1024) x f32/f64/f16/bf16 ({n_cases} cases) bit-identical to the plain "
+          f"version (max abs err {worst:.3g}); NaN and signed-zero cases pass")
+
+    shapes = {}
+    for name, (B, E, S) in (("ebone_climb", (16, 261, 87)), ("scoring", (8, 8192, 1024))):
+        vals = torch.randn((B, E), generator=gen, device=dev)
+        ids = torch.randint(0, S, (B, E), generator=gen, device=dev, dtype=torch.int32)
+        ids64 = ids.long()
+        got, ref = edge_segment_max(vals, ids, S), edge_segment_max_ref(vals, ids, S)
+        fin = torch.isfinite(ref)  # some segments stay empty (-inf)
+        err = float((got - ref)[fin].abs().max())
+        check(same_values(torch, got, ref), f"segment_max at {name} shape: max abs err {err}")
+        ms = time_ms(torch, lambda: edge_segment_max(vals, ids, S), reps=200, warmup=5)
+        plain = time_ms(torch, lambda: edge_segment_max_ref(vals, ids, S), reps=50, warmup=2)
+        out = torch.full((B, S), float("-inf"), device=dev)
+        # yardstick only, never called by the port: one scatter_reduce_ with in-range ids
+        library = time_ms(torch, lambda: out.scatter_reduce_(1, ids64, vals, "amax"),
+                          reps=200, warmup=5)
+        bound = segmax_bound_ms(B, E, S)
+        # the event-timed loop above is paced by the host's launches; the
+        # profiler's device time is the kernel's own
+        _, kernels = device_kernels(torch, lambda: [edge_segment_max(vals, ids, S)
+                                                    for _ in range(100)])
+        own = [(c, us) for k, (c, us) in kernels.items() if "segment_max_kernel" in k]
+        dev_ms = own[0][1] / own[0][0] / 1e3 if own else None
+        dev_txt = f"{dev_ms:.5f}" if dev_ms is not None else "not measured"
+        print(f"kernel segment_max B={B} E={E} S={S} f32 ({name}): ms {ms:.4f}  "
+              f"device_ms {dev_txt}  plain_ms {plain:.4f}  library_ms scatter_reduce_ "
+              f"{library:.4f}  bound_ms {bound:.6f} (bytes)  max_abs_err {err:.3g}")
+        shapes[name] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                        "bound_ms": bound, "bound_by": "bytes", "max_abs_err": max(err, worst)}
+    return shapes
+
+
+def clustered_wan(n: int, n_clusters: int, seed: int = 0, comp_ms: float = 5.0):
+    """The repo's sparse clustered WAN (the generator of
+    benchmarks/sparse_search_bench.py, built here on the port's types):
+    contiguous silo-id clusters with a low-latency intra ring + two chords,
+    and high-latency bidirectional border pairs joining consecutive
+    clusters, always including (last of c, first of c+1).  Returns
+    ``(gc, cluster labels aligned with gc.silos)``."""
+    import numpy as np
+
+    from repro_torch.core import ConnectivityGraph, SiloParams
+
+    rng = np.random.default_rng(seed)
+    bounds = np.linspace(0, n, n_clusters + 1).astype(int)
+    members = [list(range(bounds[c], bounds[c + 1])) for c in range(n_clusters)]
+    members = [m for m in members if m]
+    lat, bw = {}, {}
+
+    def link(a: int, b: int, l: float) -> None:
+        lat[(a, b)] = lat[(b, a)] = l
+        bw[(a, b)] = bw[(b, a)] = float(rng.uniform(0.5, 2.0))
+
+    labels = [0] * n
+    for c, mem in enumerate(members):
+        m = len(mem)
+        for k, a in enumerate(mem):
+            labels[a] = c
+            link(a, mem[(k + 1) % m], float(rng.uniform(1.0, 5.0)))
+            for off in (2, 3):
+                if m > off + 1:
+                    link(a, mem[(k + off) % m], float(rng.uniform(1.0, 5.0)))
+        nxt = members[(c + 1) % len(members)]
+        link(mem[-1], nxt[0], float(rng.uniform(20.0, 60.0)))
+        link(int(mem[rng.integers(m)]), int(nxt[rng.integers(len(nxt))]),
+             float(rng.uniform(20.0, 60.0)))
+    params = {i: SiloParams(comp_ms, float(rng.uniform(5.0, 10.0)), float(rng.uniform(5.0, 10.0)))
+              for i in range(n)}
+    return ConnectivityGraph(tuple(range(n)), lat, bw, params), labels
+
+
+def check_overlay(gc, tp, ov, max_degree: int, no_worse_than: float, what: str) -> int:
+    """Degree bound, strong connectivity, the reported tau equal to the
+    f64 host re-price of the edges, and no worse than ``no_worse_than``.
+    Returns the overlay's largest in- or out-degree."""
+    import numpy as np
+
+    from repro_torch.core import (batched_cycle_time_auto, batched_is_strongly_connected_sparse,
+                                  batched_overlay_delay_edges)
+
+    arcs = [e for e in ov.edges if e[0] != e[1]]
+    out_deg, in_deg = {}, {}
+    for (i, j) in arcs:
+        check(gc.has_edge(i, j), f"{what}: arc {(i, j)} not in the connectivity graph")
+        out_deg[i] = out_deg.get(i, 0) + 1
+        in_deg[j] = in_deg.get(j, 0) + 1
+    deg = max(max(out_deg.values()), max(in_deg.values()))
+    check(deg <= max_degree, f"{what}: degree {deg} above {max_degree}")
+    eb = batched_overlay_delay_edges(gc, tp, arcs, np.ones((1, len(arcs)), dtype=bool))
+    check(bool(batched_is_strongly_connected_sparse(eb)[0]), f"{what}: not strongly connected")
+    tau = float(batched_cycle_time_auto(eb)[0])
+    check(tau == ov.cycle_time_ms, f"{what}: reported tau {ov.cycle_time_ms} != host re-price {tau}")
+    check(tau <= no_worse_than, f"{what}: tau {tau} worse than {no_worse_than}")
+    return deg
+
+
+def design_phase(torch, dev, wan=(4096, 64)) -> dict:
+    """The design path on the card, one design at a time with the launch
+    counts set to 0 just before it and read just after.  ``wan`` is the
+    clustered WAN's (silos, clusters)."""
+    import numpy as np
+
+    from repro_torch.core import (NETWORK_NAMES, WORKLOADS, Overlay, TrainingParams,
+                                  batched_cycle_time_auto, batched_overlay_delay_edges,
+                                  cluster_silos, design_overlay, make_underlay, ring_overlay,
+                                  search_overlays_hierarchical)
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+
+    M, Tc = WORKLOADS["inaturalist"]
+    tp = TrainingParams(model_size_mbits=M, local_steps=1)
+    launches = 0
+    overlays = {}
+
+    def run(fn):
+        nonlocal launches
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ov = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = LAUNCHES["segment_max"]
+        launches += n_launch
+        return ov, wall, n_launch
+
+    rows = []
+    for net in NETWORK_NAMES:
+        gc = make_underlay(net).connectivity_graph(comp_time_ms=Tc)  # 10 Gbps access links
+        n = gc.num_silos
+        ring = ring_overlay(gc, tp)
+        ov, wall, n_launch = run(lambda: design_overlay("sparse_rewire", gc, tp, device=dev))
+        check(n_launch == (96 + 1) * n,
+              f"{net}: segment_max launched {n_launch} times, expected (96 + 1) * {n}")
+        deg = check_overlay(gc, tp, ov, 8, ring.cycle_time_ms, f"{net} sparse_rewire")
+        print(f"design {net}: n {n}  ring tau {ring.cycle_time_ms:.6f} ms  sparse_rewire tau "
+              f"{ov.cycle_time_ms:.6f} ms  arcs {len(ov.edges)}  max degree {deg}  "
+              f"wall {wall:.4f} s  segment_max launches {n_launch}")
+        rows.append({"net": net, "n": n, "ring_tau": ring.cycle_time_ms,
+                     "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
+        overlays[net] = (gc, ov)
+
+    # Where a design's time goes: Ebone's design again under the profiler,
+    # its device busy time against the untraced wall above.
+    gc = overlays["ebone"][0]
+    traced, kernels = device_kernels(
+        torch, lambda: design_overlay("sparse_rewire", gc, tp, device=dev))
+    if kernels:
+        busy = sum(us for _, us in kernels.values()) / 1e6
+        n_kernels = sum(c for c, _ in kernels.values())
+        k1 = sum(us for k, (_, us) in kernels.items() if "segment_max_kernel" in k) / 1e6
+        untraced = rows[-1]["wall_s"]
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+        print(f"design ebone profile: traced wall {traced:.4f} s, device busy {busy:.4f} s "
+              f"over {n_kernels} kernels ({n_kernels / 97:.0f} per climb step), "
+              f"segment_max {k1:.4f} s; idle share of the untraced {untraced:.4f} s design "
+              f"{1 - busy / untraced:.4f}")
+        for name, (count, us) in top:
+            print(f"  design kernel {us / 1e3:9.3f} ms  x{count:<6d} {name[:100]}")
+    else:
+        print("design ebone profile: device time not measured (no device events)")
+
+    # The hierarchical designer's multi-universe climb: its intra climbs run
+    # under delta_max - 1 and a border silo joining two neighbouring clusters
+    # gains up to one more arc each way, so its bound is delta_max + 1.
+    multi = [c for c in cluster_silos(gc, seed=0) if len(c) >= 2]
+    nmax = max(len(c) for c in multi)
+    ring = ring_overlay(gc, tp)
+    ov, wall, n_launch = run(lambda: design_overlay("hierarchical", gc, tp, device=dev))
+    check(n_launch == (64 + 1) * nmax,
+          f"ebone hierarchical: {n_launch} launches, expected (64 + 1) * {nmax}")
+    deg = check_overlay(gc, tp, ov, 8 + 1, ring.cycle_time_ms, "ebone hierarchical")
+    print(f"design ebone hierarchical: n {gc.num_silos}  clusters {len(multi)} (largest {nmax})  "
+          f"ring tau {ring.cycle_time_ms:.6f} ms  tau {ov.cycle_time_ms:.6f} ms  arcs "
+          f"{len(ov.edges)}  max degree {deg}  wall {wall:.4f} s  segment_max launches {n_launch}")
+    rows.append({"net": "ebone_hierarchical", "n": gc.num_silos, "ring_tau": ring.cycle_time_ms,
+                 "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
+
+    n, k = wan
+    gc, labels = clustered_wan(n, k, seed=2)
+    incumbent = Overlay(name="ring", cycle_time_ms=float("inf"),
+                        edges=tuple((i, (i + 1) % n) for i in range(n)))
+    inc_eb = batched_overlay_delay_edges(gc, tp, list(incumbent.edges),
+                                         np.ones((1, n), dtype=bool))
+    inc_tau = float(batched_cycle_time_auto(inc_eb)[0])
+    ov, wall, n_launch = run(lambda: search_overlays_hierarchical(
+        gc, tp, labels=labels, n_restarts=1, n_steps=24, delta_max=8, seed=0,
+        incumbent=incumbent, device=dev))
+    nmax = max(labels.count(c) for c in range(k))
+    check(n_launch == (24 + 1) * nmax,
+          f"wan hierarchical: {n_launch} launches, expected (24 + 1) * {nmax}")
+    deg = check_overlay(gc, tp, ov, 8 + 1, inc_tau, "wan hierarchical")
+    print(f"design wan hierarchical: n {n}  clusters {k} (largest {nmax})  identity-ring tau "
+          f"{inc_tau:.6f} ms  tau {ov.cycle_time_ms:.6f} ms  arcs {len(ov.edges)}  max degree "
+          f"{deg}  wall {wall:.4f} s  segment_max launches {n_launch}")
+    rows.append({"net": f"wan{n}_hierarchical", "n": n, "ring_tau": inc_tau,
+                 "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
+    return {"rows": rows, "launches": launches, "gaia": overlays["gaia"]}
+
+
+def climb_parity_phase(torch, dev) -> None:
+    """The climb's score of its seeds (n_steps=0) on Ebone: the card
+    (segment_max kernel) against the CPU (degree-padded gather), bit for
+    bit, for one universe and for padded multi-universe packs."""
+    import numpy as np
+
+    from repro_torch.core import WORKLOADS, TrainingParams, cluster_silos, make_underlay
+    from repro_torch.core.topologies import (_on_device, _pack_universes, _seed_states,
+                                             _universe, rewire_climb)
+
+    M, Tc = WORKLOADS["inaturalist"]
+    tp = TrainingParams(model_size_mbits=M, local_steps=1)
+    gc = make_underlay("ebone").connectivity_graph(comp_time_ms=Tc)
+    index = {v: k for k, v in enumerate(gc.silos)}
+    single = _universe(gc, tp, index) + _seed_states(
+        gc, tp, index, 16, 2 * gc.num_silos, 8, np.random.default_rng(0), None)[:3]
+    multi = [c for c in cluster_silos(gc, seed=0) if len(c) >= 2]
+    packed, _ = _pack_universes(gc, tp, multi, 2, 7, np.random.default_rng(0), None)
+    cpu = torch.device("cpu")
+    for mode, arrays, delta in (("single", single, 8), ("multi", packed, 7)):
+        taus = []
+        for d in (dev, cpu):
+            res = rewire_climb(*_on_device(d, *arrays[:6]), np.float32(M),
+                               *_on_device(d, *arrays[6:]),
+                               generator=torch.Generator(device=d).manual_seed(0),
+                               n_steps=0, delta_max=delta, multi=mode == "multi")
+            taus.append(res[3].cpu())
+        finite = int(torch.isfinite(taus[0]).sum())
+        check(finite > 0 and torch.equal(taus[0], taus[1]),
+              f"ebone climb score ({mode}) differs between card and CPU")
+        print(f"climb parity ebone ({mode}, {len(taus[0])} restarts, {finite} feasible): "
+              f"card == CPU bit for bit")
+
+
+def design_slice_phase(torch, dev, gaia) -> int:
+    """Gaia's designed overlay -> plan -> 3 DPASGD rounds through the
+    kernel, then one round pallas vs einsum from the same state."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import FederatedBatcher, SyntheticLMStream
+    from repro_torch.fed import DPASGDConfig, init_state, make_train_step, plan_from_overlay
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.optim import momentum
+
+    gc, ov = gaia
+    n = gc.num_silos
+    plan = plan_from_overlay(ov, n)
+    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_silos=n)
+    opt = momentum(0.05, 0.9)
+    fed = DPASGDConfig(local_steps=2, gossip_impl="pallas")
+    step = make_train_step(cfg, fed, opt, plan)
+    state = init_state(cfg, opt, seed=0, device=dev)
+    batcher = FederatedBatcher(SyntheticLMStream(cfg.vocab_size, 16, n_silos=n), 2, 2)
+    rounds = 3
+    reset_launch_counts()
+    losses = []
+    for r in range(rounds):
+        state, metrics = step(state, batch_to_device(batcher.batch(r), dev))
+        losses.append(float(metrics["loss"]))
+    launches = LAUNCHES["gossip_mix"]
+    print(f"slice: gaia sparse_rewire ({len(ov.edges)} arcs, tau {ov.cycle_time_ms:.6f} ms) -> "
+          f"plan with {plan.num_transfers} transfers -> {rounds} DPASGD rounds at "
+          f"{cfg.n_layers} layers d_model {cfg.d_model}, {n} silos: losses "
+          f"{[round(x, 6) for x in losses]}; gossip_mix launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(launches == rounds, f"gossip_mix launched {launches} times in {rounds} rounds")
+    batch = batch_to_device(batcher.batch(rounds), dev)
+    fused = {"params": state["params"].clone(), "opt_state": state["opt_state"].clone(),
+             "step": state["step"]}
+    fused, _ = step(fused, batch)
+    dense, _ = make_train_step(cfg, dataclasses.replace(fed, gossip_impl="einsum"),
+                               opt, plan)(state, batch)
+    diff = float((fused["params"] - dense["params"]).abs().max())
+    print(f"slice: one round pallas vs einsum on the designed plan: max abs param diff {diff:.3g}")
+    check(diff <= 1e-5, f"pallas and einsum rounds on the designed plan differ by {diff}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -258,13 +624,25 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     kern = kernel_phase(torch, dev)
+    seg = segmax_kernel_phase(torch, dev)
     parity_phase(torch, dev)
     tr = train_phase(torch, dev)
     torch.cuda.empty_cache()
     main_shape = slice_shape_phase(torch, dev, tr["K"], tr["n_elems"])
+    t0 = time.perf_counter()
+    design = design_phase(torch, dev)
+    climb_parity_phase(torch, dev)
+    design_slice_phase(torch, dev, design["gaia"])
+    design_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f}; main-path shape "
           f"ms {main_shape['ms']:.4f}; round wall s {[round(s, 4) for s in tr['round_s']]}; "
           f"peak GiB {tr['peak_bytes'] / 2**30:.2f}")
+    print(f"summary: segment_max ebone-climb shape ms {seg['ebone_climb']['ms']:.4f}, scoring "
+          f"shape ms {seg['scoring']['ms']:.4f}; design wall s "
+          f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; segment_max "
+          f"launches {design['launches']} over the design phase; design phases took "
+          f"{design_s:.1f} s")
+    climb = seg["ebone_climb"]
     record = {"kernels": [{
         "name": "gossip_mix",
         "route": "cuda",
@@ -277,6 +655,18 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+    }, {
+        "name": "segment_max",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_max.cu",
+        "replaces": "src/repro/kernels/segment_max.py:82",
+        "launches": design["launches"],
+        "max_abs_err": climb["max_abs_err"],
+        "ms": climb["ms"],
+        "plain_ms": climb["plain_ms"],
+        "bound_ms": climb["bound_ms"],
+        "bound_by": climb["bound_by"],
+        "library_ms": climb["library_ms"],
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,92 @@
-"""Host-side math behind the gossip plans (numpy only): Birkhoff
-decomposition and the consensus matrices."""
+"""Host-side math and topology design of the port.
+
+* numpy copies of the reference's host code: Birkhoff decomposition and
+  consensus matrices, the delay digraph and Eq. 3 pricing
+  (:mod:`.delays`), the underlays of the paper (:mod:`.underlay`,
+  :mod:`.networks_data`), the dense and sparse Karp engines and
+  ``DeltaPricer`` (:mod:`.maxplus_vec`, :mod:`.maxplus_sparse`) and the
+  host designers (:mod:`.topologies`);
+* on a torch device: the sparse Karp twin
+  :func:`~repro_torch.core.maxplus_sparse.batched_cycle_time_sparse_torch`
+  and the rewire climb behind ``search_overlays_jit`` and
+  ``search_overlays_hierarchical``.
+"""
 
 from .birkhoff import birkhoff_decomposition, reconstruct, schedule_cost
 from .consensus import is_doubly_stochastic, local_degree_matrix, ring_matrix
+from .delays import (
+    ConnectivityGraph,
+    SiloParams,
+    TrainingParams,
+    batched_overlay_delay_matrices,
+    connectivity_delay_ms,
+    edge_delay_ms,
+    is_edge_capacitated,
+    overlay_delay_digraph,
+    overlay_delay_matrix,
+    symmetrized_delay_ms,
+)
+from .maxplus import DelayDigraph
+from .maxplus_sparse import (
+    DeltaPricer,
+    EdgeBatch,
+    batched_cycle_time_auto,
+    batched_cycle_time_sparse,
+    batched_cycle_time_sparse_torch,
+    batched_is_strongly_connected_sparse,
+    batched_overlay_delay_edges,
+    critical_circuit_sparse,
+    cycle_time_engine,
+    reachable_from_sparse,
+    scc_labels_sparse,
+)
+from .maxplus_vec import (
+    MISSING,
+    batched_cycle_time,
+    batched_is_strongly_connected,
+    cycle_time_dense,
+    karp_from_levels,
+    missing_mask,
+    reachability_closure,
+    scc_labels,
+)
+from .networks_data import EXPECTED_SIZES, GAIA_SITES, NETWORK_NAMES, WORKLOADS, make_underlay
+from .topologies import (
+    OVERLAY_KINDS,
+    Overlay,
+    algorithm1_mbst,
+    christofides_tour,
+    cluster_silos,
+    delta_prim,
+    design_overlay,
+    evaluate_overlay,
+    mst_overlay,
+    ring_overlay,
+    search_overlays_delta,
+    search_overlays_hierarchical,
+    search_overlays_jit,
+    star_overlay,
+    two_opt_ring_overlay,
+)
+from .underlay import Underlay, haversine_km, link_latency_ms
 
 __all__ = [
-    "birkhoff_decomposition",
-    "reconstruct",
-    "schedule_cost",
-    "is_doubly_stochastic",
-    "local_degree_matrix",
-    "ring_matrix",
+    "birkhoff_decomposition", "reconstruct", "schedule_cost",
+    "is_doubly_stochastic", "local_degree_matrix", "ring_matrix",
+    "ConnectivityGraph", "SiloParams", "TrainingParams",
+    "batched_overlay_delay_matrices", "connectivity_delay_ms", "edge_delay_ms",
+    "is_edge_capacitated", "overlay_delay_digraph", "overlay_delay_matrix",
+    "symmetrized_delay_ms", "DelayDigraph",
+    "DeltaPricer", "EdgeBatch", "batched_cycle_time_auto", "batched_cycle_time_sparse",
+    "batched_cycle_time_sparse_torch", "batched_is_strongly_connected_sparse",
+    "batched_overlay_delay_edges", "critical_circuit_sparse", "cycle_time_engine",
+    "reachable_from_sparse", "scc_labels_sparse",
+    "MISSING", "batched_cycle_time", "batched_is_strongly_connected", "cycle_time_dense",
+    "karp_from_levels", "missing_mask", "reachability_closure", "scc_labels",
+    "EXPECTED_SIZES", "GAIA_SITES", "NETWORK_NAMES", "WORKLOADS", "make_underlay",
+    "OVERLAY_KINDS", "Overlay", "algorithm1_mbst", "christofides_tour", "cluster_silos",
+    "delta_prim", "design_overlay", "evaluate_overlay", "mst_overlay", "ring_overlay",
+    "search_overlays_delta", "search_overlays_hierarchical", "search_overlays_jit",
+    "star_overlay", "two_opt_ring_overlay",
+    "Underlay", "haversine_km", "link_latency_ms",
 ]

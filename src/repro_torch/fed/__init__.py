@@ -12,7 +12,8 @@
   :func:`~repro_torch.fed.dpasgd.make_train_step`,
   :func:`~repro_torch.fed.dpasgd.init_state`,
   :func:`~repro_torch.fed.dpasgd.local_sgd_steps` — the Eq. 2 train step;
-* :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
+* :func:`~repro_torch.fed.topology_runtime.plan_from_overlay` (a designed
+  overlay) and :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
 """
 
 from .dpasgd import DPASGDConfig, init_state, local_sgd_steps, make_train_step
@@ -24,7 +25,7 @@ from .gossip import (
     gossip_fused,
     gossip_permute,
 )
-from .topology_runtime import plan_for_n_silos
+from .topology_runtime import plan_for_n_silos, plan_from_overlay
 
 __all__ = [
     "DPASGDConfig",
@@ -38,4 +39,5 @@ __all__ = [
     "gossip_fused",
     "gossip_permute",
     "plan_for_n_silos",
+    "plan_from_overlay",
 ]

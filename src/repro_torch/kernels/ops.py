@@ -17,8 +17,9 @@ from typing import Dict, Optional
 import torch
 
 from .gossip_mix import gossip_mix_cuda, gossip_mix_ref
+from .segment_max import edge_segment_max_cuda, edge_segment_max_ref
 
-LAUNCHES: Dict[str, int] = {"gossip_mix": 0}
+LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "segment_max": 0}
 
 
 def reset_launch_counts() -> None:
@@ -40,3 +41,20 @@ def gossip_mix(neighbor_blocks: torch.Tensor, weights: torch.Tensor, *,
         LAUNCHES["gossip_mix"] += 1
         return res
     raise ValueError(f"gossip_mix: no kernel for device {neighbor_blocks.device}")
+
+
+def edge_segment_max(vals: torch.Tensor, seg_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """``out[b, s] = max vals[b, e]`` over ``seg_ids[b, e] == s`` for
+    ``[B, E]`` float values and integer ids into ``[B, S]`` (``-inf`` for
+    empty segments; out-of-range ids dropped).  Counterpart of
+    ``repro.kernels.ops.edge_segment_max``."""
+    if vals.device.type == "cpu":
+        return edge_segment_max_ref(vals, seg_ids, num_segments)
+    if vals.is_cuda:
+        ids = seg_ids.to(device=vals.device, dtype=torch.int32).contiguous()
+        res = edge_segment_max_cuda(vals.contiguous(), ids, num_segments)
+        if res.numel():
+            LAUNCHES["segment_max"] += 1
+        return res
+    raise ValueError(f"edge_segment_max: no kernel for device {vals.device}")

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import TrainingParams, design_overlay, make_underlay  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.fed import init_state  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -74,7 +75,10 @@ def _cfg():
     lambda: init_params(model_specs(_cfg())),
     lambda: from_jax_params({"w": [[1.0]]}),
     lambda: train(_cfg(), steps=1),
-], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train"])
+    lambda: design_overlay("sparse_rewire", make_underlay("gaia").connectivity_graph(25.4),
+                           TrainingParams(42.88)),
+], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
+        "design_overlay"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
