@@ -42,7 +42,23 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 9. trains on a designed plan: Gaia's overlay -> ``plan_from_overlay`` ->
    3 DPASGD rounds (``gossip_impl="pallas"``, 11 silos, the reduced
    internlm2-1.8b), one ``gossip_mix`` launch per round, then one round
-   pallas vs einsum (<= 1e-5).
+   pallas vs einsum (<= 1e-5);
+10. holds ``flash_attention`` (K3) against its plain version on the card
+   (float32 at 2e-5, bfloat16 at 2e-2; B in {1, 2} x S in {128, 256,
+   1024} x K in {1, 2, 8} x G in {1, 2, 4} x hd in {32, 64, 80, 128} x
+   windows None, 32, 64, 100, 4096) and times it at h2o-danube-1.8b's
+   prefill shape (B=2, S=T=8192, K=8, G=4, hd=80, window 4096, float32)
+   beside its plain version, ``scaled_dot_product_attention`` and its
+   bound;
+11. drives the serving path through ``repro_torch.launch.serve.serve``:
+   h2o-danube-1.8b at full size (24 layers, random weights from seed 0,
+   batch 2, an 8192-token prompt past the 4096 window, 32 tokens) with
+   the kernel: one launch per layer in the prefill and none in decode,
+   the prefill's last logits against the plain-path prefill (<= 2e-3) and
+   the last decode step against a teacher-forced forward (<= 5e-3);
+   internlm2-1.8b at full size (batch 4, prompt 1024, 16 tokens); and the
+   reduced danube on the card against the CPU path from the same weights
+   (<= 1e-4).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -55,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +83,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K3's sweep against its plain version, and h2o-danube-1.8b's prefill shape
+# (B, S = T, K, G, hd, window) where it is timed
+K3_SWEEP = {"B": (1, 2), "S": (128, 256, 1024), "K": (1, 2, 8), "G": (1, 2, 4),
+            "hd": (32, 64, 80, 128), "window": (None, 32, 64, 100, 4096)}
+K3_MAIN = (2, 8192, 8, 4, 80, 4096)
+# serving runs at full size: (arch, batch, prompt length, tokens generated)
+SERVE_RUNS = (("h2o-danube-1.8b", 2, 8192, 32), ("internlm2-1.8b", 4, 1024, 16))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -597,6 +621,226 @@ def design_slice_phase(torch, dev, gaia) -> int:
     return launches
 
 
+def attn_pairs(S: int, T: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one (batch, head) at positions
+    0..S-1 against 0..T-1."""
+    total = 0
+    for q in range(S):
+        lo = 0 if window is None else max(0, q - window + 1)
+        hi = min(T - 1, q) if causal else T - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attn_bound_ms(B: int, S: int, T: int, K: int, G: int, hd: int, window,
+                  elem_bytes: int) -> tuple:
+    """Least time of the attention: 4*hd operations (the score's and the
+    value product's multiply-adds) per visible pair at the float32 rate,
+    or q, k, v read once and the output written once at the memory rate."""
+    ops = 4 * hd * attn_pairs(S, T, True, window) * B * K * G
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = (2 * B * S * K * G * hd + 2 * B * T * K * hd) * elem_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_kernel_phase(torch, dev) -> dict:
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    sw = K3_SWEEP
+    for B in sw["B"]:
+        for S in sw["S"]:
+            for K in sw["K"]:
+                for G in sw["G"]:
+                    for hd in sw["hd"]:
+                        q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+                        k = torch.randn((B, S, K, hd), generator=gen, device=dev)
+                        v = torch.randn((B, S, K, hd), generator=gen, device=dev)
+                        for name, dtype in (("float32", torch.float32),
+                                            ("bfloat16", torch.bfloat16)):
+                            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+                            for window in sw["window"]:
+                                got = flash_attention(qd, kd, vd, causal=True, window=window)
+                                torch.cuda.synchronize()
+                                ref = flash_attention_ref(qd, kd, vd, causal=True, window=window)
+                                err = float((got.float() - ref.float()).abs().max())
+                                check(got.dtype == dtype and torch.allclose(
+                                    got.float(), ref.float(), atol=TOL[name], rtol=TOL[name]),
+                                    f"flash_attention {name} B={B} S={S} K={K} G={G} hd={hd} "
+                                    f"window={window}: max abs err {err}")
+                                worst[name] = max(worst[name], err)
+                                n_cases += 1
+    print(f"kernel flash_attention: sweep " + " x ".join(f"{k} {v}" for k, v in sw.items())
+          + f" x f32/bf16 ({n_cases} cases) within tolerance (max abs err f32 "
+          f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g})")
+
+    B, S, K, G, hd, window = K3_MAIN
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"flash_attention at the danube prefill shape: max abs err {err}")
+    del got
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window),
+                 reps=5, warmup=1)
+    plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True, window=window),
+                    reps=2, warmup=1)
+    # Yardstick only, never called by the port: one scaled_dot_product_attention
+    # over [B, H, S, hd] with the kv heads grouped and a boolean causal+window mask.
+    F = torch.nn.functional
+    qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    try:
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        sdpa_err = float((sdpa.transpose(1, 2).reshape(q.shape) - ref).abs().max())
+        del sdpa
+        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), reps=2, warmup=0)
+        lib_txt = f"{library:.4f} (max abs diff to plain {sdpa_err:.3g})"
+    except torch.OutOfMemoryError as exc:
+        library, lib_txt = None, f"not measured ({str(exc).splitlines()[0][:80]})"
+    del ref
+    torch.cuda.empty_cache()
+    bound, by = attn_bound_ms(B, S, S, K, G, hd, window, 4)
+    pairs = attn_pairs(S, S, True, window) * B * K * G
+    print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} window={window} f32 "
+          f"(danube prefill): ms {ms:.4f}  plain_ms {plain:.4f}  library_ms "
+          f"scaled_dot_product_attention {lib_txt}  bound_ms {bound:.4f} ({by}; {pairs} "
+          f"visible pairs)  max_abs_err {err:.3g}  achieved "
+          f"{4 * hd * pairs / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": max(err, worst["float32"])}
+
+
+def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float) -> None:
+    """Where a full-size prefill's and a decode step's time goes:
+    ``torch.profiler`` device time by kernel against the traced and the
+    untraced wall."""
+    from repro_torch.models import transformer as T
+
+    def top(kernels, n=6):
+        for name, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:n]:
+            print(f"  serve kernel {us / 1e3:9.3f} ms  x{count:<6d} {name[:100]}")
+
+    with torch.no_grad():
+        state = {}
+        traced, kernels = device_kernels(torch, lambda: state.update(cache=T.prefill(
+            params, cfg, prompts, max_len, cache_dtype=torch.float32)[1]))
+        if not kernels:
+            print("serve profile: device time not measured (no device events)")
+            return
+        busy = sum(us for _, us in kernels.values()) / 1e6
+        k3 = sum(us for k, (_, us) in kernels.items() if "flash_attention_kernel" in k) / 1e6
+        print(f"serve profile {cfg.arch_id} prefill: traced wall {traced:.4f} s, device busy "
+              f"{busy:.4f} s over {sum(c for c, _ in kernels.values())} kernels, "
+              f"flash_attention {k3:.4f} s ({k3 / busy:.3f} of busy)")
+        top(kernels)
+        tok = prompts[:, -1]
+        steps = 4
+        pos = prompts.shape[1]
+
+        def decode():
+            for i in range(steps):
+                T.decode_step(params, cfg, tok, state["cache"], pos + i)
+
+        traced, kernels = device_kernels(torch, decode)
+    busy = sum(us for _, us in kernels.values()) / 1e6 / steps
+    n = sum(c for c, _ in kernels.values()) / steps
+    print(f"serve profile {cfg.arch_id} decode: {steps} steps, traced wall "
+          f"{traced / steps:.4f} s a step, device busy {busy:.5f} s a step over {n:.0f} kernels; "
+          f"idle share of the untraced {decode_step_s:.4f} s step {1 - busy / decode_step_s:.4f}")
+    top(kernels)
+
+
+def serve_phase(torch, dev) -> dict:
+    """The serving path at full size, each run with the counts set to 0
+    just before it and read just after, then checked against the plain
+    path, a teacher-forced forward and the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    for arch, batch, prompt_len, gen in SERVE_RUNS:
+        cfg = get_config(arch, use_flash_kernel=True)
+        print(f"serve: {arch} d_model {cfg.d_model} heads {cfg.n_heads} kv_heads "
+              f"{cfg.n_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab "
+              f"{cfg.vocab_size} window {cfg.sliding_window} layers {cfg.n_layers}; batch "
+              f"{batch}, prompt {prompt_len}, {gen} tokens, float32, flash kernel")
+        params = init_params(model_specs(cfg), seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=0, device=dev,
+                    params=params, log=lambda line: print(f"serve: {line}", flush=True))
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        fa = res.launches["prefill"]["flash_attention"]
+        check(launches["flash_attention"] == fa == cfg.n_layers,
+              f"{arch}: flash_attention launched {launches['flash_attention']} times, "
+              f"expected {cfg.n_layers} (one per layer)")
+        check(res.launches["decode"]["flash_attention"] == 0, f"{arch}: decode launched K3")
+        check(bool(torch.isfinite(res.prefill_logits).all()), f"{arch}: non-finite prefill logits")
+        with torch.no_grad():
+            plain, _ = T.prefill(params, dataclasses.replace(cfg, use_flash_kernel=False),
+                                 res.prompts, prompt_len + gen, cache_dtype=torch.float32)
+        d_prefill = float((res.prefill_logits - plain).abs().max())
+        check(torch.allclose(res.prefill_logits, plain, atol=2e-3, rtol=2e-3),
+              f"{arch}: kernel prefill vs plain prefill max abs diff {d_prefill}")
+        del plain
+        seq = torch.cat([res.prompts, res.ids[:, :-1]], dim=1)
+        with torch.no_grad():  # the chunked path: the length is not a multiple of 128
+            full = T.forward(params, dataclasses.replace(cfg, remat=False,
+                                                         use_flash_kernel=False), seq)[:, -1]
+        d_decode = float((res.logits - full).abs().max())
+        check(torch.allclose(res.logits, full, atol=5e-3, rtol=5e-3),
+              f"{arch}: last decode step vs teacher-forced forward max abs diff {d_decode}")
+        serve_profile(torch, params, cfg, res.prompts, prompt_len + gen,
+                      res.decode_s / (gen - 1))
+        del full, params, seq
+        print(f"serve: {arch} prefill {res.prefill_s:.4f} s  decode {res.decode_tok_s:.2f} tok/s "
+              f"({gen - 1} steps x batch {batch} in {res.decode_s:.4f} s)  peak device memory "
+              f"{peak / 2**30:.2f} GiB  flash_attention launches prefill {fa} decode "
+              f"{res.launches['decode']['flash_attention']}  kernel vs plain prefill logits "
+              f"{d_prefill:.3g} (tol 2e-3)  last decode vs forward {d_decode:.3g} (tol 5e-3)")
+        out[arch] = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+                     "peak_bytes": peak, "launches": fa}
+        del res
+        torch.cuda.empty_cache()
+
+    # card (kernel) vs CPU (plain version) at the reduced size, same weights
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(), use_flash_kernel=True)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    runs = [serve(cfg, batch=2, prompt_len=128, gen=4, device=d, prompts=prompts,
+                  params=p, log=lambda line: None)
+            for d, p in ((dev, tree_map(lambda t: t.to(dev), params)), ("cpu", params))]
+    d_pre = float((runs[0].prefill_logits.cpu() - runs[1].prefill_logits).abs().max())
+    d_last = float((runs[0].logits.cpu() - runs[1].logits).abs().max())
+    print(f"serve parity: reduced danube (2 layers, d_model {cfg.d_model}, window "
+          f"{cfg.sliding_window}) at prompt 128, card vs CPU: prefill logits {d_pre:.3g}, "
+          f"last decode logits {d_last:.3g} (tolerance 1e-4); ids equal "
+          f"{bool(torch.equal(runs[0].ids.cpu(), runs[1].ids))}")
+    check(runs[0].launches["prefill"]["flash_attention"] == cfg.n_layers,
+          "reduced danube on the card did not go through the kernel")
+    check(torch.equal(runs[0].ids.cpu(), runs[1].ids) and d_pre <= 1e-4 and d_last <= 1e-4,
+          f"card and CPU serving differ: prefill {d_pre}, last {d_last}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -619,9 +863,15 @@ def main() -> int:
     print(f"kernel build: {len(logs)} of {len(kernel_sources())} sources compiled "
           f"in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                # the mangled kernel name and template arguments, e.g.
+                # flash_attention_kernel<fLi80> for <float, 80>
+                m = re.search(r"([a-z_]+_kernel)I(.+?)EE", line)
+                entry = f"{m.group(1)}<{m.group(2)}>" if m else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
 
     kern = kernel_phase(torch, dev)
     seg = segmax_kernel_phase(torch, dev)
@@ -634,6 +884,10 @@ def main() -> int:
     climb_parity_phase(torch, dev)
     design_slice_phase(torch, dev, design["gaia"])
     design_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attn = flash_kernel_phase(torch, dev)
+    served = serve_phase(torch, dev)
+    serve_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f}; main-path shape "
           f"ms {main_shape['ms']:.4f}; round wall s {[round(s, 4) for s in tr['round_s']]}; "
           f"peak GiB {tr['peak_bytes'] / 2**30:.2f}")
@@ -642,6 +896,12 @@ def main() -> int:
           f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; segment_max "
           f"launches {design['launches']} over the design phase; design phases took "
           f"{design_s:.1f} s")
+    danube = served["h2o-danube-1.8b"]
+    print(f"summary: flash_attention danube prefill shape ms {attn['ms']:.4f} (bound "
+          f"{attn['bound_ms']:.4f}); serve prefill s / decode tok/s / peak GiB: " + "; ".join(
+              f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / "
+              f"{r['peak_bytes'] / 2**30:.2f}" for a, r in served.items())
+          + f"; serving phases took {serve_s:.1f} s")
     climb = seg["ebone_climb"]
     record = {"kernels": [{
         "name": "gossip_mix",
@@ -667,6 +927,18 @@ def main() -> int:
         "bound_ms": climb["bound_ms"],
         "bound_by": climb["bound_by"],
         "library_ms": climb["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:81",
+        "launches": danube["launches"],
+        "max_abs_err": attn["max_abs_err"],
+        "ms": attn["ms"],
+        "plain_ms": attn["plain_ms"],
+        "bound_ms": attn["bound_ms"],
+        "bound_by": attn["bound_by"],
+        "library_ms": attn["library_ms"],
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,7 @@ from typing import Dict, List
 from repro_torch.models import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
     "internlm2-1.8b": "internlm2_1_8b",
 }
 
@@ -23,7 +24,9 @@ ARCH_IDS: List[str] = list(_MODULES)
 def get_config(arch_id: str, **overrides) -> ModelConfig:
     """The registered config with ``overrides`` applied.  Overriding
     ``n_layers`` alone re-derives the (all-``"attn"``) block pattern, so
-    ``get_config(arch, n_layers=4)`` cuts the depth."""
+    ``get_config(arch, n_layers=4)`` cuts the depth, and
+    ``get_config(arch, use_flash_kernel=True)`` sends prefill attention
+    through the K3 kernel, as the reference's override does."""
     key = arch_id.lower()
     if key not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {arch_id!r}; available: {ARCH_IDS}")

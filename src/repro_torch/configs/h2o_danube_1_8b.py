@@ -1,0 +1,16 @@
+"""h2o-danube-1.8b [dense]: llama+mistral mix with sliding-window
+attention [arXiv:2401.16818].  24L d_model=2560 32H (GQA kv=8)
+d_ff=6912 vocab=32000; mistral-style SWA window 4096."""
+
+from repro_torch.models import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="h2o-danube-1.8b",
+    n_layers=24,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6912,
+    vocab_size=32000,
+    sliding_window=4096,
+)

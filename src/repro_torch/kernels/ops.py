@@ -12,14 +12,15 @@ account for and reads it after.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from .flash_attention import check_inputs, flash_attention_cuda, flash_attention_ref
 from .gossip_mix import gossip_mix_cuda, gossip_mix_ref
 from .segment_max import edge_segment_max_cuda, edge_segment_max_ref
 
-LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "segment_max": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "segment_max": 0}
 
 
 def reset_launch_counts() -> None:
@@ -58,3 +59,22 @@ def edge_segment_max(vals: torch.Tensor, seg_ids: torch.Tensor,
             LAUNCHES["segment_max"] += 1
         return res
     raise ValueError(f"edge_segment_max: no kernel for device {vals.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: Any = None, kv_pos: Any = None, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Forward GQA attention, q ``[B, S, K, G, hd]`` against k, v
+    ``[B, T, K, hd]`` (float32 or bfloat16; ``S`` and ``T`` multiples of
+    128), causal and optionally windowed, softmax in float32, output in
+    q's dtype.  Counterpart of ``repro.kernels.ops.flash_attention``: like
+    it, it takes ``q_pos``/``kv_pos`` and ignores them, since the
+    positions are ``0..S-1`` and ``0..T-1``."""
+    check_inputs(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.is_cuda:
+        res = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        LAUNCHES["flash_attention"] += 1
+        return res
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")

@@ -1,0 +1,131 @@
+"""Serving launcher: batched prefill + decode with KV caches, on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+        --batch 2 --prompt-len 8192 --gen 32 --flash-kernel
+
+Counterpart of ``repro.launch.serve`` for the dense family, with the same
+flags plus ``--device`` (default ``cuda``; ``--device cpu`` with
+``--reduced`` runs the small variant on the CPU), ``--seed`` (weights and
+prompts) and ``--flash-kernel``, which sets the reference's
+``use_flash_kernel`` so that prefill attention runs through the K3 kernel
+(after ``--reduced``, which turns it off).  Parameters and caches are
+float32, as in the reference's launcher.  ``main`` parses the flags and
+calls :func:`serve`, which scripts call with their own weights, prompts
+or depth.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import LAUNCHES
+from repro_torch.models import ModelConfig, init_params, model_specs
+from repro_torch.models import transformer as T
+
+
+@dataclass
+class ServeResult:
+    prompts: torch.Tensor            # [B, prompt_len] int64
+    ids: torch.Tensor                # [B, gen] generated ids (greedy)
+    logits: torch.Tensor             # [B, V] logits of the last step
+    prefill_logits: torch.Tensor     # [B, V] last-token logits of the prefill
+    prefill_s: float                 # host clock, after a device synchronise
+    decode_s: float
+    decode_tok_s: float              # B * (gen - 1) / decode_s
+    launches: Dict[str, Dict[str, int]]  # kernel launches in "prefill" / "decode"
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          max_len: int = 0, seed: int = 0, device: DeviceLike = "cuda",
+          params=None, prompts: Optional[np.ndarray] = None,
+          log: Callable[[str], None] = print) -> ServeResult:
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
+    greedily to ``gen`` tokens in all.  Weights come from ``init_params``
+    with ``seed`` unless ``params`` is given; prompts from a numpy
+    generator seeded with ``seed`` unless ``prompts`` is given.  Decode
+    positions are Python ints, so no step waits for the device."""
+    if gen < 1:
+        raise ValueError(f"gen must be >= 1, got {gen}")
+    dev = resolve_device(device)
+    max_len = max_len or (prompt_len + gen)
+    if params is None:
+        params = init_params(model_specs(cfg), seed=seed, device=dev)
+    if prompts is None:
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, prompt_len))
+    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long).to(dev)
+    B, S = tokens.shape
+    with torch.no_grad():
+        _sync(dev)
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, tokens, max_len, cache_dtype=torch.float32)
+        tok = logits.argmax(-1)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        mid = dict(LAUNCHES)
+        log(f"prefill[{B}x{S}] in {prefill_s:.2f}s")
+        prefill_logits = logits
+        out: List[torch.Tensor] = [tok]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = T.decode_step(params, cfg, tok, cache, S + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+    after = dict(LAUNCHES)
+    toks = B * (gen - 1)
+    tok_s = toks / max(decode_s, 1e-9)
+    log(f"decode {gen - 1} steps x batch {B}: {decode_s:.2f}s ({tok_s:.1f} tok/s on {dev.type})")
+    ids = torch.stack(out, dim=1)
+    log(f"generated ids[0]: {ids[0, :16].tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite logits")
+    return ServeResult(
+        prompts=tokens, ids=ids, logits=logits, prefill_logits=prefill_logits,
+        prefill_s=prefill_s, decode_s=decode_s, decode_tok_s=tok_s,
+        launches={"prefill": {k: mid[k] - before[k] for k in before},
+                  "decode": {k: after[k] - mid[k] for k in before}})
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--flash-kernel", action="store_true",
+                    help="prefill attention through the K3 kernel (prompt-len a multiple of 128)")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.flash_kernel:
+        cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+          max_len=args.max_len, seed=args.seed, device=args.device,
+          log=lambda line: print(line, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

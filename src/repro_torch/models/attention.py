@@ -1,17 +1,22 @@
-"""GQA attention (causal / sliding-window) on the chunked online-softmax
-path; counterpart of ``repro.models.attention`` (``attn_specs``,
-``chunked_attention``, ``attn_forward``).
+"""GQA attention (causal / sliding-window) and its serving caches;
+counterpart of ``repro.models.attention`` (``attn_specs``,
+``chunked_attention``, ``naive_attention``, ``attn_forward``, the KV
+caches and ``attn_decode``).
 
-Written as plain tensor code: one score block per ``kv_block`` keys,
-running max and normaliser in float32, masked scores set to ``MASKED``.
-The flash-attention kernel of the reference (K3) is a later slice.
+Full-sequence attention runs on the chunked online-softmax path (one
+score block per ``kv_block`` keys, running max and normaliser in
+float32, masked scores set to ``MASKED``), or, when
+``cfg.use_flash_kernel`` and the attention is causal, through the
+flash-attention kernel (K3, :func:`repro_torch.kernels.flash_attention`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 from .config import ModelConfig
 from .layers import apply_rope, rope_angles
@@ -76,12 +81,26 @@ def chunked_attention(
     return out.to(q.dtype)
 
 
-def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, *, causal: bool = True,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """GQA block forward on the chunked path.  x: [B, S, D]."""
+def naive_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """O(S*T) reference used for small-shape correctness tests."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bskgd,btkd->bskgt", q.to(torch.float32) * scale,
+                     k.to(torch.float32))
+    mask = kv_pos[None, :] >= 0
+    if causal:
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
+    s = torch.where(mask[None, :, None, None, :], s, MASKED)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bskgt,btkd->bskgd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def _qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor):
+    """Projections and RoPE: q [B, S, K, G, hd], k and v [B, S, K, hd]."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // K
     B, S = x.shape[:2]
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, K, hd)
@@ -89,6 +108,77 @@ def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    qg = q.reshape(B, S, K, G, hd)
-    out = chunked_attention(qg, k, v, positions, positions, causal=causal, window=window)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return q.reshape(B, S, K, H // K, hd), k, v
+
+
+def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, *, causal: bool = True,
+                 window: Optional[int] = None, return_kv: bool = False):
+    """GQA block forward.  x: [B, S, D].  Causal attention goes through
+    the flash-attention kernel when ``cfg.use_flash_kernel``, else the
+    chunked path.  With ``return_kv`` also returns the post-RoPE
+    ``(k, v)`` for the serving cache."""
+    B, S = x.shape[:2]
+    qg, k, v = _qkv(p, cfg, x, positions)
+    if cfg.use_flash_kernel and causal:
+        out = kops.flash_attention(qg, k, v, positions, positions,
+                                   causal=causal, window=window)
+    else:
+        out = chunked_attention(qg, k, v, positions, positions, causal=causal,
+                                window=window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: Optional[int],
+                  dtype: torch.dtype, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Empty cache: ``min(max_len, window)`` slots (a ring buffer under a
+    window), ``pos`` -1 for every free slot."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    size = min(max_len, window) if window is not None else max_len
+    return {
+        "k": torch.zeros((batch, size, K, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, K, hd), dtype=dtype, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def fill_kv_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Write prefill K/V into a (possibly ring-buffered) cache: the last
+    ``min(S, size)`` positions, each at slot ``pos % size``.  Updates the
+    cache in place (the reference returns a new one) and returns it."""
+    size = cache["k"].shape[1]
+    take = min(k.shape[1], size)
+    pos_t = positions[-take:]
+    slots = pos_t % size
+    cache["k"][:, slots] = k[:, -take:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, -take:].to(cache["v"].dtype)
+    cache["pos"][slots] = pos_t.to(torch.int32)
+    return cache
+
+
+def attn_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], position: int, *,
+                window: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against a (possibly ring-buffered) KV cache.
+    x: [B, 1, D]; ``position`` a Python int, so nothing here waits for the
+    device.  Writes the token's K/V into the cache in place and attends
+    over the whole cache on the chunked path."""
+    B = x.shape[0]
+    pos_arr = torch.arange(position, position + 1, device=x.device)
+    qg, k, v = _qkv(p, cfg, x, pos_arr)
+    cache_len = cache["k"].shape[1]
+    slot = position if window is None else position % cache_len
+    # The reference writes with lax.dynamic_update_slice, which clamps a
+    # start index so that the update fits: a slot past the end of an
+    # unwindowed cache lands on its last slot.
+    slot = min(max(slot, 0), cache_len - 1)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = position
+    out = chunked_attention(qg, cache["k"], cache["v"], pos_arr, cache["pos"],
+                            causal=True, window=window)
+    return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"], cache

@@ -1,17 +1,18 @@
 """Model configuration of the dense GQA transformer.
 
 Counterpart of ``repro.models.config.ModelConfig``, cut to the fields a
-dense causal attention + SwiGLU stack reads.  The other block kinds of
-the reference (MoE, MLA, xLSTM, Hymba, encoder-decoder), sliding-window
-layers and tied embeddings are not ported yet; ``block_pattern`` accepts
-only ``"attn"``.
+dense causal attention + SwiGLU stack reads, sliding-window layers and
+the flash-attention kernel switch included.  The other block kinds of
+the reference (MoE, MLA, xLSTM, Hymba, encoder-decoder) and tied
+embeddings are not ported yet; ``block_pattern`` accepts only
+``"attn"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -25,9 +26,12 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                      # 0 -> d_model // n_heads
     block_pattern: Tuple[str, ...] = ()    # len == n_layers; default "attn"
+    sliding_window: Optional[int] = None   # SWA window (danube)
+    global_attn_every: int = 0             # every k-th layer full attention
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     n_silos: int = 1
+    use_flash_kernel: bool = False         # prefill attention through the K3 kernel
     remat: bool = True                     # recompute each block in backward
 
     def __post_init__(self):
@@ -50,6 +54,13 @@ class ModelConfig:
         logits are sliced back to ``vocab_size``."""
         return ((self.vocab_size + 127) // 128) * 128
 
+    def layer_uses_window(self, layer: int) -> bool:
+        if self.sliding_window is None:
+            return False
+        if self.global_attn_every and (layer % self.global_attn_every == 0):
+            return False
+        return True
+
     def reduced(self, *, n_layers: int = 2, d_model: int = 256) -> "ModelConfig":
         """A tiny same-family variant for CPU tests (the reference's
         ``reduced()`` on the dense fields)."""
@@ -69,4 +80,6 @@ class ModelConfig:
             d_ff=max(64, int(self.d_ff * scale)) if self.d_ff else 0,
             vocab_size=min(512, self.vocab_size),
             block_pattern=self.block_pattern[:n_layers],
+            sliding_window=min(self.sliding_window, 32) if self.sliding_window else None,
+            use_flash_kernel=False,
         )

@@ -23,8 +23,10 @@ def rope_angles(positions: torch.Tensor, dim: int,
     cos, sin of shape [..., dim//2]."""
     half = dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # a device-side fill, not torch.tensor(theta, device=...): a copy from
+    # the host would wait for the device on every call (every decode step)
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / torch.pow(base, exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -1,13 +1,16 @@
-"""Model assembly for the dense GQA transformer: the parameter spec tree
-and ``forward`` / ``loss_fn`` for training.  Counterpart of
+"""Model assembly for the dense GQA transformer: the parameter spec tree,
+``forward`` / ``loss_fn`` for training, and ``init_cache`` / ``prefill``
+/ ``decode_step`` for serving.  Counterpart of
 ``repro.models.transformer`` on its ``"attn"`` block kind."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.device import DeviceLike, resolve_device
 
 from . import attention as A
 from .config import ModelConfig
@@ -46,12 +49,20 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _block_forward(p, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    x = x + A.attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                           positions, causal=True)
+def _window(cfg: ModelConfig, layer: int):
+    return cfg.sliding_window if cfg.layer_uses_window(layer) else None
+
+
+def _mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xin = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(xin, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+
+
+def _block_forward(p, cfg: ModelConfig, layer: int, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    x = x + A.attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+                           positions, causal=True, window=_window(cfg, layer))
+    return _mlp(p, cfg, x)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -59,14 +70,61 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     reference also returns an auxiliary loss, which is 0 for dense blocks.)"""
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for p in params["layers"]:
+    for layer, p in enumerate(params["layers"]):
         if cfg.remat:
-            x = checkpoint(_block_forward, p, cfg, x, positions, use_reentrant=False)
+            x = checkpoint(_block_forward, p, cfg, layer, x, positions, use_reentrant=False)
         else:
-            x = _block_forward(p, cfg, x, positions)
+            x = _block_forward(p, cfg, layer, x, positions)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x @ params["lm_head"])[..., : cfg.vocab_size]
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return softmax_cross_entropy(forward(params, cfg, batch["tokens"]), batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device: DeviceLike = "cuda") -> List[Dict[str, torch.Tensor]]:
+    """One KV cache per layer; a windowed layer's is a ring buffer of
+    ``min(max_len, window)`` slots."""
+    dev = resolve_device(device)
+    return [A.init_kv_cache(cfg, batch, max_len, _window(cfg, layer), dtype, dev)
+            for layer in range(cfg.n_layers)]
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
+            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """Serving prefill: full forward, filling the serving cache.  Returns
+    (last-token logits [B, V], cache ready for decode at position S).
+    Attention goes through the flash-attention kernel when
+    ``cfg.use_flash_kernel``."""
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], tokens)
+    positions = torch.arange(S, device=x.device)
+    cache = init_cache(cfg, B, max_len, cache_dtype, x.device)
+    for layer, (p, c) in enumerate(zip(params["layers"], cache)):
+        h, (k, v) = A.attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+                                   positions, causal=True, window=_window(cfg, layer),
+                                   return_kv=True)
+        A.fill_kv_cache(c, k, v, positions)
+        x = _mlp(p, cfg, x + h)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return (x[:, -1] @ params["lm_head"])[:, : cfg.vocab_size], cache
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
+                cache: List[Dict[str, torch.Tensor]],
+                position: int) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """One-token decode at ``position`` (a Python int): token [B] ->
+    (logits [B, V], cache).  Updates the cache in place and returns it."""
+    x = embed_tokens(params["embed"], token[:, None])
+    for layer, (p, c) in enumerate(zip(params["layers"], cache)):
+        h, _ = A.attn_decode(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), c,
+                             position, window=_window(cfg, layer))
+        x = _mlp(p, cfg, x + h)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return (x[:, 0] @ params["lm_head"])[:, : cfg.vocab_size], cache

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.kernels import LAUNCHES, edge_segment_max, gossip_mix  # noqa: E402
+from repro_torch.kernels import LAUNCHES, edge_segment_max, flash_attention, gossip_mix  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.gossip_mix import gossip_mix_ref  # noqa: E402
 from repro_torch.kernels.segment_max import edge_segment_max_ref  # noqa: E402
 
@@ -113,3 +114,76 @@ def test_climb_launches_one_kernel_per_karp_level(cuda):
     ov = P.search_overlays_jit(gc, tp, n_restarts=4, n_steps=5, device=cuda)
     assert LAUNCHES["segment_max"] - before == (5 + 1) * gc.num_silos
     assert ov.cycle_time_ms <= P.ring_overlay(gc, tp).cycle_time_ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K,G,hd,window", [
+    (1, 128, 1, 1, 32, None), (2, 256, 2, 2, 64, None), (1, 256, 4, 1, 128, 64),
+    (2, 128, 1, 4, 32, 32), (1, 1024, 2, 4, 80, 100), (2, 256, 8, 4, 80, 4096),
+    (1, 256, 2, 3, 64, 100),   # G = 3: ragged query tiles (21 positions a block)
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, K, G, hd, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S * hd + G)
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=gen, device=cuda).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    expect = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), expect.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 0, 64])
+def test_flash_attention_kernel_non_causal_and_empty_window(cuda, window):
+    """Non-causal attention, and a window of 0 with causal masking (every
+    key masked: the reference's weights of 1 over all keys)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 256, 2, 2, 64), generator=gen, device=cuda)
+    k = torch.randn((1, 256, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((1, 256, 2, 64), generator=gen, device=cuda)
+    for causal in (False, True):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        expect = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, expect, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_checks_inputs(cuda):
+    q = torch.randn((1, 128, 1, 1, 48), device=cuda)
+    k = torch.randn((1, 128, 1, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, k)
+    q = torch.randn((1, 128, 2, 2, 64), device=cuda)
+    k = torch.randn((1, 128, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        flash_attention(q[:, :64], k, k)
+
+
+@pytest.mark.gpu
+def test_serving_prefill_through_kernel_matches_cpu(cuda):
+    """The reduced danube prefill at S=128: kernel on the card against the
+    plain version on the CPU, from the same weights; one launch per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(), use_flash_kernel=True)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128)))
+    with torch.no_grad():
+        ref, _ = T.prefill(params, cfg, tokens, 160, cache_dtype=torch.float32)
+        before = LAUNCHES["flash_attention"]
+        got, _ = T.prefill(tree_map(lambda t: t.to(cuda), params), cfg, tokens.to(cuda), 160,
+                           cache_dtype=torch.float32)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)

@@ -17,6 +17,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import TrainingParams, design_overlay, make_underlay  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.fed import init_state  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import from_jax_params, init_params, model_specs  # noqa: E402
 from repro_torch.optim import momentum  # noqa: E402
@@ -77,8 +78,9 @@ def _cfg():
     lambda: train(_cfg(), steps=1),
     lambda: design_overlay("sparse_rewire", make_underlay("gaia").connectivity_graph(25.4),
                            TrainingParams(42.88)),
+    lambda: serve(_cfg(), batch=1, gen=2),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
-        "design_overlay"])
+        "design_overlay", "serve"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
