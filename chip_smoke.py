@@ -58,7 +58,29 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    the last decode step against a teacher-forced forward (<= 5e-3);
    internlm2-1.8b at full size (batch 4, prompt 1024, 16 tokens); and the
    reduced danube on the card against the CPU path from the same weights
-   (<= 1e-4).
+   (<= 1e-4);
+12. holds ``mlstm_scan`` (K4) against its plain chunked version on the
+   card (B in {1, 2} x S in {128, 256, 1024} x H in {1, 4} x hd in {32,
+   64, 128, 512} x chunk in {64, 128} x the forget gate biased by +2 or
+   unbiased, float32 at atol 2e-4 / rtol 2e-3, bfloat16 at 2e-2, finite
+   in every case) and times it at xlstm-350m's forward shape (B=4,
+   S=2048, H=4, hd=512, float32) beside its plain version and its bound;
+13. drives the full-sequence forward of xlstm-350m at full size (24
+   layers, random weights from seed 0, batch 4, 2048 tokens,
+   ``use_flash_kernel``): one ``mlstm_scan`` launch per mLSTM layer (20),
+   finite logits; each mLSTM layer through the kernel within 2e-3 of its
+   plain path on the same input; the logits against the plain forward
+   within 2e-3 or three times the difference between two plain forwards
+   that differ only in chunk length (the sLSTM layers amplify rounding
+   along the sequence), whichever is larger;
+14. serves xlstm-350m at full size through ``serve`` (batch 4, prompt
+   2048, 129 tokens): no ``mlstm_scan`` launch in prefill or decode (they
+   carry the state, as the reference's do), the last decode step against a
+   teacher-forced forward through the kernel (20 launches) within 5e-3 or
+   three times the rounding floor of such forwards, whichever is larger, the
+   sLSTM loop's share and a profile of prefill and decode; then the
+   reduced xlstm on the card against the CPU from the same weights (the
+   served logits and a forward through the kernel, <= 1e-4).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -90,6 +112,18 @@ K3_SWEEP = {"B": (1, 2), "S": (128, 256, 1024), "K": (1, 2, 8), "G": (1, 2, 4),
 K3_MAIN = (2, 8192, 8, 4, 80, 4096)
 # serving runs at full size: (arch, batch, prompt length, tokens generated)
 SERVE_RUNS = (("h2o-danube-1.8b", 2, 8192, 32), ("internlm2-1.8b", 4, 1024, 16))
+# K4's sweep against its plain version (the forget gate's pre-activation
+# biased by +2 as the reference's tests, or unbiased as the model's
+# initialisation), its tolerances (atol, rtol: the reference's K4 sweep in
+# float32), and xlstm-350m's forward shape (B, S, H, hd) where it is timed
+K4_SWEEP = {"B": (1, 2), "S": (128, 256, 1024), "H": (1, 4), "hd": (32, 64, 128, 512),
+            "chunk": (64, 128), "forget_bias": (2.0, 0.0)}
+MLSTM_TOL = {"float32": (2e-4, 2e-3), "bfloat16": (2e-2, 2e-2)}
+K4_MAIN = (4, 2048, 4, 512)
+# xlstm-350m at full size: the forward (batch, tokens: the xLSTM paper's
+# training context) and a serving run (batch, prompt length, tokens)
+XLSTM_FORWARD = (4, 2048)
+XLSTM_SERVE = (4, 2048, 129)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -720,10 +754,12 @@ def flash_kernel_phase(torch, dev) -> dict:
             "bound_by": by, "max_abs_err": max(err, worst["float32"])}
 
 
-def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float) -> None:
+def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float,
+                  focus: str = "flash_attention") -> dict:
     """Where a full-size prefill's and a decode step's time goes:
     ``torch.profiler`` device time by kernel against the traced and the
-    untraced wall."""
+    untraced wall; ``focus`` names the hand-written kernel whose share is
+    printed.  Returns the decode step's kernels and device-busy seconds."""
     from repro_torch.models import transformer as T
 
     def top(kernels, n=6):
@@ -736,12 +772,12 @@ def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: floa
             params, cfg, prompts, max_len, cache_dtype=torch.float32)[1]))
         if not kernels:
             print("serve profile: device time not measured (no device events)")
-            return
+            return {}
         busy = sum(us for _, us in kernels.values()) / 1e6
-        k3 = sum(us for k, (_, us) in kernels.items() if "flash_attention_kernel" in k) / 1e6
+        mine = sum(us for k, (_, us) in kernels.items() if f"{focus}_kernel" in k) / 1e6
         print(f"serve profile {cfg.arch_id} prefill: traced wall {traced:.4f} s, device busy "
               f"{busy:.4f} s over {sum(c for c, _ in kernels.values())} kernels, "
-              f"flash_attention {k3:.4f} s ({k3 / busy:.3f} of busy)")
+              f"{focus} {mine:.4f} s ({mine / busy:.3f} of busy)")
         top(kernels)
         tok = prompts[:, -1]
         steps = 4
@@ -758,6 +794,7 @@ def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: floa
           f"{traced / steps:.4f} s a step, device busy {busy:.5f} s a step over {n:.0f} kernels; "
           f"idle share of the untraced {decode_step_s:.4f} s step {1 - busy / decode_step_s:.4f}")
     top(kernels)
+    return {"decode_kernels": n, "decode_busy_s": busy}
 
 
 def serve_phase(torch, dev) -> dict:
@@ -841,6 +878,330 @@ def serve_phase(torch, dev) -> dict:
     return out
 
 
+def mlstm_bound_ms(B: int, S: int, H: int, hd: int, elem_bytes: int) -> tuple:
+    """Least time of the mLSTM scan, counted as the reference kernel's work
+    at its chunk of 128 (whatever chunk the kernel uses): per (batch, head,
+    chunk) the q.k^T tile (128*129*hd multiply-adds, the causal half and
+    the diagonal), the inter-chunk q.S and the state update (128*hd^2
+    each), 2 operations a multiply-add, at the float32 rate; or q, k, v
+    and the two gates read once and h written once at the memory rate."""
+    ops = 2 * B * H * (S // 128) * (128 * 129 * hd + 2 * 128 * hd * hd)
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = (4 * B * S * H * hd * elem_bytes + 2 * B * S * H * 4) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mlstm_inputs(torch, gen, B, S, H, hd, forget_bias, dev):
+    """q, k, v at 0.5 N(0, 1) and log-sigmoid gates; the forget gate's
+    pre-activation biased by ``forget_bias``: 2 as the reference's tests,
+    0 as the model's initialisation (in-chunk spans past exp's limit)."""
+    q, k, v = (0.5 * torch.randn((B, S, H, hd), generator=gen, device=dev) for _ in range(3))
+    F = torch.nn.functional
+    li = F.logsigmoid(torch.randn((B, S, H), generator=gen, device=dev))
+    lf = F.logsigmoid(torch.randn((B, S, H), generator=gen, device=dev) + forget_bias)
+    return q, k, v, li, lf
+
+
+def mlstm_kernel_phase(torch, dev) -> dict:
+    """K4 against its plain chunked version over the sweep, with both gate
+    draws (f32 at the reference's 2e-4 / 2e-3, bf16 at 2e-2, finite in
+    every case), then timed at xlstm-350m's forward shape."""
+    from repro_torch.kernels import mlstm_scan
+    from repro_torch.kernels.mlstm_scan import mlstm_chunked_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    sw = K4_SWEEP
+    for B in sw["B"]:
+        for S in sw["S"]:
+            for H in sw["H"]:
+                for hd in sw["hd"]:
+                    for bias in sw["forget_bias"]:
+                        q, k, v, li, lf = mlstm_inputs(torch, gen, B, S, H, hd, bias, dev)
+                        for name, dtype in (("float32", torch.float32),
+                                            ("bfloat16", torch.bfloat16)):
+                            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+                            for chunk in sw["chunk"]:
+                                got = mlstm_scan(qd, kd, vd, li, lf, chunk=chunk)
+                                torch.cuda.synchronize()
+                                ref = mlstm_chunked_ref(qd, kd, vd, li, lf, chunk=chunk)
+                                err = float((got.float() - ref.float()).abs().max())
+                                atol, rtol = MLSTM_TOL[name]
+                                check(got.dtype == dtype and bool(torch.isfinite(got).all())
+                                      and torch.allclose(got.float(), ref.float(),
+                                                         atol=atol, rtol=rtol),
+                                      f"mlstm_scan {name} B={B} S={S} H={H} hd={hd} "
+                                      f"chunk={chunk} forget bias {bias}: max abs err {err}")
+                                worst[name] = max(worst[name], err)
+                                n_cases += 1
+    print(f"kernel mlstm_scan: sweep " + " x ".join(f"{k} {v}" for k, v in sw.items())
+          + f" x f32/bf16 ({n_cases} cases) finite and within tolerance (max abs err f32 "
+          f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g})")
+
+    B, S, H, hd = K4_MAIN
+    q, k, v, li, lf = mlstm_inputs(torch, gen, B, S, H, hd, 0.0, dev)
+    got = mlstm_scan(q, k, v, li, lf)
+    ref = mlstm_chunked_ref(q, k, v, li, lf)
+    err = float((got - ref).abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got, ref, atol=MLSTM_TOL["float32"][0], rtol=MLSTM_TOL["float32"][1]),
+        f"mlstm_scan at the xlstm-350m shape: max abs err {err}")
+    del got, ref
+    ms = time_ms(torch, lambda: mlstm_scan(q, k, v, li, lf), reps=10, warmup=2)
+    plain = time_ms(torch, lambda: mlstm_chunked_ref(q, k, v, li, lf), reps=5, warmup=1)
+    bound, by = mlstm_bound_ms(B, S, H, hd, 4)
+    ops = 2 * B * H * (S // 128) * (128 * 129 * hd + 2 * 128 * hd * hd)
+    print(f"kernel mlstm_scan B={B} S={S} H={H} hd={hd} f32 unbiased gates (xlstm-350m "
+          f"forward): ms {ms:.4f}  plain_ms {plain:.4f}  library_ms none (no single PyTorch "
+          f"call computes the scan)  bound_ms {bound:.4f} ({by}; {ops:.4g} operations at chunk "
+          f"128)  max_abs_err {err:.3g}  achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": max(err, worst["float32"])}
+
+
+def forward_at_chunk(torch, params, cfg, tokens, chunk: int, record=None):
+    """``transformer.forward`` with every mLSTM layer's plain scan at
+    ``chunk`` (the model's own is 128), so two plain runs differ only by
+    rounding; with ``record`` a list, each mLSTM layer's (params, input,
+    output) is appended to it."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+
+    orig = SSM.mlstm_forward
+
+    def run(p, c, x, *args, **kwargs):
+        out = orig(p, c, x, chunk, **kwargs)
+        if record is not None:
+            record.append((p, x, out))
+        return out
+
+    SSM.mlstm_forward = run
+    try:
+        with torch.no_grad():
+            return T.forward(params, cfg, tokens)
+    finally:
+        SSM.mlstm_forward = orig
+
+
+def rounding_floor(torch, params, cfg, tokens, ref, last_only=False) -> float:
+    """The largest logit difference between ``ref`` (the plain forward at
+    chunk 128) and the plain forward at chunk 64 and at chunk 32: the same
+    function, rounded otherwise.  xLSTM's sLSTM layers amplify such a
+    difference along the sequence, so two correct float32 forwards of a
+    long sequence differ by this much."""
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    floor = 0.0
+    for chunk in (64, 32):
+        other = forward_at_chunk(torch, params, plain, tokens, chunk)
+        if last_only:
+            other = other[:, -1]
+        floor = max(floor, float((other - ref).abs().max()))
+        del other
+    return floor
+
+
+def xlstm_forward_phase(torch, dev) -> dict:
+    """The full-sequence forward of xlstm-350m at full size through K4:
+    one launch per mLSTM layer; each mLSTM layer through the kernel
+    against its plain path on the same input (<= 2e-3); the logits against
+    the plain forward, within three times the rounding floor of two plain
+    forwards (or 2e-3 where that is larger)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+
+    B, S = XLSTM_FORWARD
+    cfg = get_config("xlstm-350m", use_flash_kernel=True, remat=False)
+    n_mlstm = cfg.block_pattern.count("mlstm")
+    print(f"forward: {cfg.arch_id} d_model {cfg.d_model} heads {cfg.n_heads} mLSTM head_dim "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.n_heads} vocab {cfg.vocab_size} layers "
+          f"{cfg.n_layers} ({n_mlstm} mLSTM, {cfg.n_layers - n_mlstm} sLSTM); batch {B}, "
+          f"{S} tokens, float32, mlstm kernel")
+    params = init_params(model_specs(cfg), seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)))
+    tokens = tokens.to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = T.forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    check(launches["mlstm_scan"] == n_mlstm,
+          f"xlstm forward launched mlstm_scan {launches['mlstm_scan']} times, "
+          f"expected {n_mlstm}")
+    check(bool(torch.isfinite(logits).all()), "xlstm forward: non-finite logits")
+    record = []
+    t0 = time.perf_counter()
+    plain = forward_at_chunk(torch, params, dataclasses.replace(cfg, use_flash_kernel=False),
+                             tokens, 128, record)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(plain).all()), "xlstm plain forward: non-finite logits")
+    layer_err = 0.0
+    with torch.no_grad():
+        for p, x, out in record:
+            got = SSM.mlstm_forward(p, cfg, x)
+            err = float((got - out).abs().max())
+            check(torch.allclose(got, out, atol=2e-3, rtol=2e-3),
+                  f"xlstm mLSTM layer through mlstm_scan vs plain: max abs diff {err}")
+            layer_err = max(layer_err, err)
+    del record
+    diff = float((logits - plain).abs().max())
+    floor = rounding_floor(torch, params, cfg, tokens, plain)
+    tol = max(2e-3, 3 * floor)
+    print(f"forward: {cfg.arch_id} [{B}x{S}] wall {kernel_s:.4f} s through mlstm_scan "
+          f"({launches['mlstm_scan']} launches), plain {plain_s:.4f} s; each mLSTM layer "
+          f"through the kernel vs plain on the same input max abs diff {layer_err:.3g} "
+          f"(tolerance 2e-3); logits kernel vs plain {diff:.3g}, plain at chunk 64 and 32 vs "
+          f"128 {floor:.3g} (tolerance max(2e-3, 3 x that) = {tol:.3g}); max |logit| "
+          f"{float(plain.abs().max()):.4g}")
+    check(diff <= tol, f"xlstm forward, kernel vs plain: max abs logit diff {diff} > {tol}")
+    del logits, plain, params
+    torch.cuda.empty_cache()
+    return {"launches": launches["mlstm_scan"], "kernel_s": kernel_s, "plain_s": plain_s,
+            "layer_err": layer_err, "logit_diff": diff, "floor": floor}
+
+
+def xlstm_serve_phase(torch, dev) -> dict:
+    """xlstm-350m served at full size through ``serve``: the mLSTM kernel
+    runs no time in prefill and decode (they carry the state, as in the
+    reference); the last decode step against a teacher-forced forward
+    through the kernel; the sLSTM loop's share; then the reduced model on
+    the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    batch, prompt_len, gen = XLSTM_SERVE
+    cfg = get_config("xlstm-350m", use_flash_kernel=True)
+    print(f"serve: {cfg.arch_id} layers {cfg.n_layers}; batch {batch}, prompt {prompt_len}, "
+          f"{gen} tokens, float32 states, use_flash_kernel")
+    params = init_params(model_specs(cfg), seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=0, device=dev,
+                params=params, log=lambda line: print(f"serve: {line}", flush=True))
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["mlstm_scan"] == 0 and res.launches["prefill"]["mlstm_scan"] == 0
+          and res.launches["decode"]["mlstm_scan"] == 0,
+          f"xlstm serving launched mlstm_scan: {res.launches}")
+    check(bool(torch.isfinite(res.prefill_logits).all()), "xlstm: non-finite prefill logits")
+    seq = torch.cat([res.prompts, res.ids[:, :-1]], dim=1)
+    fcfg = dataclasses.replace(cfg, remat=False)
+    with torch.no_grad():
+        reset_launch_counts()
+        full = T.forward(params, fcfg, seq)[:, -1]
+        torch.cuda.synchronize()
+        forced = LAUNCHES["mlstm_scan"]
+    n_mlstm = cfg.block_pattern.count("mlstm")
+    check(forced == n_mlstm, f"teacher-forced forward launched mlstm_scan {forced} times")
+    d_decode = float((res.logits - full).abs().max())
+    plain = forward_at_chunk(torch, params, dataclasses.replace(fcfg, use_flash_kernel=False),
+                             seq, 128)[:, -1]
+    floor = max(float((full - plain).abs().max()),
+                rounding_floor(torch, params, fcfg, seq, plain, last_only=True))
+    tol_decode = max(5e-3, 3 * floor)
+    check(d_decode <= tol_decode,
+          f"xlstm: last decode step vs teacher-forced forward max abs diff {d_decode} > "
+          f"{tol_decode}")
+    del full, seq, plain
+
+    # the sLSTM loop's share of a prefill's and of the decode steps' wall
+    spent = {"forward": 0.0, "decode": 0.0}
+    orig = {"forward": SSM.slstm_forward, "decode": SSM.slstm_decode}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return run
+
+    SSM.slstm_forward, SSM.slstm_decode = timed("forward"), timed("decode")
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = T.prefill(params, cfg, res.prompts, prompt_len + gen,
+                                 cache_dtype=torch.float32)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            tok = res.ids[:, 0]
+            t0 = time.perf_counter()
+            steps = 8
+            for i in range(steps):
+                logits, cache = T.decode_step(params, cfg, tok, cache, prompt_len + i)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+    finally:
+        SSM.slstm_forward, SSM.slstm_decode = orig["forward"], orig["decode"]
+    del cache
+    print(f"serve profile {cfg.arch_id}: sLSTM loop {spent['forward']:.4f} s of a "
+          f"{pre_s:.4f} s prefill ({spent['forward'] / pre_s:.3f}); sLSTM decode "
+          f"{spent['decode'] / steps:.5f} s of a {dec_s / steps:.5f} s step "
+          f"({spent['decode'] / dec_s:.3f}; both timed with a synchronise around each sLSTM layer)")
+    prof = serve_profile(torch, params, cfg, res.prompts, prompt_len + gen,
+                         res.decode_s / (gen - 1), focus="mlstm_scan")
+    print(f"serve: {cfg.arch_id} prefill {res.prefill_s:.4f} s  decode {res.decode_tok_s:.2f} "
+          f"tok/s ({gen - 1} steps x batch {batch} in {res.decode_s:.4f} s)  peak device memory "
+          f"{peak / 2**30:.2f} GiB  mlstm_scan launches prefill "
+          f"{res.launches['prefill']['mlstm_scan']} decode {res.launches['decode']['mlstm_scan']}"
+          f" teacher-forced forward {forced}  last decode vs forward {d_decode:.3g} (tolerance "
+          f"max(5e-3, 3 x {floor:.3g}, the largest last-token difference among forwards "
+          f"through the kernel and the plain path at chunk 128, 64 and 32) = {tol_decode:.3g})")
+    out = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s, "peak_bytes": peak,
+           "slstm_share": spent["forward"] / pre_s, "d_decode": d_decode, **prof}
+    del res, params
+    torch.cuda.empty_cache()
+
+    # card (kernel) vs CPU (plain version) at the reduced size, same weights
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(), use_flash_kernel=True)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    card = tree_map(lambda t: t.to(dev), params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    runs = [serve(cfg, batch=2, prompt_len=128, gen=4, device=d, prompts=prompts,
+                  params=p, log=lambda line: None) for d, p in ((dev, card), ("cpu", params))]
+    d_pre = float((runs[0].prefill_logits.cpu() - runs[1].prefill_logits).abs().max())
+    d_last = float((runs[0].logits.cpu() - runs[1].logits).abs().max())
+    tokens = torch.from_numpy(prompts)
+    with torch.no_grad():
+        reset_launch_counts()
+        fwd_card = T.forward(card, dataclasses.replace(cfg, remat=False), tokens.to(dev))
+        torch.cuda.synchronize()
+        fwd_launches = LAUNCHES["mlstm_scan"]
+        fwd_cpu = T.forward(params, dataclasses.replace(cfg, remat=False), tokens)
+    d_fwd = float((fwd_card.cpu() - fwd_cpu).abs().max())
+    ids_equal = bool(torch.equal(runs[0].ids.cpu(), runs[1].ids))
+    print(f"serve parity: reduced xlstm ({cfg.block_pattern}, d_model {cfg.d_model}) at prompt "
+          f"128, card vs CPU: prefill logits {d_pre:.3g}, last decode logits {d_last:.3g}, "
+          f"forward through mlstm_scan ({fwd_launches} launch) {d_fwd:.3g} (tolerance 1e-4); "
+          f"ids equal {ids_equal}")
+    check(fwd_launches == cfg.block_pattern.count("mlstm"),
+          f"reduced xlstm forward launched mlstm_scan {fwd_launches} times")
+    check(ids_equal and max(d_pre, d_last, d_fwd) <= 1e-4,
+          f"card and CPU xlstm differ: prefill {d_pre}, last {d_last}, forward {d_fwd}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -888,6 +1249,11 @@ def main() -> int:
     attn = flash_kernel_phase(torch, dev)
     served = serve_phase(torch, dev)
     serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = mlstm_kernel_phase(torch, dev)
+    xfwd = xlstm_forward_phase(torch, dev)
+    xserve = xlstm_serve_phase(torch, dev)
+    xlstm_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f}; main-path shape "
           f"ms {main_shape['ms']:.4f}; round wall s {[round(s, 4) for s in tr['round_s']]}; "
           f"peak GiB {tr['peak_bytes'] / 2**30:.2f}")
@@ -902,6 +1268,11 @@ def main() -> int:
               f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / "
               f"{r['peak_bytes'] / 2**30:.2f}" for a, r in served.items())
           + f"; serving phases took {serve_s:.1f} s")
+    print(f"summary: mlstm_scan xlstm-350m forward shape ms {scan['ms']:.4f} (bound "
+          f"{scan['bound_ms']:.4f}, plain {scan['plain_ms']:.4f}); xlstm-350m forward s "
+          f"{xfwd['kernel_s']:.4f} (plain {xfwd['plain_s']:.4f}); serve prefill s / decode "
+          f"tok/s / peak GiB {xserve['prefill_s']:.4f} / {xserve['decode_tok_s']:.2f} / "
+          f"{xserve['peak_bytes'] / 2**30:.2f}; xlstm phases took {xlstm_s:.1f} s")
     climb = seg["ebone_climb"]
     record = {"kernels": [{
         "name": "gossip_mix",
@@ -939,6 +1310,18 @@ def main() -> int:
         "bound_ms": attn["bound_ms"],
         "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
+    }, {
+        "name": "mlstm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan.py:62",
+        "launches": xfwd["launches"],
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        "library_ms": scan["library_ms"],
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>", **overrides)``.
 
-Counterpart of ``repro.configs``.  Only the dense configurations the
-port can run are registered; the rest of the reference's zoo follows
-with their block kinds.
+Counterpart of ``repro.configs``.  Only the configurations the port can
+run are registered (the dense transformers and the xLSTM stack); the
+rest of the reference's zoo follows with their block kinds.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from repro_torch.models import ModelConfig
 _MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "internlm2-1.8b": "internlm2_1_8b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
@@ -23,17 +24,20 @@ ARCH_IDS: List[str] = list(_MODULES)
 
 def get_config(arch_id: str, **overrides) -> ModelConfig:
     """The registered config with ``overrides`` applied.  Overriding
-    ``n_layers`` alone re-derives the (all-``"attn"``) block pattern, so
-    ``get_config(arch, n_layers=4)`` cuts the depth, and
-    ``get_config(arch, use_flash_kernel=True)`` sends prefill attention
-    through the K3 kernel, as the reference's override does."""
+    ``n_layers`` alone cuts the depth to the first ``n_layers`` kinds of
+    the published block pattern, and ``get_config(arch, use_flash_kernel=True)``
+    sends prefill attention through K3 and the mLSTM forward through K4,
+    as the reference's override does."""
     key = arch_id.lower()
     if key not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {arch_id!r}; available: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
     cfg: ModelConfig = mod.CONFIG
-    if "n_layers" in overrides:
-        overrides.setdefault("block_pattern", ())
+    if "n_layers" in overrides and "block_pattern" not in overrides:
+        n = overrides["n_layers"]
+        if n > cfg.n_layers:
+            raise ValueError(f"{arch_id} has {cfg.n_layers} layers; cannot keep {n}")
+        overrides["block_pattern"] = cfg.block_pattern[:n]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg

@@ -1,8 +1,15 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), each beside
 its plain PyTorch version, and the dispatching wrappers in :mod:`.ops`."""
 
-from .ops import LAUNCHES, edge_segment_max, flash_attention, gossip_mix, reset_launch_counts
+from .ops import (
+    LAUNCHES,
+    edge_segment_max,
+    flash_attention,
+    gossip_mix,
+    mlstm_scan,
+    reset_launch_counts,
+)
 from .segment_max import select_segment_max_impl
 
-__all__ = ["LAUNCHES", "edge_segment_max", "flash_attention", "gossip_mix",
+__all__ = ["LAUNCHES", "edge_segment_max", "flash_attention", "gossip_mix", "mlstm_scan",
            "reset_launch_counts", "select_segment_max_impl"]

@@ -18,9 +18,12 @@ import torch
 
 from .flash_attention import check_inputs, flash_attention_cuda, flash_attention_ref
 from .gossip_mix import gossip_mix_cuda, gossip_mix_ref
+from .mlstm_scan import check_inputs as check_mlstm_inputs
+from .mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda
 from .segment_max import edge_segment_max_cuda, edge_segment_max_ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "segment_max": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "mlstm_scan": 0,
+                            "segment_max": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,3 +81,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES["flash_attention"] += 1
         return res
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_i: torch.Tensor,
+               log_f: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """The mLSTM / gated linear-attention scan ``S_t = f_t S_{t-1} + i_t
+    k_t v_t^T``, ``h_t = q_t . S_t`` over q, k, v ``[B, S, H, hd]``
+    (float32 or bfloat16) and log-gates ``[B, S, H]``, with a float32
+    state; output in q's dtype.  Counterpart of
+    ``repro.kernels.ops.mlstm_scan``: like it, it needs ``S % chunk ==
+    0``.  The CPU path is the chunked plain version at ``chunk``; the
+    kernel picks its own chunk, which changes the result only by rounding."""
+    check_mlstm_inputs(q, k, v, log_i, log_f, chunk)
+    if q.device.type == "cpu":
+        return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk)
+    if q.is_cuda:
+        res = mlstm_scan_cuda(q, k, v, log_i, log_f)
+        LAUNCHES["mlstm_scan"] += 1
+        return res
+    raise ValueError(f"mlstm_scan: no kernel for device {q.device}")

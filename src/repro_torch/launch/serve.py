@@ -1,17 +1,23 @@
-"""Serving launcher: batched prefill + decode with KV caches, on one card.
+"""Serving launcher: batched prefill + decode with KV caches or recurrent
+states, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
         --batch 2 --prompt-len 8192 --gen 32 --flash-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --batch 4 --prompt-len 2048 --gen 129
 
-Counterpart of ``repro.launch.serve`` for the dense family, with the same
-flags plus ``--device`` (default ``cuda``; ``--device cpu`` with
-``--reduced`` runs the small variant on the CPU), ``--seed`` (weights and
-prompts) and ``--flash-kernel``, which sets the reference's
-``use_flash_kernel`` so that prefill attention runs through the K3 kernel
-(after ``--reduced``, which turns it off).  Parameters and caches are
-float32, as in the reference's launcher.  ``main`` parses the flags and
-calls :func:`serve`, which scripts call with their own weights, prompts
-or depth.
+Counterpart of ``repro.launch.serve`` for the dense family and the xLSTM
+stack, with the same flags plus ``--device`` (default ``cuda``;
+``--device cpu`` with ``--reduced`` runs the small variant on the CPU),
+``--seed`` (weights and prompts) and ``--flash-kernel``, which sets the
+reference's ``use_flash_kernel`` (after ``--reduced``, which turns it
+off): prefill attention then runs through the K3 kernel.  The mLSTM's
+K4 kernel runs only in the full-sequence ``forward``; prefill needs the
+final state and decode is one state update, so serving an xLSTM stack
+launches it no time, as in the reference.  Parameters, caches and
+states are float32, as in the reference's launcher.  ``main`` parses the
+flags and calls :func:`serve`, which scripts call with their own weights,
+prompts or depth.
 """
 
 from __future__ import annotations
@@ -114,7 +120,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--flash-kernel", action="store_true",
-                    help="prefill attention through the K3 kernel (prompt-len a multiple of 128)")
+                    help="use_flash_kernel: attention prefill through K3 (prompt-len a "
+                         "multiple of 128); the mLSTM's K4 runs only in forward, so "
+                         "xlstm serving is unchanged by it")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:

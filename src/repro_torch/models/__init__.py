@@ -1,4 +1,4 @@
-from .config import ModelConfig
+from .config import ModelConfig, SSMConfig
 from .params import (
     ParamLayout,
     ParamSpec,
@@ -11,6 +11,7 @@ __all__ = [
     "ModelConfig",
     "ParamLayout",
     "ParamSpec",
+    "SSMConfig",
     "from_jax_params",
     "init_params",
     "forward",

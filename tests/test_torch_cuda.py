@@ -12,9 +12,16 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.kernels import LAUNCHES, edge_segment_max, flash_attention, gossip_mix  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    LAUNCHES,
+    edge_segment_max,
+    flash_attention,
+    gossip_mix,
+    mlstm_scan,
+)
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.gossip_mix import gossip_mix_ref  # noqa: E402
+from repro_torch.kernels.mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda  # noqa: E402
 from repro_torch.kernels.segment_max import edge_segment_max_ref  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -187,3 +194,85 @@ def test_serving_prefill_through_kernel_matches_cpu(cuda):
                            cache_dtype=torch.float32)
     assert LAUNCHES["flash_attention"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def _mlstm_inputs(gen, B, S, H, hd, forget_bias, device):
+    """q, k, v at 0.5 N(0, 1); log-sigmoid gates, the forget gate biased
+    by ``forget_bias`` (2: the reference's tests; 0: the model's
+    initialisation, whose in-chunk spans pass float32's exp limit)."""
+    q, k, v = (0.5 * torch.randn((B, S, H, hd), generator=gen, device=device)
+               for _ in range(3))
+    li = torch.nn.functional.logsigmoid(torch.randn((B, S, H), generator=gen, device=device))
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn((B, S, H), generator=gen, device=device) + forget_bias)
+    return q, k, v, li, lf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forget_bias", [2.0, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,chunk", [
+    (1, 128, 2, 32, 32), (2, 256, 2, 64, 64), (1, 256, 4, 32, 128),
+    (2, 128, 4, 128, 128), (1, 256, 2, 512, 128), (1, 96, 1, 96, 32),  # a ragged last chunk
+    (2, 2048, 4, 512, 128),    # xlstm-350m's forward shape at batch 2
+])
+def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd, chunk, dtype, forget_bias):
+    """The reference's K4 tolerance (atol 2e-4 / rtol 2e-3) in float32,
+    2e-2 in bfloat16; finite for both gate draws."""
+    gen = torch.Generator(device=cuda).manual_seed(S * hd + H)
+    q, k, v, li, lf = _mlstm_inputs(gen, B, S, H, hd, forget_bias, cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = LAUNCHES["mlstm_scan"]
+    got = mlstm_scan(q, k, v, li, lf, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm_scan"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
+    expect = mlstm_chunked_ref(q, k, v, li, lf, chunk=chunk)
+    tol = 2e-2 if dtype == torch.bfloat16 else None
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol or 2e-4, rtol=tol or 2e-3)
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_kernel_checks_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, li, lf = _mlstm_inputs(gen, 1, 128, 2, 48, 2.0, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        mlstm_scan(q, k, v, li, lf, chunk=128)
+    q, k, v, li, lf = _mlstm_inputs(gen, 1, 128, 2, 64, 2.0, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mlstm_scan(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, li, lf)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        mlstm_scan(q[:, :96], k[:, :96], v[:, :96], li[:, :96], lf[:, :96])
+    with pytest.raises(ValueError, match="head_dim"):
+        mlstm_scan_cuda(*_mlstm_inputs(gen, 1, 64, 1, 544, 2.0, cuda))
+
+
+@pytest.mark.gpu
+def test_xlstm_forward_through_kernel_matches_cpu(cuda):
+    """Reduced xlstm-350m's forward with ``use_flash_kernel`` at S=128:
+    the kernel on the card against the plain version on the CPU, from the
+    same weights; one launch per mLSTM layer, none in the prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(), use_flash_kernel=True,
+                              remat=False)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128)))
+    with torch.no_grad():
+        ref = T.forward(params, cfg, tokens)
+        before = LAUNCHES["mlstm_scan"]
+        got = T.forward(card, cfg, tokens.to(cuda))
+        torch.cuda.synchronize()
+        assert LAUNCHES["mlstm_scan"] == before + cfg.block_pattern.count("mlstm")
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        ref_pre, _ = T.prefill(params, cfg, tokens, 160, cache_dtype=torch.float32)
+        before = LAUNCHES["mlstm_scan"]
+        got_pre, _ = T.prefill(card, cfg, tokens.to(cuda), 160, cache_dtype=torch.float32)
+        assert LAUNCHES["mlstm_scan"] == before
+    torch.testing.assert_close(got_pre.cpu(), ref_pre, atol=1e-4, rtol=1e-4)
