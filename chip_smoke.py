@@ -23,20 +23,31 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    (<= 2e-5: the CPU path is the one the tests hold against JAX);
 5. times the kernel at the main path's own shape and compares it with
    its plain version there;
-6. holds ``segment_max`` (K1) against its plain version on the card, bit
-   for bit (B in {1, 3, 16, 64} x E in {1, 7, 261, 8192} x S in {1, 5,
-   87, 1024} x four float dtypes, with -inf entries, out-of-range ids and
-   empty segments, plus a NaN case and a signed-zero case), and times it
-   at the Ebone climb's shape and the sparse scoring shape beside its
-   plain version, ``Tensor.scatter_reduce_`` and its bound;
+6. holds the standalone ``segment_max`` (K1) against its plain version on
+   the card, bit for bit (B in {1, 3, 16, 64} x E in {1, 7, 261, 8192} x S
+   in {1, 5, 87, 1024} x four float dtypes, with -inf entries,
+   out-of-range ids and empty segments, plus a NaN case and a signed-zero
+   case), and times it at the Ebone climb's shape and the sparse scoring
+   shape beside its plain version, ``Tensor.scatter_reduce_`` and its
+   bound; then K1's two persistent entries, ``karp_cycle_time`` (every
+   Karp level of a batch of scores in one launch) and ``reach_from_zero``
+   (forward and backward reachability in one launch), against their plain
+   versions, bit for bit (B in {1, 3, 16, 64} x N in {1, 5, 87, 383, 1024}
+   x E in {N, 3N, 8192} x one or multi-universe rows x four float dtypes,
+   with -inf arcs, an acyclic row and an unreachable node, plus arcs too
+   many for shared memory), and one Karp score timed at the Ebone climb's
+   shape and the scoring shape beside its plain version, the per-level
+   path of PRs 12-14 and its bound;
 7. drives the design path: ``design_overlay("sparse_rewire", ...)`` on
    the card for the paper's five networks at their real sizes, and the
    hierarchical designer on Ebone and on a 4096-silo clustered WAN, each
    with the counts set to 0 just before it and read just after: one
-   ``segment_max`` launch per Karp level of every scored proposal, degree
-   bounds, strong connectivity, the reported tau equal to the f64 host
-   re-price, and never worse than the Christofides ring (or the given
-   incumbent);
+   ``karp`` and one ``reach`` launch per scored climb step (n_steps + 1)
+   and no standalone ``segment_max`` launch, degree bounds, strong
+   connectivity, the reported tau equal to the f64 host re-price, and
+   never worse than the Christofides ring (or the given incumbent); the
+   Ebone design once more under the profiler (at most 300 kernels a climb
+   step);
 8. holds the climb's score of its seeds on the card bit-identical to the
    CPU's, on Ebone, for one universe and for padded multi-universe packs;
 9. trains on a designed plan: Gaia's overlay -> ``plan_from_overlay`` ->
@@ -411,6 +422,151 @@ def segmax_kernel_phase(torch, dev) -> dict:
     return shapes
 
 
+KARP_SHAPES = (("ebone_climb", (16, 261, 87)), ("scoring", (8, 8192, 1024)))
+
+
+def karp_bound(B: int, E: int, N: int, elem_bytes: int) -> tuple:
+    """Least time of a batch of Karp scores: the arcs (two int32 ids and a
+    weight) read once and the [B] scores written once over the memory
+    rate, or the 2*B*N*E adds and maxima of the N levels plus 3*B*N*N
+    subtractions, divisions and minima of the final formula over the
+    float32 rate, whichever is larger."""
+    t_bytes = (B * E * (8 + elem_bytes) + B * elem_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * B * N * E + 3 * B * N * N) / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def karp_case(torch, gen, dev, B: int, N: int, E: int, padded: bool):
+    """Arc lists as the climb builds them: a self-loop per node, random
+    arcs, a fifth of them absent (-inf); row 0 acyclic (a path), node N - 1
+    unreachable where N > 2, and with ``padded`` each row living on its
+    first m_b nodes (a multi-universe pack: the rest -inf and absent).
+    Returns (src, dst, w as float32, present)."""
+    src = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    k = min(N, E)
+    src[:, :k] = torch.arange(k, dtype=torch.int32, device=dev)
+    dst[:, :k] = src[:, :k]
+    w = torch.rand((B, E), generator=gen, device=dev) * 19.5 + 0.5
+    present = torch.rand((B, E), generator=gen, device=dev) >= 0.2
+    if N > 2:
+        present &= (src != N - 1) & (dst != N - 1)
+    if padded:
+        m = torch.randint(1, N + 1, (B, 1), generator=gen, device=dev)
+        present &= (src < m) & (dst < m)
+    if N > 1:
+        m0 = min(N - 1 if N <= 2 else N - 2, E)  # the path stops short of node N - 1
+        present[0] = False
+        src[0, :m0] = torch.arange(m0, dtype=torch.int32, device=dev)
+        dst[0, :m0] = src[0, :m0] + 1
+        present[0, :m0] = True
+    w = torch.where(present, w, float("-inf"))
+    return src, dst, w, present & (src != dst)
+
+
+def per_level_karp(torch, src, dst, w, N: int):
+    """The Karp score as PRs 12-14 ran it on the card, a yardstick only:
+    per level a gather, an add and one standalone segment_max launch,
+    then the final formula."""
+    from repro_torch.kernels import edge_segment_max
+    from repro_torch.kernels.segment_max import karp_from_step
+
+    src64 = src.long()
+    return karp_from_step(lambda cur: edge_segment_max(torch.gather(cur, 1, src64) + w, dst, N),
+                          w.shape[0], N, w.dtype, w.device)
+
+
+def karp_kernel_phase(torch, dev) -> dict:
+    """Both persistent K1 entries against their plain versions on the
+    card, bit for bit, then one Karp score timed at the Ebone climb's
+    shape and at the scoring shape."""
+    from repro_torch.kernels import LAUNCHES, karp_cycle_time, reach_from_zero
+    from repro_torch.kernels.segment_max import karp_cycle_time_ref, reach_from_zero_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dtypes = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
+    n_karp = n_reach = 0
+    launches = dict(LAUNCHES)
+    for B in (1, 3, 16, 64):
+        for N in (1, 5, 87, 383, 1024):
+            for E in (N, 3 * N, 8192):
+                for padded in (False, True):
+                    src, dst, w32, present = karp_case(torch, gen, dev, B, N, E, padded)
+                    for dtype in dtypes:
+                        w = w32.to(dtype)
+                        got = karp_cycle_time(src, dst, w, N)
+                        torch.cuda.synchronize()
+                        ref = karp_cycle_time_ref(src, dst, w, N)
+                        check(got.dtype == dtype and torch.equal(got, ref),
+                              f"karp B={B} N={N} E={E} padded={padded} {dtype} differs from "
+                              f"its plain version: {got.tolist()[:4]} vs {ref.tolist()[:4]}")
+                        check(N == 1 or bool(torch.isneginf(got[0])),
+                              f"karp B={B} N={N} E={E}: the acyclic row is not -inf")
+                        n_karp += 1
+                    got = reach_from_zero(src, dst, present, N)
+                    torch.cuda.synchronize()
+                    ref = reach_from_zero_ref(src, dst, present, N)
+                    check(torch.equal(got, ref), f"reach B={B} N={N} E={E} padded={padded} "
+                                                 f"differs from its plain version")
+                    check(N <= 2 or not bool(got[:, :, N - 1].any()),
+                          f"reach B={B} N={N} E={E}: the isolated node was reached")
+                    n_reach += 1
+    # arcs past shared memory: read from global memory at every level
+    for dtype in dtypes:
+        src, dst, w32, present = karp_case(torch, gen, dev, 2, 300, 30000, True)
+        w = w32.to(dtype)
+        check(torch.equal(karp_cycle_time(src, dst, w, 300), karp_cycle_time_ref(src, dst, w, 300)),
+              f"karp with arcs in global memory ({dtype}) differs from its plain version")
+        n_karp += 1
+    check(torch.equal(reach_from_zero(src, dst, present, 300),
+                      reach_from_zero_ref(src, dst, present, 300)),
+          "reach with arcs in global memory differs from its plain version")
+    n_reach += 1
+    check(LAUNCHES["karp"] - launches["karp"] == n_karp
+          and LAUNCHES["reach"] - launches["reach"] == n_reach,
+          "the sweep's launches were not counted one per call")
+    print(f"kernel karp: sweep B in (1,3,16,64) x N in (1,5,87,383,1024) x E in (N,3N,8192) x "
+          f"one/multi-universe x f32/f64/f16/bf16, plus E=30000 ({n_karp} cases): bit-identical "
+          f"to the plain version; acyclic rows -inf")
+    print(f"kernel reach: the same graphs, forward and backward ({n_reach} cases): identical to "
+          f"the plain version; isolated nodes unreached")
+
+    shapes = {}
+    for name, (B, E, N) in KARP_SHAPES:
+        src, dst, w, present = karp_case(torch, gen, dev, B, N, E, False)
+        w[0] = torch.rand(E, generator=gen, device=dev) + 1.0  # every row cyclic here
+        got = karp_cycle_time(src, dst, w, N)
+        ref = karp_cycle_time_ref(src, dst, w, N)
+        err = float((got - ref).abs().max())
+        check(torch.equal(got, ref), f"karp at {name} shape: max abs err {err}")
+        levels = per_level_karp(torch, src, dst, w, N)
+        check(torch.equal(levels, ref), f"per-level karp at {name} shape differs from plain")
+        reps = 200 if N < 512 else 20
+        ms = time_ms(torch, lambda: karp_cycle_time(src, dst, w, N), reps=reps, warmup=3)
+        plain = time_ms(torch, lambda: karp_cycle_time_ref(src, dst, w, N), reps=3, warmup=1)
+        per_level = time_ms(torch, lambda: per_level_karp(torch, src, dst, w, N), reps=3, warmup=1)
+        bound, by = karp_bound(B, E, N, 4)
+        _, kernels = device_kernels(torch, lambda: [karp_cycle_time(src, dst, w, N)
+                                                    for _ in range(20)])
+        own = [(c, us) for k, (c, us) in kernels.items() if "karp_kernel" in k]
+        dev_ms = own[0][1] / own[0][0] / 1e3 if own else None
+        dev_txt = f"{dev_ms:.5f}" if dev_ms is not None else "not measured"
+        r_ms = time_ms(torch, lambda: reach_from_zero(src, dst, present, N), reps=reps, warmup=3)
+        r_plain = time_ms(torch, lambda: reach_from_zero_ref(src, dst, present, N), reps=3)
+        print(f"kernel karp B={B} E={E} N={N} f32 ({name}): ms {ms:.4f}  device_ms {dev_txt}  "
+              f"plain_ms {plain:.4f}  per-level path (gather + add + segment_max a level) ms "
+              f"{per_level:.4f} ({per_level / ms:.1f}x the kernel)  library_ms null  bound_ms "
+              f"{bound:.6f} ({by})  max_abs_err {err:.3g}")
+        print(f"kernel reach B={B} E={E} N={N} ({name}): ms {r_ms:.4f}  plain_ms {r_plain:.4f}")
+        if name == "ebone_climb":
+            check(per_level >= 10 * ms, f"karp at the Ebone climb shape: {ms:.4f} ms is not "
+                                        f"10x below the per-level path's {per_level:.4f} ms")
+        shapes[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "per_level_ms": per_level,
+                        "bound_ms": bound, "bound_by": by, "max_abs_err": err, "library_ms": None,
+                        "reach_ms": r_ms, "reach_plain_ms": r_plain}
+    return shapes
+
+
 def clustered_wan(n: int, n_clusters: int, seed: int = 0, comp_ms: float = 5.0):
     """The repo's sparse clustered WAN (the generator of
     benchmarks/sparse_search_bench.py, built here on the port's types):
@@ -499,7 +655,10 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
         ov = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_launch = LAUNCHES["segment_max"]
+        n_launch = LAUNCHES["karp"]
+        check(LAUNCHES["reach"] == n_launch and LAUNCHES["segment_max"] == 0,
+              f"design launched karp {n_launch}, reach {LAUNCHES['reach']} and segment_max "
+              f"{LAUNCHES['segment_max']} times: expected one reach per karp and no segment_max")
         launches += n_launch
         return ov, wall, n_launch
 
@@ -509,12 +668,11 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
         n = gc.num_silos
         ring = ring_overlay(gc, tp)
         ov, wall, n_launch = run(lambda: design_overlay("sparse_rewire", gc, tp, device=dev))
-        check(n_launch == (96 + 1) * n,
-              f"{net}: segment_max launched {n_launch} times, expected (96 + 1) * {n}")
+        check(n_launch == 96 + 1, f"{net}: karp launched {n_launch} times, expected 96 + 1")
         deg = check_overlay(gc, tp, ov, 8, ring.cycle_time_ms, f"{net} sparse_rewire")
         print(f"design {net}: n {n}  ring tau {ring.cycle_time_ms:.6f} ms  sparse_rewire tau "
               f"{ov.cycle_time_ms:.6f} ms  arcs {len(ov.edges)}  max degree {deg}  "
-              f"wall {wall:.4f} s  segment_max launches {n_launch}")
+              f"wall {wall:.4f} s  karp launches {n_launch}  reach launches {n_launch}")
         rows.append({"net": net, "n": n, "ring_tau": ring.cycle_time_ms,
                      "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
         overlays[net] = (gc, ov)
@@ -527,13 +685,15 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
     if kernels:
         busy = sum(us for _, us in kernels.values()) / 1e6
         n_kernels = sum(c for c, _ in kernels.values())
-        k1 = sum(us for k, (_, us) in kernels.items() if "segment_max_kernel" in k) / 1e6
+        k1 = sum(us for k, (_, us) in kernels.items()
+                 if "karp_kernel" in k or "reach_kernel" in k) / 1e6
         untraced = rows[-1]["wall_s"]
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
         print(f"design ebone profile: traced wall {traced:.4f} s, device busy {busy:.4f} s "
               f"over {n_kernels} kernels ({n_kernels / 97:.0f} per climb step), "
-              f"segment_max {k1:.4f} s; idle share of the untraced {untraced:.4f} s design "
+              f"karp + reach {k1:.4f} s; idle share of the untraced {untraced:.4f} s design "
               f"{1 - busy / untraced:.4f}")
+        check(n_kernels / 97 <= 300, f"ebone design: {n_kernels / 97:.0f} kernels a climb step")
         for name, (count, us) in top:
             print(f"  design kernel {us / 1e3:9.3f} ms  x{count:<6d} {name[:100]}")
     else:
@@ -546,12 +706,12 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
     nmax = max(len(c) for c in multi)
     ring = ring_overlay(gc, tp)
     ov, wall, n_launch = run(lambda: design_overlay("hierarchical", gc, tp, device=dev))
-    check(n_launch == (64 + 1) * nmax,
-          f"ebone hierarchical: {n_launch} launches, expected (64 + 1) * {nmax}")
+    check(n_launch == 64 + 1, f"ebone hierarchical: karp launched {n_launch} times, expected 64 + 1")
     deg = check_overlay(gc, tp, ov, 8 + 1, ring.cycle_time_ms, "ebone hierarchical")
     print(f"design ebone hierarchical: n {gc.num_silos}  clusters {len(multi)} (largest {nmax})  "
           f"ring tau {ring.cycle_time_ms:.6f} ms  tau {ov.cycle_time_ms:.6f} ms  arcs "
-          f"{len(ov.edges)}  max degree {deg}  wall {wall:.4f} s  segment_max launches {n_launch}")
+          f"{len(ov.edges)}  max degree {deg}  wall {wall:.4f} s  karp launches {n_launch}  "
+          f"reach launches {n_launch}")
     rows.append({"net": "ebone_hierarchical", "n": gc.num_silos, "ring_tau": ring.cycle_time_ms,
                  "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
 
@@ -566,12 +726,11 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
         gc, tp, labels=labels, n_restarts=1, n_steps=24, delta_max=8, seed=0,
         incumbent=incumbent, device=dev))
     nmax = max(labels.count(c) for c in range(k))
-    check(n_launch == (24 + 1) * nmax,
-          f"wan hierarchical: {n_launch} launches, expected (24 + 1) * {nmax}")
+    check(n_launch == 24 + 1, f"wan hierarchical: karp launched {n_launch} times, expected 24 + 1")
     deg = check_overlay(gc, tp, ov, 8 + 1, inc_tau, "wan hierarchical")
     print(f"design wan hierarchical: n {n}  clusters {k} (largest {nmax})  identity-ring tau "
           f"{inc_tau:.6f} ms  tau {ov.cycle_time_ms:.6f} ms  arcs {len(ov.edges)}  max degree "
-          f"{deg}  wall {wall:.4f} s  segment_max launches {n_launch}")
+          f"{deg}  wall {wall:.4f} s  karp launches {n_launch}  reach launches {n_launch}")
     rows.append({"net": f"wan{n}_hierarchical", "n": n, "ring_tau": inc_tau,
                  "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
     return {"rows": rows, "launches": launches, "gaia": overlays["gaia"]}
@@ -579,7 +738,8 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
 
 def climb_parity_phase(torch, dev) -> None:
     """The climb's score of its seeds (n_steps=0) on Ebone: the card
-    (segment_max kernel) against the CPU (degree-padded gather), bit for
+    (persistent Karp and reachability kernels) against the CPU
+    (degree-padded gather and the plain hop loop), bit for
     bit, for one universe and for padded multi-universe packs."""
     import numpy as np
 
@@ -1236,6 +1396,7 @@ def main() -> int:
 
     kern = kernel_phase(torch, dev)
     seg = segmax_kernel_phase(torch, dev)
+    karp = karp_kernel_phase(torch, dev)
     parity_phase(torch, dev)
     tr = train_phase(torch, dev)
     torch.cuda.empty_cache()
@@ -1257,11 +1418,14 @@ def main() -> int:
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f}; main-path shape "
           f"ms {main_shape['ms']:.4f}; round wall s {[round(s, 4) for s in tr['round_s']]}; "
           f"peak GiB {tr['peak_bytes'] / 2**30:.2f}")
-    print(f"summary: segment_max ebone-climb shape ms {seg['ebone_climb']['ms']:.4f}, scoring "
-          f"shape ms {seg['scoring']['ms']:.4f}; design wall s "
-          f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; segment_max "
-          f"launches {design['launches']} over the design phase; design phases took "
-          f"{design_s:.1f} s")
+    print(f"summary: standalone segment_max ebone-climb shape ms {seg['ebone_climb']['ms']:.4f} "
+          f"(scatter_reduce_ {seg['ebone_climb']['library_ms']:.4f}), scoring shape ms "
+          f"{seg['scoring']['ms']:.4f} (scatter_reduce_ {seg['scoring']['library_ms']:.4f}); "
+          f"karp score ms ebone-climb {karp['ebone_climb']['ms']:.4f} (per-level "
+          f"{karp['ebone_climb']['per_level_ms']:.4f}), scoring {karp['scoring']['ms']:.4f} "
+          f"(per-level {karp['scoring']['per_level_ms']:.4f}); design wall s "
+          f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; karp launches "
+          f"{design['launches']} over the design phase; design phases took {design_s:.1f} s")
     danube = served["h2o-danube-1.8b"]
     print(f"summary: flash_attention danube prefill shape ms {attn['ms']:.4f} (bound "
           f"{attn['bound_ms']:.4f}); serve prefill s / decode tok/s / peak GiB: " + "; ".join(
@@ -1273,7 +1437,7 @@ def main() -> int:
           f"{xfwd['kernel_s']:.4f} (plain {xfwd['plain_s']:.4f}); serve prefill s / decode "
           f"tok/s / peak GiB {xserve['prefill_s']:.4f} / {xserve['decode_tok_s']:.2f} / "
           f"{xserve['peak_bytes'] / 2**30:.2f}; xlstm phases took {xlstm_s:.1f} s")
-    climb = seg["ebone_climb"]
+    climb = karp["ebone_climb"]
     record = {"kernels": [{
         "name": "gossip_mix",
         "route": "cuda",

@@ -14,10 +14,11 @@ storage:
 * :func:`batched_cycle_time_sparse` -- multi-source Karp via one segment
   max over edges per DP level (numpy, f32/f64);
 * :func:`batched_cycle_time_sparse_torch` -- the same DP on a torch
-  device, one segment max per level through the implementation
+  device, through the implementation
   :func:`repro_torch.kernels.select_segment_max_impl` picks (on the card,
-  the hand-written ``segment_max`` kernel) -- the scorer inside the
-  rewire climb of :mod:`repro_torch.core.topologies`;
+  the hand-written persistent Karp kernel: all N levels in one launch)
+  -- the scorer inside the rewire climb of
+  :mod:`repro_torch.core.topologies`;
 * :func:`batched_is_strongly_connected_sparse` /
   :func:`reachable_from_sparse` / :func:`scc_labels_sparse` --
   reachability and SCCs along edges;
@@ -39,7 +40,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels import edge_segment_max, select_segment_max_impl
+from ..kernels import karp_cycle_time, select_segment_max_impl
+from ..kernels.segment_max import karp_cycle_time_ref, karp_from_step
 from .maxplus_vec import MISSING, karp_from_levels, missing_mask
 
 Arc = Tuple[int, int]
@@ -845,58 +847,34 @@ def batched_cycle_time_sparse_torch(src, dst, w, num_nodes: int, *,
     ``batched_cycle_time_sparse_jax``): ``[B]`` max cycle means of
     ``[B, E]`` edge lists (``-inf`` padding), on ``w``'s device.
 
-    ``kernel`` picks the segment max of each DP level: ``"auto"`` (the
-    ``segment_max`` kernel on the card; on the CPU the degree-padded
-    gather when ``max_in_degree`` is given, else ``"scatter"``), or an
-    explicit ``"scatter"`` / ``"padded"`` / ``"cuda"``.  All choices give
+    ``kernel`` picks how the N Karp levels run: ``"auto"`` (the persistent
+    K1 recursion on the card; on the CPU the degree-padded gather when
+    ``max_in_degree`` is given, else ``"scatter"``), or an explicit
+    ``"scatter"`` / ``"padded"`` / ``"cuda"``.  All choices give
     bit-identical results for NaN-free inputs (``"padded"`` also needs
-    the in-degree bound to hold).  The N levels are a Python loop with
-    no host synchronisation in it: on the card each level is one gather,
-    one add and one kernel launch queued behind the last.
+    the in-degree bound to hold).  ``"cuda"`` is one launch of
+    :func:`repro_torch.kernels.karp_cycle_time` (its plain version, the
+    scatter loop, on the CPU); the other two are a Python loop over the
+    levels with no host synchronisation in it.
     """
     w = torch.as_tensor(w)
-    src = torch.as_tensor(src, device=w.device).long()
+    src = torch.as_tensor(src, device=w.device)
     dst = torch.as_tensor(dst, device=w.device)
-    B, E = src.shape
+    B = src.shape[0]
     N = int(num_nodes)
     impl = select_segment_max_impl(kernel, padded=max_in_degree is not None,
                                    device=w.device)
-    D0 = torch.zeros((B, N), dtype=w.dtype, device=w.device)
+    if impl == "cuda":
+        return karp_cycle_time(src, dst, w, N)
+    if impl == "scatter":
+        return karp_cycle_time_ref(src, dst, w, N)
+    if max_in_degree is None:
+        raise ValueError("kernel='padded' needs max_in_degree")
+    D = int(max_in_degree)
+    gsrc, gw = _padded_edge_layout(src.long(), dst.long(), w, N, D)
 
-    if impl == "padded":
-        if max_in_degree is None:
-            raise ValueError("kernel='padded' needs max_in_degree")
-        D = int(max_in_degree)
-        gsrc, gw = _padded_edge_layout(src, dst.long(), w, N, D)
+    def step(cur):
+        vals = torch.gather(cur, 1, gsrc) + gw
+        return vals.view(B, N, D).amax(dim=2)
 
-        def step(cur):
-            vals = torch.gather(cur, 1, gsrc) + gw
-            return vals.view(B, N, D).amax(dim=2)
-
-    elif impl == "cuda":
-        seg = dst.to(torch.int32).contiguous()
-
-        def step(cur):
-            return edge_segment_max(torch.gather(cur, 1, src) + w, seg, N)
-
-    else:  # "scatter"
-        seg_ids = (torch.arange(B, device=w.device)[:, None] * N + dst.long()).ravel()
-
-        def step(cur):
-            vals = torch.gather(cur, 1, src) + w
-            out = torch.full((B * N,), MISSING, dtype=w.dtype, device=w.device)
-            return out.scatter_reduce_(0, seg_ids, vals.ravel(), "amax").view(B, N)
-
-    levels = []
-    cur = D0
-    for _ in range(N):  # D_1 .. D_N
-        cur = step(cur)
-        levels.append(cur)
-    Dn = levels[-1]
-    allk = torch.stack([D0] + levels[:-1])  # D_0 .. D_{N-1}
-    denom = (N - torch.arange(N, device=w.device)).to(w.dtype)
-    ratios = (Dn[None, :, :] - allk) / denom[:, None, None]
-    ratios = torch.where(torch.isnan(ratios), torch.inf, ratios)
-    mins = ratios.amin(dim=0)
-    mins = torch.where(torch.isneginf(Dn), MISSING, mins)
-    return mins.amax(dim=1)
+    return karp_from_step(step, B, N, w.dtype, w.device)

@@ -17,9 +17,11 @@ The host designers are a copy of the reference's
 The rewire climb runs on a torch device (:func:`rewire_climb`): batched
 simulated annealing over arc-slot states, every proposal re-priced with
 Eq. 3 on the device and scored by the device Karp
-(:func:`~repro_torch.core.maxplus_sparse.batched_cycle_time_sparse_torch`),
-whose every DP level is one launch of the hand-written ``segment_max``
-kernel on the card.  :func:`search_overlays_jit` (one connectivity
+(:func:`~repro_torch.core.maxplus_sparse.batched_cycle_time_sparse_torch`)
+and tested for strong connectivity
+(:func:`~repro_torch.kernels.reach_from_zero`); on the card each of the
+two is one launch of a hand-written persistent kernel that runs every
+level of its recursion.  :func:`search_overlays_jit` (one connectivity
 universe, all restarts) and :func:`search_overlays_hierarchical` (one
 universe per cluster, every cluster's search in one climb) drive it, and
 :func:`design_overlay` is the registry callers design through.
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kernels import reach_from_zero
 from .delays import (
     ConnectivityGraph,
     TrainingParams,
@@ -1038,7 +1041,7 @@ def rewire_climb(lat: torch.Tensor, bw: torch.Tensor, allowed: torch.Tensor,
     inf = float("inf")
     boff = torch.arange(B, device=dev)[:, None] * n
     rows = torch.arange(B, device=dev)
-    sl = torch.arange(n, device=dev).expand(B, n)
+    sl32 = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
     slot_ids = torch.arange(S, device=dev)
     mbits = torch.as_tensor(model_mbits, dtype=dt, device=dev)
     if multi:
@@ -1061,17 +1064,6 @@ def rewire_climb(lat: torch.Tensor, bw: torch.Tensor, allowed: torch.Tensor,
         def pick1(V, s):
             return V[s]
 
-    def reach_all(take_idx, seg, present):
-        # frontier propagation from vertex 0 along present arcs
-        r = torch.zeros((B, n), dtype=dt, device=dev)
-        r[:, 0] = 1.0
-        for _ in range(max(n - 1, 0)):
-            vals = torch.gather(r, 1, take_idx) * present
-            hop = torch.zeros(B * n, dtype=dt, device=dev)
-            hop.scatter_reduce_(0, seg, vals.ravel(), "amax")
-            r = torch.maximum(r, hop.view(B, n))
-        return r
-
     def score(a_src, a_dst, a_act):
         present = a_act & pick2(allowed, a_src, a_dst) & (a_src != a_dst)
         pf = present.to(dt)
@@ -1091,17 +1083,18 @@ def rewire_climb(lat: torch.Tensor, bw: torch.Tensor, allowed: torch.Tensor,
         # a rounded reciprocal and drift from the reference's f32 pricing
         warc = pick1(comp, a_src) + pick2(lat, a_src, a_dst) + torch.div(mbits, rate)
         warc = torch.where(present, warc, MISSING)
-        src_all = torch.cat([a_src, sl], dim=1)
-        dst_all = torch.cat([a_dst, sl], dim=1)
+        src32, dst32 = a_src.to(torch.int32), a_dst.to(torch.int32)
+        src_all = torch.cat([src32, sl32], dim=1)
+        dst_all = torch.cat([dst32, sl32], dim=1)
         w_all = torch.cat([warc, comp_sl], dim=1)
         # Feasible states bound present in-degree by delta_max (+1
         # self-loop, +1 single-move transient), so the degree-padded
         # layout is lossless; infeasible states are masked to +inf below.
         tau = batched_cycle_time_sparse_torch(src_all, dst_all, w_all, n,
                                               max_in_degree=delta_max + 2)
-        fwd = reach_all(a_src, seg_dst, pf)
-        bwd = reach_all(a_dst, seg_src, pf)
-        reached = (fwd > 0) & (bwd > 0)
+        # strong connectivity: everything reaches vertex 0 and back
+        fwd, bwd = reach_from_zero(src32, dst32, present, n)
+        reached = fwd & bwd
         strong = (reached | ~active).all(dim=1) if multi else reached.all(dim=1)
         deg_ok = (out_deg <= delta_max).all(dim=1) & (in_deg <= delta_max).all(dim=1)
         return torch.where(strong & deg_ok, tau, inf)

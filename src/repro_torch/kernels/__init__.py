@@ -6,10 +6,12 @@ from .ops import (
     edge_segment_max,
     flash_attention,
     gossip_mix,
+    karp_cycle_time,
     mlstm_scan,
+    reach_from_zero,
     reset_launch_counts,
 )
 from .segment_max import select_segment_max_impl
 
-__all__ = ["LAUNCHES", "edge_segment_max", "flash_attention", "gossip_mix", "mlstm_scan",
-           "reset_launch_counts", "select_segment_max_impl"]
+__all__ = ["LAUNCHES", "edge_segment_max", "flash_attention", "gossip_mix", "karp_cycle_time",
+           "mlstm_scan", "reach_from_zero", "reset_launch_counts", "select_segment_max_impl"]

@@ -1,36 +1,78 @@
-// Row-wise segment max over an edge batch, for Hopper (sm_90a).
+// Row-wise segment max over an edge batch, and the two persistent
+// recursions built on it, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/segment_max.py::edge_segment_max_pallas
-// and computes the same function:
+// and the per-level loops around it in the reference's rewire climb
+// (src/repro/core/maxplus_sparse.py::batched_cycle_time_sparse_jax, one
+// segment max per Karp level, and the reach body of
+// src/repro/core/topologies.py::_rewire_climb_fn, one per hop).  Three
+// entry points:
+//
+// segment_max_launch computes the standalone segment max
 //   out[b, s] = max vals[b, e]  over e with ids[b, e] == s
 // for vals [B, E] (float32, float64, float16 or bfloat16) and int32 ids
 // [B, E] into out [B, S] of the values' type.  Empty segments give -inf,
 // ids outside [0, S) are dropped, and a NaN in a segment gives NaN (as
 // jnp.maximum in the Pallas body does).
 //
+// karp_cycle_time_launch computes a batch of Karp max cycle means: for
+// edge lists (src, dst, w) [B, E] over N nodes, D_0 = 0,
+//   D_k[v] = max over arcs (u -> v) of D_{k-1}[u] + w   (k = 1..N)
+// and out[b] = max_v min_k (D_N[v] - D_k[v]) / (N - k), a NaN ratio read
+// as +inf and a node with D_N = -inf as -inf.
+//
+// reach_launch computes, for the same arc lists and a present mask, the
+// vertices reachable from vertex 0 along present arcs forward (src ->
+// dst) and backward (dst -> src): out [2, B, N] of 0/1 bytes.
+//
 // Design.  The TPU kernel compares every edge tile with every segment
 // tile, O(E * S) dense vector work, because its VPU cannot scatter.  Here
-// one block per (row b, tile of segments) keeps the tile's running maxima
-// in shared memory and folds every edge of the row into it with one
-// shared-memory atomicMax: O(E) work per row.  atomicMax exists for
-// unsigned integers only, so each value is mapped to an order-preserving
-// unsigned key (flip all bits of a negative float, set the sign bit of a
-// non-negative one): a < b as floats iff key(a) < key(b) as unsigned.  NaN
-// is first made the canonical quiet NaN, whose key lies above +inf's, so
-// it wins every max.  -0.0 keys just below +0.0: the two differ only in
-// sign, and max(-0, +0) = +0 here while the plain version may return
-// either.  16-bit inputs are widened to float32 keys (exact: max only
-// picks a value) and the pick is narrowed back exactly.  Max is exact and
-// order-free, so the result does not depend on the atomics' order.
+// a block keeps a row's running maxima in shared memory and folds every
+// edge of the row into it with one shared-memory atomicMax: O(E) work per
+// row.  atomicMax exists for unsigned integers only, so each value is
+// mapped to an order-preserving unsigned key (flip all bits of a negative
+// float, set the sign bit of a non-negative one): a < b as floats iff
+// key(a) < key(b) as unsigned.  NaN is first made the canonical quiet NaN,
+// whose key lies above +inf's, so it wins every max.  -0.0 keys just below
+// +0.0: the two differ only in sign, and max(-0, +0) = +0 here while the
+// plain version may return either.  16-bit inputs are widened to float32
+// keys (exact: max only picks a value) and the pick is narrowed back
+// exactly.  Max is exact and order-free, so the result does not depend on
+// the atomics' order.
 //
-// Bound.  The kernel reads each value and id once and writes each output
-// once, (B*E*(sizeof(T) + 4) + B*S*sizeof(T)) bytes, with one compare per
-// edge: memory-bound on paper.  At the design climb's shape (B = 16,
-// E = 261, S = 87) those are a few tens of kilobytes, far below what one
-// launch costs, so the kernel sits at launch latency; fusing the Karp
-// level's gather and add into it, or running all N levels in one
-// persistent launch, is left to a later change.
+// The two recursions are one launch each: one block per graph row (grid
+// (B, 2) for reachability, a block per direction) runs every level of the
+// chain.  The row's arcs are staged in shared memory once (read from
+// global memory each level when they do not fit), the running level lives
+// in shared memory as keys, and a block barrier stands where the
+// per-level path launched a kernel.  Karp rotates three key buffers (read
+// D_{k-1}, fold into D_k, reset the third), so a level costs one pass over
+// the arcs and one barrier; each finished level goes to a [B, N, N]
+// scratch in global memory (L2-resident at the climb's sizes) for the
+// final formula, which the same block evaluates.  Each add, subtraction
+// and division is done in the input type, round-to-nearest, with
+// explicit __fadd_rn/__fdiv_rn-style intrinsics so nothing contracts;
+// 16-bit inputs compute in float and round once to their type, as torch
+// does, so the result equals the plain version bit for bit.
+// Reachability sets a byte per vertex, in place, and stops at the first
+// hop that changes nothing (__syncthreads_or): r only grows, so the
+// fixpoint is the same set that N - 1 synchronous hops reach.  An id
+// outside [0, N) in either recursion stops the kernel (__trap), which the
+// caller sees as a CUDA error at the next synchronise, as with torch's own
+// indexing kernels.
+//
+// Bound.  The standalone kernel reads each value and id once and writes
+// each output once, (B*E*(sizeof(T) + 4) + B*S*sizeof(T)) bytes, with one
+// compare per edge: memory-bound on paper, and at the design climb's
+// shape (B = 16, E = 261, S = 87) far below what a launch costs.  The
+// Karp score's least time is the larger of its bytes (B*E*(sizeof(T) + 8)
+// read, B*sizeof(T) written) and its operations (2*B*N*E adds and maxima
+// plus 3*B*N*N for the final formula); its real floor is the chain of N
+// dependent levels, one barrier and one pass over the row's arcs each,
+// which no amount of parallelism across rows removes.  A wide row could
+// spread over a thread-block cluster, sharing the level through
+// distributed shared memory; that is left to a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -145,6 +187,276 @@ cudaError_t launch(const void* vals, const void* ids, void* out, int64_t B, int6
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Persistent recursions: Karp's max cycle mean and reachability from vertex 0
+
+constexpr int kMaxThreads = 1024;
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// Arithmetic in the input type: C is the type a value is computed in, and
+// round() narrows a C result to T's precision (and widens it back), once.
+template <typename T>
+struct Arith;
+
+template <>
+struct Arith<float> {
+  using C = float;
+  __device__ static C load(float x) { return x; }
+  __device__ static float store(C x) { return x; }
+  __device__ static C round(C x) { return x; }
+  __device__ static C add(C a, C b) { return __fadd_rn(a, b); }
+  __device__ static C sub(C a, C b) { return __fsub_rn(a, b); }
+  __device__ static C div(C a, C b) { return __fdiv_rn(a, b); }
+};
+
+template <>
+struct Arith<double> {
+  using C = double;
+  __device__ static C load(double x) { return x; }
+  __device__ static double store(C x) { return x; }
+  __device__ static C round(C x) { return x; }
+  __device__ static C add(C a, C b) { return __dadd_rn(a, b); }
+  __device__ static C sub(C a, C b) { return __dsub_rn(a, b); }
+  __device__ static C div(C a, C b) { return __ddiv_rn(a, b); }
+};
+
+template <>
+struct Arith<__half> {
+  using C = float;
+  __device__ static C load(__half x) { return __half2float(x); }
+  __device__ static __half store(C x) { return __float2half_rn(x); }
+  __device__ static C round(C x) { return __half2float(__float2half_rn(x)); }
+  __device__ static C add(C a, C b) { return round(__fadd_rn(a, b)); }
+  __device__ static C sub(C a, C b) { return round(__fsub_rn(a, b)); }
+  __device__ static C div(C a, C b) { return round(__fdiv_rn(a, b)); }
+};
+
+template <>
+struct Arith<__nv_bfloat16> {
+  using C = float;
+  __device__ static C load(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ static __nv_bfloat16 store(C x) { return __float2bfloat16_rn(x); }
+  __device__ static C round(C x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+  __device__ static C add(C a, C b) { return round(__fadd_rn(a, b)); }
+  __device__ static C sub(C a, C b) { return round(__fsub_rn(a, b)); }
+  __device__ static C div(C a, C b) { return round(__fdiv_rn(a, b)); }
+};
+
+__device__ __forceinline__ unsigned int encode_key(float x) { return encode_f32(x); }
+__device__ __forceinline__ unsigned long long encode_key(double x) { return encode_f64(x); }
+__device__ __forceinline__ float decode_key(unsigned int k) { return decode_f32(k); }
+__device__ __forceinline__ double decode_key(unsigned long long k) { return decode_f64(k); }
+
+template <typename C>
+struct Inf;
+
+template <>
+struct Inf<float> {
+  using Key = unsigned int;
+  __device__ static float neg() { return __uint_as_float(0xff800000u); }
+  __device__ static float pos() { return __uint_as_float(0x7f800000u); }
+};
+
+template <>
+struct Inf<double> {
+  using Key = unsigned long long;
+  __device__ static double neg() { return __longlong_as_double((long long)0xfff0000000000000ull); }
+  __device__ static double pos() { return __longlong_as_double(0x7ff0000000000000ll); }
+};
+
+template <typename C>
+__device__ __forceinline__ C neg_inf_of() { return Inf<C>::neg(); }
+template <typename C>
+__device__ __forceinline__ C pos_inf_of() { return Inf<C>::pos(); }
+
+template <typename T>
+using KeyOf = typename Inf<typename Arith<T>::C>::Key;
+
+// One block per row b.  kStaged: the row's arcs sit in shared memory
+// (else they are read from global memory at every level).
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kMaxThreads)
+karp_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+            const T* __restrict__ w, T* __restrict__ levels, T* __restrict__ out,
+            int E, int N) {
+  using A = Arith<T>;
+  using C = typename A::C;
+  using Key = KeyOf<T>;
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  Key* keys = reinterpret_cast<Key*>(smem_raw);  // 3 level buffers of N keys
+  Key* red = keys + 3 * N;                         // the row's max over v
+  C* s_w = reinterpret_cast<C*>(red + 1);
+  int32_t* s_src = reinterpret_cast<int32_t*>(s_w + (kStaged ? E : 0));
+  int32_t* s_dst = s_src + (kStaged ? E : 0);
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t b = blockIdx.x;
+  const int32_t* g_src = src + b * E;
+  const int32_t* g_dst = dst + b * E;
+  const T* g_w = w + b * E;
+  const C ninf = neg_inf_of<C>();
+  const Key kneg = encode_key(ninf);
+  const Key kzero = encode_key(C(0));
+
+  for (int v = tid; v < N; v += nt) {
+    keys[v] = kzero;  // D_0 = 0
+    keys[N + v] = kneg;
+    keys[2 * N + v] = kneg;
+  }
+  if (tid == 0) *red = kneg;
+  for (int e = tid; e < E; e += nt) {
+    const int32_t s = g_src[e], d = g_dst[e];
+    if ((unsigned)s >= (unsigned)N || (unsigned)d >= (unsigned)N) __trap();
+    if (kStaged) {
+      s_src[e] = s;
+      s_dst[e] = d;
+      s_w[e] = A::load(g_w[e]);
+    }
+  }
+  __syncthreads();
+
+  // Level k reads D_{k-1} from cur, folds D_k into nxt, resets spare (read
+  // at level k-1, so free since the last barrier) and stores D_{k-1} to the
+  // scratch (row k-2 holds D_{k-1}; D_0 = 0 and D_N stay out of it).
+  Key* cur = keys;
+  Key* nxt = keys + N;
+  Key* spare = keys + 2 * N;
+  T* lev = levels + b * (int64_t)N * N;
+  for (int k = 1; k <= N; ++k) {
+    for (int e = tid; e < E; e += nt) {
+      const int32_t s = kStaged ? s_src[e] : g_src[e];
+      const int32_t d = kStaged ? s_dst[e] : g_dst[e];
+      const C we = kStaged ? s_w[e] : A::load(g_w[e]);
+      const C x = A::add(decode_key(cur[s]), we);
+      if (!(x == ninf)) atomicMax(&nxt[d], encode_key(x));
+    }
+    for (int v = tid; v < N; v += nt) {
+      spare[v] = kneg;
+      if (k >= 2) lev[(int64_t)(k - 2) * N + v] = A::store(decode_key(cur[v]));
+    }
+    __syncthreads();
+    Key* t = cur;
+    cur = nxt;
+    nxt = spare;
+    spare = t;
+  }
+
+  // cur holds D_N.  min over k of (D_N - D_k) / (N - k), NaN -> +inf,
+  // -inf where D_N is -inf, then the max over v.
+  for (int v = tid; v < N; v += nt) {
+    const C dn = decode_key(cur[v]);
+    C m = pos_inf_of<C>();
+    for (int k = 0; k < N; ++k) {
+      const C dk = k == 0 ? C(0) : A::load(lev[(int64_t)(k - 1) * N + v]);
+      C r = A::div(A::sub(dn, dk), A::round(C(N - k)));
+      if (r != r) r = pos_inf_of<C>();
+      m = r < m ? r : m;
+    }
+    if (dn == ninf) m = ninf;
+    atomicMax(red, encode_key(m));
+  }
+  __syncthreads();
+  if (tid == 0) out[b] = A::store(decode_key(*red));
+}
+
+// grid (B, 2): y = 0 follows arcs src -> dst, y = 1 dst -> src.
+template <bool kStaged>
+__global__ void __launch_bounds__(kMaxThreads)
+reach_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+             const uint8_t* __restrict__ present, uint8_t* __restrict__ out,
+             int B, int E, int N) {
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  int32_t* s_take = reinterpret_cast<int32_t*>(smem_raw);
+  int32_t* s_seg = s_take + (kStaged ? E : 0);  // -1 marks an absent arc
+  volatile uint8_t* r = reinterpret_cast<volatile uint8_t*>(s_seg + (kStaged ? E : 0));
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t b = blockIdx.x;
+  const bool backward = blockIdx.y == 1;
+  const int32_t* g_take = (backward ? dst : src) + b * E;
+  const int32_t* g_seg = (backward ? src : dst) + b * E;
+  const uint8_t* g_p = present + b * E;
+
+  for (int v = tid; v < N; v += nt) r[v] = v == 0;
+  for (int e = tid; e < E; e += nt) {
+    const int32_t t = g_take[e], s = g_seg[e];
+    if ((unsigned)t >= (unsigned)N || (unsigned)s >= (unsigned)N) __trap();
+    if (kStaged) {
+      s_take[e] = t;
+      s_seg[e] = g_p[e] ? s : -1;
+    }
+  }
+  __syncthreads();
+
+  // In place: a hop may already see vertices set earlier in the same hop,
+  // which only reaches the fixpoint sooner.
+  for (int hop = 0; hop < N - 1; ++hop) {
+    int changed = 0;
+    for (int e = tid; e < E; e += nt) {
+      const int32_t s = kStaged ? s_seg[e] : (g_p[e] ? g_seg[e] : -1);
+      if (s < 0) continue;
+      const int32_t t = kStaged ? s_take[e] : g_take[e];
+      if (r[t] && !r[s]) {
+        r[s] = 1;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+  __syncthreads();
+  uint8_t* o = out + ((int64_t)blockIdx.y * B + b) * N;
+  for (int v = tid; v < N; v += nt) o[v] = r[v];
+}
+
+int threads_for(int64_t work) {
+  const int64_t t = ((work + 31) / 32) * 32;
+  return (int)(t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t));
+}
+
+size_t max_smem_optin() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      bytes = (int)kDefaultSmem;
+  }
+  return (size_t)bytes;
+}
+
+// Allow `bytes` of dynamic shared memory for `kernel` (needed above 48 KB);
+// `granted` remembers the largest amount already set for it.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& granted) {
+  if (bytes <= kDefaultSmem || bytes <= granted) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
+template <typename T>
+cudaError_t launch_karp(const void* src, const void* dst, const void* w, void* levels, void* out,
+                        int64_t B, int64_t E, int64_t N, cudaStream_t stream) {
+  using C = typename Arith<T>::C;
+  using Key = KeyOf<T>;
+  static size_t granted[2] = {0, 0};
+  const size_t level_bytes = (size_t)(3 * N + 1) * sizeof(Key);
+  const size_t staged_bytes = level_bytes + (size_t)E * (sizeof(C) + 2 * sizeof(int32_t));
+  const size_t cap = max_smem_optin();
+  if (level_bytes > cap) return cudaErrorInvalidValue;
+  const bool staged = staged_bytes <= cap;
+  const size_t smem = staged ? staged_bytes : level_bytes;
+  auto kernel = staged ? &karp_kernel<T, true> : &karp_kernel<T, false>;
+  cudaError_t err = allow_smem(kernel, smem, granted[staged]);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)B, threads_for(E > N ? E : N), smem, stream>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+      static_cast<const T*>(w), static_cast<T*>(levels), static_cast<T*>(out), (int)E, (int)N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (src/repro_torch/kernels/segment_max.py).
@@ -163,6 +475,49 @@ extern "C" int segment_max_launch(const void* vals, const void* ids, void* out, 
     case 3: return (int)launch<__nv_bfloat16>(vals, ids, out, B, E, S, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// levels is a contiguous [B, N, N] scratch of w's type (rows 0..N-2 of
+// each batch row are written), out is [B]; src and dst are int32 in [0, N).
+extern "C" int karp_cycle_time_launch(const void* src, const void* dst, const void* w,
+                                      void* levels, void* out, int64_t B, int64_t E,
+                                      int64_t N, int dtype, void* stream) {
+  if (B < 0 || E < 0 || N < 1 || E > 0x7fffffffLL || N > 0x7fffffffLL / N ||
+      B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_karp<float>(src, dst, w, levels, out, B, E, N, s);
+    case 1: return (int)launch_karp<double>(src, dst, w, levels, out, B, E, N, s);
+    case 2: return (int)launch_karp<__half>(src, dst, w, levels, out, B, E, N, s);
+    case 3: return (int)launch_karp<__nv_bfloat16>(src, dst, w, levels, out, B, E, N, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// src, dst are int32 [B, E] in [0, N), present is [B, E] bytes (non-zero
+// for a present arc), out is [2, B, N] bytes: forward, then backward.
+extern "C" int reach_launch(const void* src, const void* dst, const void* present, void* out,
+                            int64_t B, int64_t E, int64_t N, void* stream) {
+  if (B < 0 || E < 0 || N < 1 || E > 0x7fffffffLL || N > 0x7fffffffLL || B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  static size_t granted[2] = {0, 0};
+  const size_t flag_bytes = (size_t)N;
+  const size_t staged_bytes = (size_t)E * 2 * sizeof(int32_t) + flag_bytes;
+  const size_t cap = max_smem_optin();
+  if (flag_bytes > cap) return (int)cudaErrorInvalidValue;
+  const bool staged = staged_bytes <= cap;
+  const size_t smem = staged ? staged_bytes : flag_bytes;
+  auto kernel = staged ? &reach_kernel<true> : &reach_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem, granted[staged]);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)B, 2);
+  kernel<<<grid, threads_for(E > N ? E : N), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+      static_cast<const uint8_t*>(present), static_cast<uint8_t*>(out), (int)B, (int)E, (int)N);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* segment_max_error_string(int err) {

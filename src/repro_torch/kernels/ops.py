@@ -20,10 +20,19 @@ from .flash_attention import check_inputs, flash_attention_cuda, flash_attention
 from .gossip_mix import gossip_mix_cuda, gossip_mix_ref
 from .mlstm_scan import check_inputs as check_mlstm_inputs
 from .mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda
-from .segment_max import edge_segment_max_cuda, edge_segment_max_ref
+from .segment_max import (
+    check_karp_inputs,
+    check_reach_inputs,
+    edge_segment_max_cuda,
+    edge_segment_max_ref,
+    karp_cycle_time_cuda,
+    karp_cycle_time_ref,
+    reach_from_zero_cuda,
+    reach_from_zero_ref,
+)
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "mlstm_scan": 0,
-                            "segment_max": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "karp": 0, "mlstm_scan": 0,
+                            "reach": 0, "segment_max": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,6 +71,44 @@ def edge_segment_max(vals: torch.Tensor, seg_ids: torch.Tensor,
             LAUNCHES["segment_max"] += 1
         return res
     raise ValueError(f"edge_segment_max: no kernel for device {vals.device}")
+
+
+def karp_cycle_time(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """``[B]`` Karp max cycle means of ``[B, E]`` arc lists ``src -> dst``
+    with weights ``w`` (``-inf`` marks an absent arc) over ``num_nodes``
+    nodes; ``-inf`` for an acyclic row.  On the card all N levels and the
+    final formula are one launch of the persistent K1 recursion."""
+    if w.device.type == "cpu":
+        return karp_cycle_time_ref(src, dst, w, num_nodes)
+    if w.is_cuda:
+        check_karp_inputs(src, dst, w, num_nodes)
+        res = karp_cycle_time_cuda(src.to(device=w.device, dtype=torch.int32).contiguous(),
+                                   dst.to(device=w.device, dtype=torch.int32).contiguous(),
+                                   w.contiguous(), num_nodes)
+        if res.numel():
+            LAUNCHES["karp"] += 1
+        return res
+    raise ValueError(f"karp_cycle_time: no kernel for device {w.device}")
+
+
+def reach_from_zero(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """``[2, B, N]`` bool: the vertices reachable from vertex 0 along the
+    present arcs of ``[B, E]`` lists, forward (``src -> dst``) and
+    backward (``dst -> src``).  On the card both directions are one
+    launch of the persistent K1 recursion."""
+    if present.device.type == "cpu":
+        return reach_from_zero_ref(src, dst, present, num_nodes)
+    if present.is_cuda:
+        check_reach_inputs(src, dst, present, num_nodes)
+        res = reach_from_zero_cuda(src.to(device=present.device, dtype=torch.int32).contiguous(),
+                                   dst.to(device=present.device, dtype=torch.int32).contiguous(),
+                                   present.contiguous(), num_nodes)
+        if res.numel():
+            LAUNCHES["reach"] += 1
+        return res
+    raise ValueError(f"reach_from_zero: no kernel for device {present.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

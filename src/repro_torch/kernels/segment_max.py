@@ -20,11 +20,29 @@ folds each edge in with one ``atomicMax`` on an order-preserving integer
 encoding -- O(E) work per row instead of O(E·S).  :func:`edge_segment_max_ref`
 is the same function in plain PyTorch: the CPU path, and what the kernel
 is held against on the card.
+
+The same source holds two persistent recursions over such arc lists,
+each one launch where the per-level path launched once a level:
+
+* :func:`karp_cycle_time_cuda` -- all N Karp levels and the final
+  min/max formula of a batch of max cycle means, one block per graph
+  row (:func:`karp_cycle_time_ref` is the plain scatter loop);
+* :func:`reach_from_zero_cuda` -- the rewire climb's forward and
+  backward reachability from vertex 0, one block per row and direction
+  (:func:`reach_from_zero_ref` is the plain hop loop).
+
+Both are bit-identical to their plain versions: max is exact, the
+reachability flags are 0/1, and every add, subtraction and division of
+the Karp kernel is done in the input type with round-to-nearest, as
+torch does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -86,17 +104,44 @@ def select_segment_max_impl(kernel: str = "auto", *, padded: bool = False,
     return "padded" if padded else "scatter"
 
 
-def _library() -> ctypes.CDLL:
+class _Lib(NamedTuple):
+    segment_max: Callable
+    karp: Callable
+    reach: Callable
+    error_string: Callable
+
+
+@functools.cache
+def _library() -> _Lib:
+    """The kernels' C entry points, loaded (and built) once."""
     from ._build import load_library
 
     lib = load_library("segment_max")
-    fn = lib.segment_max_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    fns = {"segment_max": (lib.segment_max_launch,
+                           [ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
+           "karp": (lib.karp_cycle_time_launch,
+                    [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
+           "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr])}
+    for fn, argtypes in fns.values():
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.segment_max_error_string.argtypes = [ctypes.c_int]
     lib.segment_max_error_string.restype = ctypes.c_char_p
-    return lib
+    return _Lib(*(fn for fn, _ in fns.values()), lib.segment_max_error_string)
+
+
+def _device_of(t: torch.Tensor):
+    """Make ``t``'s card the current device for a launch, when it is not."""
+    if t.device.index is None or t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def _raise_on(err: int, what: str, lib: _Lib) -> None:
+    if err != 0:
+        msg = lib.error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
 
 
 def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
@@ -121,11 +166,187 @@ def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError(f"num_segments must be >= 0, got {S}")
     out = torch.empty((B, S), dtype=vals.dtype, device=vals.device)
     lib = _library()
-    with torch.cuda.device(vals.device):
+    with _device_of(vals):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.segment_max_launch(vals.data_ptr(), seg_ids.data_ptr(), out.data_ptr(),
-                                     B, E, S, _DTYPE_CODES[vals.dtype], stream)
-    if err != 0:
-        msg = lib.segment_max_error_string(err).decode()
-        raise RuntimeError(f"segment_max kernel launch failed: {msg} (cudaError {err})")
+        err = lib.segment_max(vals.data_ptr(), seg_ids.data_ptr(), out.data_ptr(),
+                              B, E, S, _DTYPE_CODES[vals.dtype], stream)
+    _raise_on(err, "segment_max", lib)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Karp's max cycle mean
+
+
+def check_karp_inputs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                      num_nodes: int) -> None:
+    """Types and shapes of a Karp score, and, for tensors off the card,
+    ids in ``[0, N)`` (on the card an out-of-range id stops the kernel,
+    which surfaces as a CUDA error at the next synchronise)."""
+    if w.dtype not in _DTYPE_CODES:
+        raise TypeError(f"karp_cycle_time needs float32/float64/float16/bfloat16 weights, "
+                        f"got {w.dtype}")
+    _check_int_ids("karp_cycle_time", src=src, dst=dst)
+    if w.dim() != 2 or src.shape != w.shape or dst.shape != w.shape:
+        raise ValueError(f"src, dst and w must all be [B, E]; got {tuple(src.shape)}, "
+                         f"{tuple(dst.shape)} and {tuple(w.shape)}")
+    N = int(num_nodes)
+    if N < 1:
+        raise ValueError(f"num_nodes must be >= 1, got {N}")
+    _check_ids_on_host(N, src, dst)
+
+
+def _check_int_ids(what: str, **ids: torch.Tensor) -> None:
+    for name, t in ids.items():
+        if t.dtype.is_floating_point or t.dtype.is_complex or t.dtype == torch.bool:
+            raise TypeError(f"{what}: {name} must hold integer ids, got {t.dtype}")
+
+
+def _check_ids_on_host(N: int, *ids: torch.Tensor) -> None:
+    for t in ids:
+        if not t.is_cuda and t.numel() and not (int(t.min()) >= 0 and int(t.max()) < N):
+            raise ValueError(f"ids must lie in [0, {N}); got [{int(t.min())}, {int(t.max())}]")
+
+
+def karp_scatter_step(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                      num_nodes: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One Karp level ``D_k = max over arcs of D_{k-1}[src] + w`` as a
+    gather, an add and one ``scatter_reduce_`` into a ``-inf`` row."""
+    B, N = w.shape[0], int(num_nodes)
+    src = src.long()
+    seg_ids = (torch.arange(B, device=w.device)[:, None] * N + dst.long()).ravel()
+
+    def step(cur: torch.Tensor) -> torch.Tensor:
+        vals = torch.gather(cur, 1, src) + w
+        out = torch.full((B * N,), float("-inf"), dtype=w.dtype, device=w.device)
+        return out.scatter_reduce_(0, seg_ids, vals.ravel(), "amax").view(B, N)
+
+    return step
+
+
+def karp_from_step(step: Callable[[torch.Tensor], torch.Tensor], B: int, N: int,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Karp's max cycle means from N applications of ``step`` to ``D_0 = 0``:
+    ``max_v min_k (D_N - D_k) / (N - k)``, a NaN ratio read as ``+inf``
+    and a node with ``D_N = -inf`` as ``-inf``."""
+    D0 = torch.zeros((B, N), dtype=dtype, device=device)
+    levels = []
+    cur = D0
+    for _ in range(N):  # D_1 .. D_N
+        cur = step(cur)
+        levels.append(cur)
+    Dn = levels[-1]
+    allk = torch.stack([D0] + levels[:-1])  # D_0 .. D_{N-1}
+    denom = (N - torch.arange(N, device=device)).to(dtype)
+    ratios = (Dn[None, :, :] - allk) / denom[:, None, None]
+    ratios = torch.where(torch.isnan(ratios), torch.inf, ratios)
+    mins = ratios.amin(dim=0)
+    mins = torch.where(torch.isneginf(Dn), float("-inf"), mins)
+    return mins.amax(dim=1)
+
+
+def karp_cycle_time_ref(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                        num_nodes: int) -> torch.Tensor:
+    """``[B]`` max cycle means of ``[B, E]`` arc lists (``-inf`` weights
+    are absent arcs; ``-inf`` for an acyclic row) in plain PyTorch: N
+    scatter levels, then the final formula."""
+    check_karp_inputs(src, dst, w, num_nodes)
+    N = int(num_nodes)
+    return karp_from_step(karp_scatter_step(src, dst, w, N), w.shape[0], N, w.dtype, w.device)
+
+
+def karp_cycle_time_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                         num_nodes: int) -> torch.Tensor:
+    """One persistent launch for a batch of Karp scores, on PyTorch's
+    current stream.  Takes contiguous int32 ``src``/``dst`` and ``w`` of
+    one float dtype, ``[B, E]``, on one card; returns ``[B]`` in ``w``'s
+    dtype, bit-identical to :func:`karp_cycle_time_ref`.  Raises if the
+    launch fails."""
+    check_karp_inputs(src, dst, w, num_nodes)
+    if not (w.is_cuda and src.device == w.device and dst.device == w.device):
+        raise ValueError(f"karp_cycle_time_cuda needs CUDA tensors on one device, got "
+                         f"{src.device}, {dst.device} and {w.device}")
+    if src.dtype != torch.int32 or dst.dtype != torch.int32 or not (
+            src.is_contiguous() and dst.is_contiguous() and w.is_contiguous()):
+        raise ValueError("karp_cycle_time_cuda needs contiguous int32 ids and weights")
+    B, E = w.shape
+    N = int(num_nodes)
+    out = torch.empty((B,), dtype=w.dtype, device=w.device)
+    levels = torch.empty((B, N, N), dtype=w.dtype, device=w.device)  # L2-resident scratch
+    lib = _library()
+    with _device_of(w):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.karp(src.data_ptr(), dst.data_ptr(), w.data_ptr(), levels.data_ptr(),
+                       out.data_ptr(), B, E, N, _DTYPE_CODES[w.dtype], stream)
+    _raise_on(err, "karp_cycle_time", lib)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Reachability from vertex 0, forward and backward
+
+
+def check_reach_inputs(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
+                       num_nodes: int) -> None:
+    """Types and shapes of a reachability call, and, for tensors off the
+    card, ids in ``[0, N)``."""
+    if present.dtype != torch.bool:
+        raise TypeError(f"reach_from_zero: present must be bool, got {present.dtype}")
+    _check_int_ids("reach_from_zero", src=src, dst=dst)
+    if present.dim() != 2 or src.shape != present.shape or dst.shape != present.shape:
+        raise ValueError(f"src, dst and present must all be [B, E]; got {tuple(src.shape)}, "
+                         f"{tuple(dst.shape)} and {tuple(present.shape)}")
+    N = int(num_nodes)
+    if N < 1:
+        raise ValueError(f"num_nodes must be >= 1, got {N}")
+    _check_ids_on_host(N, src, dst)
+
+
+def reach_from_zero_ref(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
+                        num_nodes: int) -> torch.Tensor:
+    """``[2, B, N]`` bool: the vertices reachable from vertex 0 along
+    present arcs ``src -> dst`` (row 0) and ``dst -> src`` (row 1), by
+    N - 1 synchronous hops of gather, multiply and ``scatter_reduce_``."""
+    check_reach_inputs(src, dst, present, num_nodes)
+    B, n = present.shape[0], int(num_nodes)
+    dev = present.device
+    boff = torch.arange(B, device=dev)[:, None] * n
+    pf = present.to(torch.float32)
+
+    def reach(take_idx, seg):
+        r = torch.zeros((B, n), dtype=torch.float32, device=dev)
+        r[:, 0] = 1.0
+        for _ in range(max(n - 1, 0)):
+            vals = torch.gather(r, 1, take_idx) * pf
+            hop = torch.zeros(B * n, dtype=torch.float32, device=dev)
+            hop.scatter_reduce_(0, seg, vals.ravel(), "amax")
+            r = torch.maximum(r, hop.view(B, n))
+        return r > 0
+
+    src, dst = src.long(), dst.long()
+    return torch.stack([reach(src, (boff + dst).ravel()), reach(dst, (boff + src).ravel())])
+
+
+def reach_from_zero_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
+                         num_nodes: int) -> torch.Tensor:
+    """One launch for both directions, on PyTorch's current stream.  Takes
+    contiguous int32 ``src``/``dst`` and bool ``present``, ``[B, E]``, on
+    one card; returns ``[2, B, N]`` bool, equal to :func:`reach_from_zero_ref`.
+    Raises if the launch fails."""
+    check_reach_inputs(src, dst, present, num_nodes)
+    if not (present.is_cuda and src.device == present.device and dst.device == present.device):
+        raise ValueError(f"reach_from_zero_cuda needs CUDA tensors on one device, got "
+                         f"{src.device}, {dst.device} and {present.device}")
+    if src.dtype != torch.int32 or dst.dtype != torch.int32 or not (
+            src.is_contiguous() and dst.is_contiguous() and present.is_contiguous()):
+        raise ValueError("reach_from_zero_cuda needs contiguous int32 ids and mask")
+    B, E = present.shape
+    N = int(num_nodes)
+    out = torch.empty((2, B, N), dtype=torch.bool, device=present.device)
+    lib = _library()
+    with _device_of(present):
+        stream = torch.cuda.current_stream(present.device).cuda_stream
+        err = lib.reach(src.data_ptr(), dst.data_ptr(), present.data_ptr(), out.data_ptr(),
+                        B, E, N, stream)
+    _raise_on(err, "reach", lib)
     return out

@@ -105,21 +105,87 @@ def test_karp_twin_on_card_bit_identical_to_cpu(cuda):
     w[rng.random((B, E)) < 0.2] = -np.inf
     args = [torch.from_numpy(a) for a in (src, dst, w)]
     cpu = batched_cycle_time_sparse_torch(*args, n, kernel="scatter")
-    before = LAUNCHES["segment_max"]
+    before = dict(LAUNCHES)
     card = batched_cycle_time_sparse_torch(*[a.to(cuda) for a in args], n)
-    assert LAUNCHES["segment_max"] == before + n  # one launch per Karp level
+    assert LAUNCHES["karp"] == before["karp"] + 1  # all n levels in one launch
+    assert LAUNCHES["segment_max"] == before["segment_max"]
     assert torch.equal(card.cpu(), cpu)
+
+
+def _karp_inputs(gen, dev, B, N, E, dtype):
+    """Arc lists with a self-loop per node, -inf arcs, row 0 acyclic (a
+    path) and, where N > 2, node N - 1 unreachable in every row."""
+    src = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    k = min(N, E)
+    src[:, :k] = torch.arange(k, dtype=torch.int32, device=dev)
+    dst[:, :k] = src[:, :k]
+    w = torch.rand((B, E), generator=gen, device=dev) * 19.5 + 0.5
+    w[torch.rand((B, E), generator=gen, device=dev) < 0.2] = float("-inf")
+    if N > 2:
+        w[(src == N - 1) | (dst == N - 1)] = float("-inf")
+    w[0] = float("-inf")
+    if N > 1:
+        m = min(N - 1, E)
+        src[0, :m] = torch.arange(m, dtype=torch.int32, device=dev)
+        dst[0, :m] = src[0, :m] + 1
+        w[0, :m] = 1.0
+    return src, dst, w.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("B,N,E", [(1, 1, 1), (3, 5, 15), (16, 87, 261), (4, 383, 1149),
+                                   (2, 1024, 8192), (2, 300, 20000)])
+def test_karp_kernel_matches_plain_bit_for_bit(cuda, B, N, E, dtype):
+    from repro_torch.kernels import karp_cycle_time
+    from repro_torch.kernels.segment_max import karp_cycle_time_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(B * N + E)
+    src, dst, w = _karp_inputs(gen, cuda, B, N, E, dtype)
+    before = LAUNCHES["karp"]
+    got = karp_cycle_time(src, dst, w, N)
+    torch.cuda.synchronize()
+    assert LAUNCHES["karp"] == before + 1
+    assert got.dtype == dtype and got.shape == (B,)
+    assert torch.equal(got, karp_cycle_time_ref(src, dst, w, N))
+    if N > 1:
+        assert bool(torch.isneginf(got[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,S", [(1, 1, 2), (3, 5, 10), (16, 87, 174), (4, 383, 766),
+                                   (2, 1024, 8192), (2, 300, 30000)])
+def test_reach_kernel_matches_plain(cuda, B, N, S):
+    from repro_torch.kernels import reach_from_zero
+    from repro_torch.kernels.segment_max import reach_from_zero_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(B * N + S)
+    src = torch.randint(0, N, (B, S), generator=gen, device=cuda)
+    dst = torch.randint(0, N, (B, S), generator=gen, device=cuda)
+    present = (torch.rand((B, S), generator=gen, device=cuda) < 0.6) & (src != dst)
+    present[:, : S // 2] &= (src[:, : S // 2] < N // 2) & (dst[:, : S // 2] < N // 2)
+    before = LAUNCHES["reach"]
+    got = reach_from_zero(src, dst, present, N)
+    torch.cuda.synchronize()
+    assert LAUNCHES["reach"] == before + 1
+    assert got.dtype == torch.bool and got.shape == (2, B, N)
+    assert torch.equal(got, reach_from_zero_ref(src, dst, present, N))
 
 
 @pytest.mark.gpu
 def test_climb_launches_one_kernel_per_karp_level(cuda):
+    """Now one persistent Karp launch and one reachability launch per
+    scored step (the seeds' score and n_steps proposals)."""
     import repro_torch.core as P
 
     gc = P.make_underlay("gaia").connectivity_graph(comp_time_ms=25.4)
     tp = P.TrainingParams(model_size_mbits=42.88, local_steps=1)
-    before = LAUNCHES["segment_max"]
+    before = dict(LAUNCHES)
     ov = P.search_overlays_jit(gc, tp, n_restarts=4, n_steps=5, device=cuda)
-    assert LAUNCHES["segment_max"] - before == (5 + 1) * gc.num_silos
+    assert LAUNCHES["karp"] - before["karp"] == 5 + 1
+    assert LAUNCHES["reach"] - before["reach"] == 5 + 1
+    assert LAUNCHES["segment_max"] == before["segment_max"]
     assert ov.cycle_time_ms <= P.ring_overlay(gc, tp).cycle_time_ms
 
 
