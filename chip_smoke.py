@@ -54,13 +54,16 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    3 DPASGD rounds (``gossip_impl="pallas"``, 11 silos, the reduced
    internlm2-1.8b), one ``gossip_mix`` launch per round, then one round
    pallas vs einsum (<= 1e-5);
-10. holds ``flash_attention`` (K3) against its plain version on the card
-   (float32 at 2e-5, bfloat16 at 2e-2; B in {1, 2} x S in {128, 256,
+10. checks that every instantiation of ``flash_attention`` (K3) runs
+   its products on the tensor cores (``HGMMA`` in the library's SASS) and
+   that none spills at hd 80; holds it against its plain version on the
+   card (float32 at 2e-5, bfloat16 at 2e-2; B in {1, 2} x S in {128, 256,
    1024} x K in {1, 2, 8} x G in {1, 2, 4} x hd in {32, 64, 80, 128} x
    windows None, 32, 64, 100, 4096) and times it at h2o-danube-1.8b's
    prefill shape (B=2, S=T=8192, K=8, G=4, hd=80, window 4096, float32)
-   beside its plain version, ``scaled_dot_product_attention`` and its
-   bound;
+   in turns with the earlier CUDA-core kernel of the same source, its
+   plain version and ``scaled_dot_product_attention``, beside its bound at
+   the 3xTF32 rate and the float32 CUDA-core bound;
 11. drives the serving path through ``repro_torch.launch.serve.serve``:
    h2o-danube-1.8b at full size (24 layers, random weights from seed 0,
    batch 2, an 8192-token prompt past the 4096 window, 32 tokens) with
@@ -105,6 +108,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +119,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core rate
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # K3's sweep against its plain version, and h2o-danube-1.8b's prefill shape
 # (B, S = T, K, G, hd, window) where it is timed
@@ -827,20 +832,69 @@ def attn_pairs(S: int, T: int, causal: bool, window) -> int:
 
 
 def attn_bound_ms(B: int, S: int, T: int, K: int, G: int, hd: int, window,
-                  elem_bytes: int) -> tuple:
+                  elem_bytes: int, passes: float = 1.0, rate: float = F32_FLOPS) -> tuple:
     """Least time of the attention: 4*hd operations (the score's and the
-    value product's multiply-adds) per visible pair at the float32 rate,
-    or q, k, v read once and the output written once at the memory rate."""
+    value product's multiply-adds) per visible pair, ``passes`` times over
+    at ``rate``, or q, k, v read once and the output written once at the
+    memory rate."""
     ops = 4 * hd * attn_pairs(S, T, True, window) * B * K * G
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = passes * ops / rate * 1e3
     t_bytes = (2 * B * S * K * G * hd + 2 * B * T * K * hd) * elem_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def flash_sass_counts(lib_path) -> dict:
+    """``HGMMA`` instructions in each function of the K3 library's SASS
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?([a-z_]+_kernel)I(.+?)EE", line)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def flash_build_phase() -> None:
+    """The tensor-core K3 runs its products on the tensor cores (HGMMA in
+    every instantiation's SASS) and spills nothing at danube's hd 80."""
+    from repro_torch.kernels._build import BUILD_DIR, library_path
+
+    counts = flash_sass_counts(library_path("flash_attention"))
+    if counts is None:
+        src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
+        print("kernel flash_attention: HGMMA count not measured (no cuobjdump); the source "
+              f"holds wgmma.mma_async: {'wgmma.mma_async' in src}")
+        check("wgmma.mma_async" in src, "flash_attention.cu holds no wgmma")
+    else:
+        tc = {k: v for k, v in counts.items() if k.startswith("flash_attention_kernel")}
+        print("kernel flash_attention: HGMMA instructions in the SASS: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(counts.items())))
+        check(len(tc) == 8 and all(v > 0 for v in tc.values()),
+              f"tensor-core K3 instantiations without HGMMA: {tc}")
+    log = (BUILD_DIR / "flash_attention.log").read_text()
+    fn = ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for .*?([a-z_]+_kernel)I(.+?)EE", line)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+        elif fn.startswith("flash_attention_kernel") and "Li80" in fn and "spill" in line:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"{fn} spills at hd 80: {line.strip()}")
+
+
 def flash_kernel_phase(torch, dev) -> dict:
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
 
+    flash_build_phase()
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
@@ -875,43 +929,77 @@ def flash_kernel_phase(torch, dev) -> dict:
     q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
     k = torch.randn((B, S, K, hd), generator=gen, device=dev)
     v = torch.randn((B, S, K, hd), generator=gen, device=dev)
-    got = flash_attention(q, k, v, causal=True, window=window)
     ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    got = flash_attention(q, k, v, causal=True, window=window)
     err = float((got - ref).abs().max())
     check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
           f"flash_attention at the danube prefill shape: max abs err {err}")
-    del got
-    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window),
-                 reps=5, warmup=1)
-    plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True, window=window),
-                    reps=2, warmup=1)
+    simt = flash_attention_cuda(q, k, v, causal=True, window=window, simt=True)
+    simt_err = float((simt - ref).abs().max())
+    check(torch.allclose(simt, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"CUDA-core flash_attention at the danube prefill shape: max abs err {simt_err}")
+    # All three against float64 on the last 64 query positions of batch 0.
+    rows = slice(S - 64, S)
+    pos = torch.arange(S, device=dev)
+    scores = torch.einsum("skgd,tkd->skgt", q[0, rows].double() * hd ** -0.5, k[0].double())
+    seen = (pos[None, :] <= pos[rows, None]) & (pos[rows, None] - pos[None, :] < window)
+    scores = torch.where(seen[:, None, None, :], scores, -1e30)
+    exact = torch.einsum("skgt,tkd->skgd", torch.softmax(scores, -1), v[0].double())
+    f64_err = {name: float((x[0, rows].double() - exact).abs().max())
+               for name, x in (("kernel", got), ("cuda-core", simt), ("plain", ref))}
+    print("kernel flash_attention at the danube prefill shape against float64 (last 64 "
+          "positions of batch 0): max abs err " + ", ".join(
+              f"{name} {err:.3g}" for name, err in f64_err.items()))
+    del got, simt, scores, exact
     # Yardstick only, never called by the port: one scaled_dot_product_attention
     # over [B, H, S, hd] with the kv heads grouped and a boolean causal+window mask.
     F = torch.nn.functional
     qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-    pos = torch.arange(S, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
     try:
         sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
         sdpa_err = float((sdpa.transpose(1, 2).reshape(q.shape) - ref).abs().max())
+        sdpa_txt = f"max abs diff to plain {sdpa_err:.3g}"
         del sdpa
-        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), reps=2, warmup=0)
-        lib_txt = f"{library:.4f} (max abs diff to plain {sdpa_err:.3g})"
     except torch.OutOfMemoryError as exc:
-        library, lib_txt = None, f"not measured ({str(exc).splitlines()[0][:80]})"
+        sdpa_txt = f"not measured ({str(exc).splitlines()[0][:80]})"
+        sdpa_fn = None
+    else:
+        def sdpa_fn():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
     del ref
     torch.cuda.empty_cache()
-    bound, by = attn_bound_ms(B, S, S, K, G, hd, window, 4)
+    # In turns on one card: kernel, CUDA-core kernel, plain, SDPA, then back.
+    runs = {"kernel": (lambda: flash_attention(q, k, v, causal=True, window=window), 5),
+            "simt": (lambda: flash_attention_cuda(q, k, v, causal=True, window=window,
+                                                  simt=True), 5),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True, window=window), 2),
+            "sdpa": (sdpa_fn, 2)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, reps = runs[name]
+        if fn is not None:
+            times[name].append(time_ms(torch, fn, reps=reps, warmup=1))
+    mean = {name: sum(t) / len(t) if t else None for name, t in times.items()}
+    bound, by = attn_bound_ms(B, S, S, K, G, hd, window, 4, passes=3, rate=TF32_FLOPS)
+    bound_f32, _ = attn_bound_ms(B, S, S, K, G, hd, window, 4)
     pairs = attn_pairs(S, S, True, window) * B * K * G
+
+    def fmt(name):
+        return " / ".join(f"{t:.4f}" for t in times[name]) or "not measured"
+
     print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} window={window} f32 "
-          f"(danube prefill): ms {ms:.4f}  plain_ms {plain:.4f}  library_ms "
-          f"scaled_dot_product_attention {lib_txt}  bound_ms {bound:.4f} ({by}; {pairs} "
-          f"visible pairs)  max_abs_err {err:.3g}  achieved "
-          f"{4 * hd * pairs / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    return {"ms": ms, "plain_ms": plain, "library_ms": library, "bound_ms": bound,
-            "bound_by": by, "max_abs_err": max(err, worst["float32"])}
+          f"(danube prefill), in turns: ms {fmt('kernel')}  cuda-core entry ms {fmt('simt')}  "
+          f"plain_ms {fmt('plain')}  library_ms scaled_dot_product_attention {fmt('sdpa')} "
+          f"({sdpa_txt})  bound_ms {bound:.4f} ({by}, 3xTF32 at {TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; {pairs} visible pairs)  float32 CUDA-core bound {bound_f32:.4f}  "
+          f"max_abs_err {err:.3g} (cuda-core {simt_err:.3g})  achieved "
+          f"{4 * hd * pairs / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of fp32-accurate "
+          f"products ({mean['simt'] / mean['kernel']:.2f}x the CUDA-core entry)")
+    return {"ms": mean["kernel"], "simt_ms": mean["simt"], "plain_ms": mean["plain"],
+            "library_ms": mean["sdpa"], "bound_ms": bound, "bound_by": by,
+            "bound_f32_ms": bound_f32, "max_abs_err": max(err, worst["float32"])}
 
 
 def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float,
@@ -1427,8 +1515,9 @@ def main() -> int:
           f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; karp launches "
           f"{design['launches']} over the design phase; design phases took {design_s:.1f} s")
     danube = served["h2o-danube-1.8b"]
-    print(f"summary: flash_attention danube prefill shape ms {attn['ms']:.4f} (bound "
-          f"{attn['bound_ms']:.4f}); serve prefill s / decode tok/s / peak GiB: " + "; ".join(
+    print(f"summary: flash_attention danube prefill shape ms {attn['ms']:.4f} (CUDA-core entry "
+          f"{attn['simt_ms']:.4f}; bound {attn['bound_ms']:.4f} at 3xTF32, "
+          f"{attn['bound_f32_ms']:.4f} at the float32 rate); serve prefill s / decode tok/s / peak GiB: " + "; ".join(
               f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / "
               f"{r['peak_bytes'] / 2**30:.2f}" for a, r in served.items())
           + f"; serving phases took {serve_s:.1f} s")

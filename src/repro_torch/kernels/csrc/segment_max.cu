@@ -413,27 +413,26 @@ int threads_for(int64_t work) {
   return (int)(t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t));
 }
 
+// The opt-in shared-memory limit of the current device.  Nothing here is
+// cached across calls: the limit and a kernel's granted size belong to a
+// device, and a process may launch on more than one card.
 size_t max_smem_optin() {
-  static int bytes = -1;
-  if (bytes < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess)
-      bytes = (int)kDefaultSmem;
-  }
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return kDefaultSmem;
   return (size_t)bytes;
 }
 
-// Allow `bytes` of dynamic shared memory for `kernel` (needed above 48 KB);
-// `granted` remembers the largest amount already set for it.
+// Allow `bytes` of dynamic shared memory for `kernel` on the current
+// device (needed above 48 KB), at every launch that needs it, as K3 and K4
+// do: the attribute is per device, so a size remembered from one card
+// would skip it on another.
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t& granted) {
-  if (bytes <= kDefaultSmem || bytes <= granted) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) granted = bytes;
-  return err;
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <typename T>
@@ -441,7 +440,6 @@ cudaError_t launch_karp(const void* src, const void* dst, const void* w, void* l
                         int64_t B, int64_t E, int64_t N, cudaStream_t stream) {
   using C = typename Arith<T>::C;
   using Key = KeyOf<T>;
-  static size_t granted[2] = {0, 0};
   const size_t level_bytes = (size_t)(3 * N + 1) * sizeof(Key);
   const size_t staged_bytes = level_bytes + (size_t)E * (sizeof(C) + 2 * sizeof(int32_t));
   const size_t cap = max_smem_optin();
@@ -449,7 +447,7 @@ cudaError_t launch_karp(const void* src, const void* dst, const void* w, void* l
   const bool staged = staged_bytes <= cap;
   const size_t smem = staged ? staged_bytes : level_bytes;
   auto kernel = staged ? &karp_kernel<T, true> : &karp_kernel<T, false>;
-  cudaError_t err = allow_smem(kernel, smem, granted[staged]);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)B, threads_for(E > N ? E : N), smem, stream>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
@@ -503,7 +501,6 @@ extern "C" int reach_launch(const void* src, const void* dst, const void* presen
   if (B < 0 || E < 0 || N < 1 || E > 0x7fffffffLL || N > 0x7fffffffLL || B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  static size_t granted[2] = {0, 0};
   const size_t flag_bytes = (size_t)N;
   const size_t staged_bytes = (size_t)E * 2 * sizeof(int32_t) + flag_bytes;
   const size_t cap = max_smem_optin();
@@ -511,7 +508,7 @@ extern "C" int reach_launch(const void* src, const void* dst, const void* presen
   const bool staged = staged_bytes <= cap;
   const size_t smem = staged ? staged_bytes : flag_bytes;
   auto kernel = staged ? &reach_kernel<true> : &reach_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem, granted[staged]);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)B, 2);
   kernel<<<grid, threads_for(E > N ? E : N), smem, static_cast<cudaStream_t>(stream)>>>(

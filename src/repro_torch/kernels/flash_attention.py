@@ -9,11 +9,17 @@ float32, and applied to v; the result is cast to q's dtype.
 
 The CUDA kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
 kernel ``src/repro/kernels/flash_attention.py::flash_attention_pallas``:
-an online softmax over key tiles streamed through shared memory, fp32
-FMAs on the CUDA cores.  :func:`flash_attention_ref` is the counterpart
-of ``repro.kernels.ref.attention_ref`` in plain PyTorch, looping over
-query chunks so that a long prefill's scores fit in memory: the CPU path,
-and what the kernel is held against on the card.
+an online softmax over key tiles that a producer warp copies into shared
+memory while a warpgroup runs both products on the tensor cores (``wgmma``
+in TF32).  Each float32 operand is split into a TF32 high part and a TF32
+low part and a product is ``hi*hi + hi*lo + lo*hi`` (3xTF32), which keeps
+the float32 tolerance; a bfloat16 operand is exact in TF32 and needs no
+low part.  The same source keeps the earlier kernel, whose products are
+fp32 FMAs on the CUDA cores (``simt=True``), to be timed beside it.
+:func:`flash_attention_ref` is the counterpart of
+``repro.kernels.ref.attention_ref`` in plain PyTorch, looping over query
+chunks so that a long prefill's scores fit in memory: the CPU path, and
+what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -84,10 +90,10 @@ def _library() -> ctypes.CDLL:
     from ._build import load_library
 
     lib = load_library("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.flash_attention_launch, lib.flash_attention_simt_launch):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -95,9 +101,12 @@ def _library() -> ctypes.CDLL:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  Checks device,
-    dtype, shape and contiguity, and raises if the launch fails."""
+                         window: Optional[int] = None, simt: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream: the tensor-core
+    kernel, or with ``simt`` the earlier CUDA-core one.  Checks device,
+    dtype, shape and contiguity, and raises if the launch fails.  The
+    kernel reads 16-byte rows, so an input whose storage starts off that
+    alignment is copied first."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     check_inputs(q, k, v, window)
@@ -111,11 +120,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
+        launch = lib.flash_attention_simt_launch if simt else lib.flash_attention_launch
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, k.shape[1], K, G, hd, hd ** -0.5, int(causal),
             -1 if window is None else int(window), _DTYPE_CODES[q.dtype], stream)

@@ -19,7 +19,10 @@ from repro_torch.kernels import (  # noqa: E402
     gossip_mix,
     mlstm_scan,
 )
-from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_attention_ref,
+)
 from repro_torch.kernels.gossip_mix import gossip_mix_ref  # noqa: E402
 from repro_torch.kernels.mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda  # noqa: E402
 from repro_torch.kernels.segment_max import edge_segment_max_ref  # noqa: E402
@@ -195,6 +198,7 @@ def test_climb_launches_one_kernel_per_karp_level(cuda):
     (1, 128, 1, 1, 32, None), (2, 256, 2, 2, 64, None), (1, 256, 4, 1, 128, 64),
     (2, 128, 1, 4, 32, 32), (1, 1024, 2, 4, 80, 100), (2, 256, 8, 4, 80, 4096),
     (1, 256, 2, 3, 64, 100),   # G = 3: ragged query tiles (21 positions a block)
+    (1, 256, 2, 3, 80, 100),   # G = 3 at danube's head_dim
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, K, G, hd, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S * hd + G)
@@ -223,6 +227,60 @@ def test_flash_attention_kernel_non_causal_and_empty_window(cuda, window):
         got = flash_attention(q, k, v, causal=causal, window=window)
         expect = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got, expect, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,G,window", [(128, 384, 2, None), (256, 1024, 4, 300)])
+def test_flash_attention_kernel_more_keys_than_queries_hd128(cuda, S, T, G, window, dtype):
+    """hd 128 (32-key tiles) with T > S: queries at 0..S-1 against keys at
+    0..T-1, as the reference defines them."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T)
+    q = torch.randn((2, S, 2, G, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, T, 2, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, T, 2, 128), generator=gen, device=cuda).to(dtype)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        expect = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), expect.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K,G,hd,window", [
+    (1, 256, 2, 1, 32, None), (2, 512, 2, 4, 80, 100), (1, 512, 2, 2, 128, None),
+    (1, 256, 1, 3, 64, 64),
+])
+def test_flash_attention_tensor_cores_match_cuda_core_entry(cuda, B, S, K, G, hd, window,
+                                                            dtype):
+    """The tensor-core kernel against the CUDA-core kernel kept in the same
+    source, within the reference's tolerance; neither counts a launch (the
+    count is the dispatcher's)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + G)
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=gen, device=cuda).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    tc = flash_attention_cuda(q, k, v, causal=True, window=window)
+    simt = flash_attention_cuda(q, k, v, causal=True, window=window, simt=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before
+    torch.testing.assert_close(tc.float(), simt.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_takes_misaligned_inputs(cuda):
+    """Inputs whose storage starts off a 16-byte boundary are copied before
+    the kernel's 16-byte loads and tensor copies."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((1, 128, 2, 2, 64), generator=gen, device=cuda)
+    kv = torch.randn((1 + 2 * 128 * 2 * 64,), generator=gen, device=cuda)
+    k = kv[1:1 + 128 * 2 * 64].view(1, 128, 2, 64)
+    v = kv[1 + 128 * 2 * 64:].view(1, 128, 2, 64)
+    assert k.data_ptr() % 16 != 0 and k.is_contiguous()
+    got = flash_attention(q, k, v, causal=True, window=None)
+    expect = flash_attention_ref(q, k, v, causal=True, window=None)
+    torch.testing.assert_close(got, expect, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu
