@@ -10,8 +10,11 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 2. holds each kernel against its plain PyTorch version on the card
    (``gossip_mix``: K in {1, 2, 3, 5}, ragged and misaligned N, float32
    at 2e-5 and bfloat16 at 2e-2, constants preserved by a convex
-   combination) and times it at K=2, N=2^28 beside its plain version,
-   one PyTorch call computing the same function, and its bound;
+   combination), holds its streaming kernel bit-identical to the earlier
+   grid-stride kernel of the same source (K in {1, 2, 3, 5, 9}, ragged and
+   misaligned N, float32 and bfloat16), and times the two at K=2, N=2^28
+   in turns with its plain version, ``torch.lerp`` and ``torch.matmul``
+   (PyTorch calls computing the same function), beside its bound;
 3. drives the port's main path through its entry point: DPASGD on a
    4-silo ring, ``gossip_impl="pallas"``, at internlm2-1.8b's full
    width (depth cut to 4 layers, random weights from seed 0), 3 rounds,
@@ -21,8 +24,9 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    before the main path, it also runs one round at the CPU tests' small
    size on the card and on the CPU from the same state and compares them
    (<= 2e-5: the CPU path is the one the tests hold against JAX);
-5. times the kernel at the main path's own shape and compares it with
-   its plain version there;
+5. times the kernel at the main path's own shape in turns with the
+   grid-stride kernel, ``torch.lerp`` and its plain version, bit-identity
+   included;
 6. holds the standalone ``segment_max`` (K1) against its plain version on
    the card, bit for bit (B in {1, 3, 16, 64} x E in {1, 7, 261, 8192} x S
    in {1, 5, 87, 1024} x four float dtypes, with -inf entries,
@@ -50,6 +54,10 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    step);
 8. holds the climb's score of its seeds on the card bit-identical to the
    CPU's, on Ebone, for one universe and for padded multi-universe packs;
+   then times ``gossip_mix`` at every row count K that the port's plans
+   give it (the five designed overlays' plans and the 4-silo ring, chain
+   and star), N = 2^26, in turns with the grid-stride kernel, bit-identity
+   included;
 9. trains on a designed plan: Gaia's overlay -> ``plan_from_overlay`` ->
    3 DPASGD rounds (``gossip_impl="pallas"``, 11 silos, the reduced
    internlm2-1.8b), one ``gossip_mix`` launch per round, then one round
@@ -77,12 +85,17 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    card (B in {1, 2} x S in {128, 256, 1024} x H in {1, 4} x hd in {32,
    64, 128, 512} x chunk in {64, 128} x the forget gate biased by +2 or
    unbiased, float32 at atol 2e-4 / rtol 2e-3, bfloat16 at 2e-2, finite
-   in every case) and times it at xlstm-350m's forward shape (B=4,
-   S=2048, H=4, hd=512, float32) beside its plain version and its bound;
+   in every case) and, at xlstm-350m's forward shape (B=4, S=2048, H=4,
+   hd=512, float32), holds the tensor-core kernels and the earlier
+   CUDA-core kernel of the same source against plain, profiles the device
+   kernels of one call and reports its scratch, and times the three in
+   turns beside the 3xTF32 bound and the float32 CUDA-core bound;
 13. drives the full-sequence forward of xlstm-350m at full size (24
    layers, random weights from seed 0, batch 4, 2048 tokens,
    ``use_flash_kernel``): one ``mlstm_scan`` launch per mLSTM layer (20),
-   finite logits; each mLSTM layer through the kernel within 2e-3 of its
+   finite logits, K4's device time summed over the 20 launches (a second
+   forward under ``torch.profiler``, by kernel name, each seen exactly 20
+   times); each mLSTM layer through the kernel within 2e-3 of its
    plain path on the same input; the logits against the plain forward
    within 2e-3 or three times the difference between two plain forwards
    that differ only in chunk length (the sLSTM layers amplify rounding
@@ -175,7 +188,7 @@ def gb_per_s(K: int, N: int, elem_bytes: int, ms: float) -> float:
 
 def kernel_phase(torch, dev) -> dict:
     from repro_torch.kernels import gossip_mix
-    from repro_torch.kernels.gossip_mix import gossip_mix_ref
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda, gossip_mix_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
@@ -204,21 +217,69 @@ def kernel_phase(torch, dev) -> dict:
     print(f"kernel gossip_mix: sweep K in (1,2,3,5) x 6 sizes x aligned/misaligned "
           f"x f32/bf16 within tolerance (f32 max abs err {worst:.3g}); constants preserved")
 
+    # the streaming kernel against the grid-stride kernel it replaced: the same bits
+    n_same = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in (1, 2, 3, 5, 9):
+            for N in (1, 7, 4099, 65539, 1 << 20):
+                for offset in (0, 3):
+                    base = torch.randn(K * N + offset, generator=gen, device=dev).to(dtype)
+                    blocks = base[offset:].view(K, N)
+                    w = torch.softmax(torch.randn(K, generator=gen, device=dev), 0)
+                    check(torch.equal(gossip_mix_cuda(blocks, w),
+                                      gossip_mix_cuda(blocks, w, grid_stride=True)),
+                          f"gossip_mix streaming vs grid-stride kernel {dtype} K={K} N={N} "
+                          f"offset={offset}: not bit-identical")
+                    n_same += 1
+    print(f"kernel gossip_mix: streaming kernel bit-identical to the grid-stride kernel over "
+          f"K in (1,2,3,5,9) x 5 sizes x aligned/misaligned x f32/bf16 ({n_same} cases)")
+
     K, N = 2, 1 << 28
     blocks = torch.randn((K, N), generator=gen, device=dev)
     w = torch.tensor([0.5, 0.5], device=dev)
-    err = float((gossip_mix(blocks, w) - gossip_mix_ref(blocks, w)).abs().max())
+    got = gossip_mix(blocks, w)
+    err = float((got - gossip_mix_ref(blocks, w)).abs().max())
     check(err <= TOL["float32"], f"gossip_mix at K=2 N=2^28: max abs err {err}")
-    ms = time_ms(torch, lambda: gossip_mix(blocks, w), reps=20, warmup=3)
-    plain = time_ms(torch, lambda: gossip_mix_ref(blocks, w), reps=5)
-    matmul = time_ms(torch, lambda: torch.matmul(w, blocks), reps=5)
-    lerp = time_ms(torch, lambda: torch.lerp(blocks[0], blocks[1], w[1]), reps=5)
+    check(torch.equal(got, gossip_mix_cuda(blocks, w, grid_stride=True)),
+          "gossip_mix at K=2 N=2^28: streaming and grid-stride kernels differ")
+    del got
+    times = k2_in_turns(torch, blocks, w, reps=20, slow_reps=5)
     bound, by = bound_ms(K, N, 4)
-    print(f"kernel gossip_mix K=2 N=2^28 f32: ms {ms:.4f}  plain_ms {plain:.4f}  "
-          f"library_ms torch.matmul {matmul:.4f} torch.lerp {lerp:.4f}  "
-          f"bound_ms {bound:.4f} ({by})  max_abs_err {err:.3g}  "
-          f"achieved {gb_per_s(K, N, 4, ms):.1f} GB/s")
-    return {"ms_2p28": ms, "plain_ms_2p28": plain}
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    print(f"kernel gossip_mix K=2 N=2^28 f32, in turns: ms {fmt_times(times['kernel'])}  "
+          f"grid-stride entry ms {fmt_times(times['grid_stride'])}  plain_ms "
+          f"{fmt_times(times['plain'])}  library_ms torch.lerp {fmt_times(times['lerp'])} "
+          f"torch.matmul {fmt_times(times['matmul'])}  bound_ms {bound:.4f} ({by})  "
+          f"max_abs_err {err:.3g}  achieved {gb_per_s(K, N, 4, mean['kernel']):.1f} GB/s")
+    return {"ms_2p28": mean["kernel"], "grid_stride_ms_2p28": mean["grid_stride"],
+            "lerp_ms_2p28": mean["lerp"], "plain_ms_2p28": mean["plain"]}
+
+
+def fmt_times(ts) -> str:
+    return " / ".join(f"{t:.4f}" for t in ts)
+
+
+def k2_in_turns(torch, blocks, w, reps: int, slow_reps: int) -> dict:
+    """K2's streaming kernel, its grid-stride kernel, the plain version and
+    the yardsticks (``torch.lerp``: the same convex combination of two
+    rows, (1-w1)*b0 + w1*b1 with w0 + w1 = 1; ``torch.matmul`` below 2^31
+    elements), timed in turns and then in the reverse order."""
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda, gossip_mix_ref
+
+    K, N = blocks.shape
+    check(K == 2 and abs(float(w.sum()) - 1.0) < 1e-6, "lerp yardstick needs K=2 convex weights")
+    runs = {"kernel": (lambda: gossip_mix(blocks, w), reps),
+            "grid_stride": (lambda: gossip_mix_cuda(blocks, w, grid_stride=True), reps),
+            "lerp": (lambda: torch.lerp(blocks[0], blocks[1], w[1]), reps),
+            "plain": (lambda: gossip_mix_ref(blocks, w), slow_reps)}
+    if N < 2**31:
+        runs["matmul"] = (lambda: torch.matmul(w, blocks), slow_reps)
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, n = runs[name]
+        times[name].append(time_ms(torch, fn, reps=n, warmup=1))
+    return times
 
 
 def parity_phase(torch, dev) -> None:
@@ -299,29 +360,32 @@ def train_phase(torch, dev) -> dict:
 
 
 def slice_shape_phase(torch, dev, K: int, N: int) -> dict:
-    """The kernel at the main path's shape: one round's [K, n_silos*P] stack."""
+    """The kernel at the main path's shape: one round's [K, n_silos*P] stack,
+    in turns with the grid-stride kernel it replaced, torch.lerp and the
+    plain version."""
     from repro_torch.kernels import gossip_mix
-    from repro_torch.kernels.gossip_mix import gossip_mix_ref
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda, gossip_mix_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     blocks = torch.randn((K, N), generator=gen, device=dev)
     w = torch.tensor([0.5] * K, device=dev)
     got = gossip_mix(blocks, w)
     err = float((got - gossip_mix_ref(blocks, w)).abs().max())
-    del got
     check(err <= TOL["float32"], f"gossip_mix at K={K} N={N}: max abs err {err}")
-    ms = time_ms(torch, lambda: gossip_mix(blocks, w), reps=5)
-    plain = time_ms(torch, lambda: gossip_mix_ref(blocks, w), reps=3)
-    # Yardstick only, never called by the port: torch.matmul refuses N >= 2^31
-    # here, so the one call is torch.lerp, which computes the same convex
-    # combination of two rows ((1-w1)*b0 + w1*b1 with w0 + w1 = 1).
-    check(K == 2 and abs(float(w.sum()) - 1.0) < 1e-6, "lerp yardstick needs K=2 convex weights")
-    library = time_ms(torch, lambda: torch.lerp(blocks[0], blocks[1], w[1]), reps=3)
+    check(torch.equal(got, gossip_mix_cuda(blocks, w, grid_stride=True)),
+          f"gossip_mix at K={K} N={N}: streaming and grid-stride kernels differ")
+    del got
+    times = k2_in_turns(torch, blocks, w, reps=5, slow_reps=3)
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
     bound, by = bound_ms(K, N, 4)
-    print(f"kernel gossip_mix K={K} N={N} f32 (main path): ms {ms:.4f}  plain_ms {plain:.4f}  "
-          f"library_ms torch.lerp {library:.4f}  bound_ms {bound:.4f} ({by})  "
-          f"max_abs_err {err:.3g}  achieved {gb_per_s(K, N, 4, ms):.1f} GB/s")
-    return {"ms": ms, "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+    print(f"kernel gossip_mix K={K} N={N} f32 (main path), in turns: ms "
+          f"{fmt_times(times['kernel'])}  grid-stride entry ms {fmt_times(times['grid_stride'])}  "
+          f"plain_ms {fmt_times(times['plain'])}  library_ms torch.lerp "
+          f"{fmt_times(times['lerp'])}  bound_ms {bound:.4f} ({by})  max_abs_err {err:.3g}  "
+          f"achieved {gb_per_s(K, N, 4, mean['kernel']):.1f} GB/s ({bound / mean['kernel']:.1%} "
+          f"of the bound; lerp {bound / mean['lerp']:.1%})")
+    return {"ms": mean["kernel"], "grid_stride_ms": mean["grid_stride"],
+            "plain_ms": mean["plain"], "library_ms": mean["lerp"], "bound_ms": bound,
             "bound_by": by, "max_abs_err": err}
 
 
@@ -333,22 +397,29 @@ def same_values(torch, got, ref) -> bool:
     return bool(torch.equal(torch.isnan(got), nan)) and bool((got[~nan] == ref[~nan]).all())
 
 
-def device_kernels(torch, fn) -> tuple:
+def device_kernels(torch, fn, lead_in: bool = False) -> tuple:
     """Run ``fn`` under ``torch.profiler`` (CUDA activity) and return
     (traced wall s, {kernel name: (launches, device us)}).  An empty dict
-    means the profiler saw no device events."""
+    means the profiler saw no device events.  Late in a long run the
+    profiler has been seen to drop the first launches of a window; with
+    ``lead_in`` the window opens with a few spin kernels
+    (``torch.cuda._sleep``), which are left out of the result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if lead_in:
+            for _ in range(8):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not (lead_in and "spin_kernel" in ev.key):
             kernels[ev.key] = (ev.count, float(getattr(ev, "self_device_time_total", 0.0)))
     return wall, kernels
 
@@ -738,7 +809,7 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
           f"{deg}  wall {wall:.4f} s  karp launches {n_launch}  reach launches {n_launch}")
     rows.append({"net": f"wan{n}_hierarchical", "n": n, "ring_tau": inc_tau,
                  "tau": ov.cycle_time_ms, "wall_s": wall, "launches": n_launch})
-    return {"rows": rows, "launches": launches, "gaia": overlays["gaia"]}
+    return {"rows": rows, "launches": launches, "overlays": overlays}
 
 
 def climb_parity_phase(torch, dev) -> None:
@@ -818,6 +889,40 @@ def design_slice_phase(torch, dev, gaia) -> int:
     print(f"slice: one round pallas vs einsum on the designed plan: max abs param diff {diff:.3g}")
     check(diff <= 1e-5, f"pallas and einsum rounds on the designed plan differ by {diff}")
     return launches
+
+
+def k2_plans_phase(torch, dev, overlays, N: int = 1 << 26) -> None:
+    """K2 at every row count K that the port's plans give it: the plans of
+    the designed overlays and the 4-silo ring, chain (``mst``) and star.
+    At each K, N float32 elements a row: the streaming kernel (K fixed at
+    compile time at 2, a run-time row loop otherwise) bit-identical to the
+    grid-stride kernel, and the two timed in turns."""
+    from repro_torch.fed import plan_for_n_silos, plan_from_overlay
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda
+
+    ks = {f"{kind} 4": len(plan_for_n_silos(kind, 4).terms) for kind in ("ring", "mst", "star")}
+    ks.update({f"{net} sparse_rewire": len(plan_from_overlay(ov, gc.num_silos).terms)
+               for net, (gc, ov) in overlays.items()})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for K in sorted(set(ks.values())):
+        blocks = torch.randn((K, N), generator=gen, device=dev)
+        w = torch.softmax(torch.randn(K, generator=gen, device=dev), 0)
+        check(torch.equal(gossip_mix(blocks, w), gossip_mix_cuda(blocks, w, grid_stride=True)),
+              f"gossip_mix at K={K} N={N}: streaming and grid-stride kernels differ")
+        runs = {"kernel": lambda: gossip_mix(blocks, w),
+                "grid_stride": lambda: gossip_mix_cuda(blocks, w, grid_stride=True)}
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            times[name].append(time_ms(torch, runs[name], reps=10))
+        mean = {name: sum(t) / len(t) for name, t in times.items()}
+        bound, by = bound_ms(K, N, 4)
+        plans = ", ".join(name for name, k in ks.items() if k == K)
+        print(f"kernel gossip_mix K={K} ({plans}) N={N} f32, in turns: ms "
+              f"{fmt_times(times['kernel'])}  grid-stride entry ms "
+              f"{fmt_times(times['grid_stride'])}  bound_ms {bound:.4f} ({by}); grid-stride / "
+              f"kernel {mean['grid_stride'] / mean['kernel']:.3f}")
+        del blocks
 
 
 def attn_pairs(S: int, T: int, causal: bool, window) -> int:
@@ -1126,17 +1231,29 @@ def serve_phase(torch, dev) -> dict:
     return out
 
 
-def mlstm_bound_ms(B: int, S: int, H: int, hd: int, elem_bytes: int) -> tuple:
-    """Least time of the mLSTM scan, counted as the reference kernel's work
+def mlstm_ops(B: int, S: int, H: int, hd: int) -> int:
+    """The mLSTM scan's operations, counted as the reference kernel's work
     at its chunk of 128 (whatever chunk the kernel uses): per (batch, head,
     chunk) the q.k^T tile (128*129*hd multiply-adds, the causal half and
     the diagonal), the inter-chunk q.S and the state update (128*hd^2
-    each), 2 operations a multiply-add, at the float32 rate; or q, k, v
-    and the two gates read once and h written once at the memory rate."""
-    ops = 2 * B * H * (S // 128) * (128 * 129 * hd + 2 * 128 * hd * hd)
-    t_ops = ops / F32_FLOPS * 1e3
+    each), 2 operations a multiply-add."""
+    return 2 * B * H * (S // 128) * (128 * 129 * hd + 2 * 128 * hd * hd)
+
+
+def mlstm_bound_ms(B: int, S: int, H: int, hd: int, elem_bytes: int, passes: float = 1.0,
+                   rate: float = F32_FLOPS) -> tuple:
+    """Least time of the mLSTM scan: its operations ``passes`` times over
+    at ``rate``, or q, k, v and the two gates read once and h written once
+    at the memory rate."""
+    t_ops = passes * mlstm_ops(B, S, H, hd) / rate * 1e3
     t_bytes = (4 * B * S * H * hd * elem_bytes + 2 * B * S * H * 4) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def short_kernel_name(name: str) -> str:
+    """``mlstm_state_kernel<float>`` out of a demangled device kernel name."""
+    m = re.search(r"(\w+_kernel)(<[^>]*>)?", name)
+    return m.group(1) + (m.group(2) or "") if m else name[:60]
 
 
 def mlstm_inputs(torch, gen, B, S, H, hd, forget_bias, dev):
@@ -1153,9 +1270,12 @@ def mlstm_inputs(torch, gen, B, S, H, hd, forget_bias, dev):
 def mlstm_kernel_phase(torch, dev) -> dict:
     """K4 against its plain chunked version over the sweep, with both gate
     draws (f32 at the reference's 2e-4 / 2e-3, bf16 at 2e-2, finite in
-    every case), then timed at xlstm-350m's forward shape."""
+    every case), then at xlstm-350m's forward shape: the kernel and the
+    CUDA-core entry against plain, the device kernels of one call, and the
+    three timed in turns beside both bounds."""
     from repro_torch.kernels import mlstm_scan
-    from repro_torch.kernels.mlstm_scan import mlstm_chunked_ref
+    from repro_torch.kernels.mlstm_scan import (device_kernels_per_call, mlstm_chunked_ref,
+                                                mlstm_scan_cuda, scratch_shapes)
 
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -1190,22 +1310,55 @@ def mlstm_kernel_phase(torch, dev) -> dict:
     B, S, H, hd = K4_MAIN
     q, k, v, li, lf = mlstm_inputs(torch, gen, B, S, H, hd, 0.0, dev)
     got = mlstm_scan(q, k, v, li, lf)
+    simt = mlstm_scan_cuda(q, k, v, li, lf, simt=True)
     ref = mlstm_chunked_ref(q, k, v, li, lf)
     err = float((got - ref).abs().max())
-    check(bool(torch.isfinite(got).all()) and torch.allclose(
-        got, ref, atol=MLSTM_TOL["float32"][0], rtol=MLSTM_TOL["float32"][1]),
-        f"mlstm_scan at the xlstm-350m shape: max abs err {err}")
-    del got, ref
-    ms = time_ms(torch, lambda: mlstm_scan(q, k, v, li, lf), reps=10, warmup=2)
-    plain = time_ms(torch, lambda: mlstm_chunked_ref(q, k, v, li, lf), reps=5, warmup=1)
-    bound, by = mlstm_bound_ms(B, S, H, hd, 4)
-    ops = 2 * B * H * (S // 128) * (128 * 129 * hd + 2 * 128 * hd * hd)
+    simt_err = float((simt - ref).abs().max())
+    for name, x in (("kernel", got), ("CUDA-core entry", simt)):
+        check(bool(torch.isfinite(x).all()) and torch.allclose(
+            x, ref, atol=MLSTM_TOL["float32"][0], rtol=MLSTM_TOL["float32"][1]),
+            f"mlstm_scan {name} at the xlstm-350m shape: max abs err "
+            f"{float((x - ref).abs().max())}")
+    del got, simt, ref
+    # device kernels of one call, by name, and the scratch it allocates
+    calls = 5
+    _, kernels = device_kernels(torch, lambda: [mlstm_scan(q, k, v, li, lf)
+                                                for _ in range(calls)], lead_in=True)
+    seen = {short_kernel_name(name): (n, us) for name, (n, us) in kernels.items()
+            if "mlstm_" in name}
+    check(len(seen) == device_kernels_per_call(S) and {n for n, _ in seen.values()} == {calls},
+          f"the profiler saw the mlstm_scan device kernels {seen} in {calls} calls, expected "
+          f"{device_kernels_per_call(S)} kernels launched once a call")
+    per_call_txt = ", ".join(f"{name} {us / n:.1f} us" for name, (n, us) in
+                             sorted(seen.items())) + f" (mean of {calls} calls)"
+    scratch = sum(math.prod(shape) * 4 for shape in scratch_shapes(B, S, H, hd))
+    # In turns on one card: kernel, CUDA-core kernel, plain, then back.
+    runs = {"kernel": (lambda: mlstm_scan(q, k, v, li, lf), 10),
+            "simt": (lambda: mlstm_scan_cuda(q, k, v, li, lf, simt=True), 5),
+            "plain": (lambda: mlstm_chunked_ref(q, k, v, li, lf), 3)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, reps = runs[name]
+        times[name].append(time_ms(torch, fn, reps=reps, warmup=1))
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    bound, by = mlstm_bound_ms(B, S, H, hd, 4, passes=3, rate=TF32_FLOPS)
+    bound_f32, _ = mlstm_bound_ms(B, S, H, hd, 4)
+    ops = mlstm_ops(B, S, H, hd)
     print(f"kernel mlstm_scan B={B} S={S} H={H} hd={hd} f32 unbiased gates (xlstm-350m "
-          f"forward): ms {ms:.4f}  plain_ms {plain:.4f}  library_ms none (no single PyTorch "
-          f"call computes the scan)  bound_ms {bound:.4f} ({by}; {ops:.4g} operations at chunk "
-          f"128)  max_abs_err {err:.3g}  achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    return {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
-            "bound_by": by, "max_abs_err": max(err, worst["float32"])}
+          f"forward), in turns: ms {fmt_times(times['kernel'])}  cuda-core entry ms "
+          f"{fmt_times(times['simt'])}  plain_ms {fmt_times(times['plain'])}  library_ms none "
+          f"(no single PyTorch call computes the scan)  bound_ms {bound:.4f} ({by}, 3xTF32 at "
+          f"{TF32_FLOPS / 1e12:.0f} TFLOP/s; {ops:.4g} operations at chunk 128)  float32 "
+          f"CUDA-core bound {bound_f32:.4f}  max_abs_err {err:.3g} (cuda-core {simt_err:.3g})  "
+          f"achieved {ops / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of the bound's "
+          f"operations ({mean['simt'] / mean['kernel']:.2f}x the CUDA-core entry)")
+    print(f"kernel mlstm_scan: {device_kernels_per_call(S)} device kernels per call "
+          f"({per_call_txt}), scratch {scratch} bytes ({scratch / 2**20:.1f} MiB: "
+          f"chunk states {scratch_shapes(B, S, H, hd)[0]}, scores "
+          f"{scratch_shapes(B, S, H, hd)[1]}, float32)")
+    return {"ms": mean["kernel"], "simt_ms": mean["simt"], "plain_ms": mean["plain"],
+            "library_ms": None, "bound_ms": bound, "bound_by": by, "bound_f32_ms": bound_f32,
+            "max_abs_err": max(err, worst["float32"]), "scratch_bytes": scratch}
 
 
 def forward_at_chunk(torch, params, cfg, tokens, chunk: int, record=None):
@@ -1259,6 +1412,7 @@ def xlstm_forward_phase(torch, dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.mlstm_scan import device_kernels_per_call
     from repro_torch.models import init_params, model_specs
     from repro_torch.models import ssm as SSM
     from repro_torch.models import transformer as T
@@ -1285,6 +1439,21 @@ def xlstm_forward_phase(torch, dev) -> dict:
           f"xlstm forward launched mlstm_scan {launches['mlstm_scan']} times, "
           f"expected {n_mlstm}")
     check(bool(torch.isfinite(logits).all()), "xlstm forward: non-finite logits")
+    # K4's device time within the forward: its kernels, by name, summed over the launches
+    with torch.no_grad():
+        traced_s, kernels = device_kernels(torch, lambda: T.forward(params, cfg, tokens),
+                                           lead_in=True)
+    k4 = {short_kernel_name(name): v for name, v in kernels.items() if "mlstm_" in name}
+    check(len(k4) == device_kernels_per_call(S) and {n for n, _ in k4.values()} == {n_mlstm},
+          f"xlstm forward profile: the profiler saw the mlstm_scan device kernels {k4}, "
+          f"expected {device_kernels_per_call(S)} kernels launched {n_mlstm} times each")
+    k4_s = sum(us for _, us in k4.values()) * 1e-6
+    busy_s = sum(us for _, us in kernels.values()) * 1e-6
+    print(f"forward profile: {cfg.arch_id} [{B}x{S}] traced wall {traced_s:.4f} s, device "
+          f"busy {busy_s:.4f} s over {sum(n for n, _ in kernels.values())} kernels; "
+          f"mlstm_scan device time {k4_s:.4f} s over its {n_mlstm} launches (" +
+          ", ".join(f"{name} {n} x {us / n:.1f} us" for name, (n, us) in sorted(k4.items())) +
+          ")")
     record = []
     t0 = time.perf_counter()
     plain = forward_at_chunk(torch, params, dataclasses.replace(cfg, use_flash_kernel=False),
@@ -1314,7 +1483,7 @@ def xlstm_forward_phase(torch, dev) -> dict:
     del logits, plain, params
     torch.cuda.empty_cache()
     return {"launches": launches["mlstm_scan"], "kernel_s": kernel_s, "plain_s": plain_s,
-            "layer_err": layer_err, "logit_diff": diff, "floor": floor}
+            "layer_err": layer_err, "logit_diff": diff, "floor": floor, "k4_device_s": k4_s}
 
 
 def xlstm_serve_phase(torch, dev) -> dict:
@@ -1492,8 +1661,9 @@ def main() -> int:
     t0 = time.perf_counter()
     design = design_phase(torch, dev)
     climb_parity_phase(torch, dev)
-    design_slice_phase(torch, dev, design["gaia"])
+    design_slice_phase(torch, dev, design["overlays"]["gaia"])
     design_s = time.perf_counter() - t0
+    k2_plans_phase(torch, dev, design["overlays"])
     t0 = time.perf_counter()
     attn = flash_kernel_phase(torch, dev)
     served = serve_phase(torch, dev)
@@ -1503,8 +1673,10 @@ def main() -> int:
     xfwd = xlstm_forward_phase(torch, dev)
     xserve = xlstm_serve_phase(torch, dev)
     xlstm_s = time.perf_counter() - t0
-    print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f}; main-path shape "
-          f"ms {main_shape['ms']:.4f}; round wall s {[round(s, 4) for s in tr['round_s']]}; "
+    print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
+          f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
+          f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
+          f"torch.lerp {main_shape['library_ms']:.4f}); round wall s {[round(s, 4) for s in tr['round_s']]}; "
           f"peak GiB {tr['peak_bytes'] / 2**30:.2f}")
     print(f"summary: standalone segment_max ebone-climb shape ms {seg['ebone_climb']['ms']:.4f} "
           f"(scatter_reduce_ {seg['ebone_climb']['library_ms']:.4f}), scoring shape ms "
@@ -1521,8 +1693,10 @@ def main() -> int:
               f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / "
               f"{r['peak_bytes'] / 2**30:.2f}" for a, r in served.items())
           + f"; serving phases took {serve_s:.1f} s")
-    print(f"summary: mlstm_scan xlstm-350m forward shape ms {scan['ms']:.4f} (bound "
-          f"{scan['bound_ms']:.4f}, plain {scan['plain_ms']:.4f}); xlstm-350m forward s "
+    print(f"summary: mlstm_scan xlstm-350m forward shape ms {scan['ms']:.4f} (CUDA-core entry "
+          f"{scan['simt_ms']:.4f}; bound {scan['bound_ms']:.4f} at 3xTF32, "
+          f"{scan['bound_f32_ms']:.4f} at the float32 rate; plain {scan['plain_ms']:.4f}); "
+          f"K4 device time in a forward {xfwd['k4_device_s']:.4f} s; xlstm-350m forward s "
           f"{xfwd['kernel_s']:.4f} (plain {xfwd['plain_s']:.4f}); serve prefill s / decode "
           f"tok/s / peak GiB {xserve['prefill_s']:.4f} / {xserve['decode_tok_s']:.2f} / "
           f"{xserve['peak_bytes'] / 2**30:.2f}; xlstm phases took {xlstm_s:.1f} s")

@@ -8,7 +8,11 @@ accumulated in float32 and cast back to the input type.  The CUDA kernel
 (``csrc/gossip_mix.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/gossip_mix.py::gossip_mix_pallas``; it is a
 memory-bound K-stream fused multiply-add that reads every block once and
-writes the output once.  :func:`gossip_mix_ref` is the same arithmetic
+writes the output once, with several 16-byte loads in flight per row (K
+fixed at compile time for the K = 2 of ring plans, a run-time row loop
+otherwise).  The earlier grid-stride kernel stays in the same source for
+timing (``grid_stride=True``); both give the same bits.
+:func:`gossip_mix_ref` is the same arithmetic
 in plain PyTorch: the CPU path, and what the kernel is held against on
 the card.
 """
@@ -70,17 +74,21 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.gossip_mix_grid_stride_launch.argtypes = fn.argtypes
+    lib.gossip_mix_grid_stride_launch.restype = ctypes.c_int
     lib.gossip_mix_error_string.argtypes = [ctypes.c_int]
     lib.gossip_mix_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def gossip_mix_cuda(neighbor_blocks: torch.Tensor, weights: torch.Tensor,
-                    *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  Checks
-    device, dtype, shape and contiguity, and raises if the launch fails.
-    ``out`` (``[N]``, the blocks' dtype) receives the result; it must not
-    overlap ``neighbor_blocks``."""
+                    *, out: Optional[torch.Tensor] = None,
+                    grid_stride: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream: the streaming
+    kernel, or with ``grid_stride`` the earlier grid-stride one (timing
+    only; the same bits).  Checks device, dtype, shape and contiguity,
+    and raises if the launch fails.  ``out`` (``[N]``, the blocks' dtype)
+    receives the result; it must not overlap ``neighbor_blocks``."""
     if not neighbor_blocks.is_cuda:
         raise ValueError(f"gossip_mix_cuda needs CUDA tensors, got {neighbor_blocks.device}")
     _check(neighbor_blocks, weights, out)
@@ -88,11 +96,11 @@ def gossip_mix_cuda(neighbor_blocks: torch.Tensor, weights: torch.Tensor,
     if out is None:
         out = torch.empty(N, dtype=neighbor_blocks.dtype, device=neighbor_blocks.device)
     lib = _library()
+    launch = lib.gossip_mix_grid_stride_launch if grid_stride else lib.gossip_mix_launch
     with torch.cuda.device(neighbor_blocks.device):
         stream = torch.cuda.current_stream(neighbor_blocks.device).cuda_stream
-        err = lib.gossip_mix_launch(neighbor_blocks.data_ptr(), weights.data_ptr(),
-                                    out.data_ptr(), K, N,
-                                    _DTYPE_CODES[neighbor_blocks.dtype], stream)
+        err = launch(neighbor_blocks.data_ptr(), weights.data_ptr(), out.data_ptr(), K, N,
+                     _DTYPE_CODES[neighbor_blocks.dtype], stream)
     if err != 0:
         msg = lib.gossip_mix_error_string(err).decode()
         raise RuntimeError(f"gossip_mix kernel launch failed: {msg} (cudaError {err})")

@@ -31,7 +31,12 @@ the output ``h`` is cast to q's dtype.
   definition (tests/test_torch_mlstm_scan.py pins both).
 * :func:`mlstm_scan_cuda` launches ``csrc/mlstm_scan.cu`` (K4), which
   replaces the Pallas TPU kernel
-  ``src/repro/kernels/mlstm_scan.py::mlstm_scan_pallas``.
+  ``src/repro/kernels/mlstm_scan.py::mlstm_scan_pallas``: three
+  tensor-core kernels (3xTF32 ``wgmma``) at chunks of
+  :data:`KERNEL_CHUNK` tokens, the gated scores, the chunk states and
+  the output, through two float32 scratches the wrapper allocates
+  (:func:`scratch_shapes`); or, with ``simt=True``, the earlier
+  CUDA-core kernel of the same source, kept for timing.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import ctypes
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 512     # the kernel keeps an [hd, 32] float32 state slice in shared memory
+MAX_HEAD_DIM = 512     # the CUDA-core kernel keeps an [hd, 32] float32 state slice in shared memory
+KERNEL_CHUNK = 128     # tokens per chunk of the tensor-core kernels
 
 
 def mlstm_scan_ref(q, k, v, log_i, log_f) -> torch.Tensor:
@@ -114,11 +120,29 @@ def check_inputs(q, k, v, log_i, log_f, chunk: int) -> None:
         raise ValueError("q, k, v and the log gates must lie on one device")
 
 
+def scratch_shapes(B: int, S: int, H: int, hd: int) -> tuple:
+    """Shapes of the tensor-core kernels' two float32 scratches: the state
+    after each chunk but the last, stored transposed (``[B, H, n - 1, hd,
+    hd]``), and the gated scores of each chunk (``[B, H, n, C, C]``), for
+    ``n = ceil(S / C)`` chunks of ``C = KERNEL_CHUNK`` tokens."""
+    n = -(-S // KERNEL_CHUNK)
+    return (B, H, n - 1, hd, hd), (B, H, n, KERNEL_CHUNK, KERNEL_CHUNK)
+
+
+def device_kernels_per_call(S: int) -> int:
+    """Device kernels one tensor-core call launches: the scores, the chunk
+    states (only when there is more than one chunk) and the output."""
+    return 3 if S > KERNEL_CHUNK else 2
+
+
 def _library() -> ctypes.CDLL:
     from ._build import load_library
 
     lib = load_library("mlstm_scan")
     fn = lib.mlstm_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mlstm_scan_simt_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mlstm_scan_error_string.argtypes = [ctypes.c_int]
@@ -126,10 +150,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def mlstm_scan_cuda(q, k, v, log_i, log_f) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  The gates go
-    in as contiguous float32.  Checks device, dtype, shape and contiguity,
-    and raises if the launch fails."""
+def mlstm_scan_cuda(q, k, v, log_i, log_f, *, simt: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernels on PyTorch's current stream: the tensor-core
+    kernels, or with ``simt`` the earlier CUDA-core one.  The gates go in
+    as contiguous float32; the scratches are allocated here (an
+    allocation that fails raises).  Checks device, dtype, shape and
+    contiguity, and raises if a launch fails.  The tensor-core kernels read
+    16-byte vectors, so an input whose storage starts off that alignment is
+    copied first."""
     if not q.is_cuda:
         raise ValueError(f"mlstm_scan_cuda needs CUDA tensors, got {q.device}")
     check_inputs(q, k, v, log_i, log_f, 1)
@@ -137,8 +165,8 @@ def mlstm_scan_cuda(q, k, v, log_i, log_f) -> torch.Tensor:
     if hd % 32 or hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} not supported by the kernel "
                          f"(a multiple of 32 up to {MAX_HEAD_DIM})")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"batch {B} or heads {H} above the grid's 65535")
+    if B * H > 65535:
+        raise ValueError(f"batch {B} x heads {H} above the grid's 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -148,9 +176,19 @@ def mlstm_scan_cuda(q, k, v, log_i, log_f) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mlstm_scan_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
-            out.data_ptr(), B, S, H, hd, _DTYPE_CODES[q.dtype], stream)
+        code = _DTYPE_CODES[q.dtype]
+        if simt:
+            err = lib.mlstm_scan_simt_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
+                out.data_ptr(), B, S, H, hd, code, stream)
+        else:
+            q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+            states_shape, scores_shape = scratch_shapes(B, S, H, hd)
+            states = torch.empty(states_shape, dtype=torch.float32, device=q.device)
+            scores = torch.empty(scores_shape, dtype=torch.float32, device=q.device)
+            err = lib.mlstm_scan_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
+                out.data_ptr(), states.data_ptr(), scores.data_ptr(), B, S, H, hd, code, stream)
     if err != 0:
         msg = lib.mlstm_scan_error_string(err).decode()
         raise RuntimeError(f"mlstm_scan kernel launch failed: {msg} (cudaError {err})")

@@ -23,8 +23,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_attention_ref,
 )
-from repro_torch.kernels.gossip_mix import gossip_mix_ref  # noqa: E402
-from repro_torch.kernels.mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda  # noqa: E402
+from repro_torch.kernels.gossip_mix import (  # noqa: E402
+    gossip_mix_cuda,
+    gossip_mix_ref,
+)
+from repro_torch.kernels.mlstm_scan import (  # noqa: E402
+    mlstm_chunked_ref,
+    mlstm_scan_cuda,
+    scratch_shapes,
+)
 from repro_torch.kernels.segment_max import edge_segment_max_ref  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -58,6 +65,29 @@ def test_gossip_mix_kernel_preserves_constants(cuda):
     blocks = torch.arange(N, dtype=torch.float32, device=cuda).expand(K, N).contiguous()
     out = gossip_mix(blocks, torch.full((K,), 0.25, device=cuda))
     np.testing.assert_allclose(out.cpu().numpy(), np.arange(N), rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("N,offset", [(1, 0), (7, 0), (4096, 0), (65539, 0), (1 << 20, 0),
+                                      (1 << 20, 1), (4099, 3)])
+def test_gossip_mix_streaming_kernel_bit_identical_to_grid_stride(cuda, K, N, offset, dtype):
+    """The streaming kernel (K fixed at compile time at 2, a run-time loop otherwise)
+    against the earlier grid-stride kernel: the same fmaf order from k = 0,
+    so the same bits, for ragged N and rows off 16-byte alignment."""
+    gen = torch.Generator(device=cuda).manual_seed(K * N + offset)
+    base = torch.randn(K * N + offset, generator=gen, device=cuda).to(dtype)
+    blocks = base[offset:].view(K, N)
+    w = torch.softmax(torch.randn(K, generator=gen, device=cuda), 0)
+    before = dict(LAUNCHES)
+    got = gossip_mix_cuda(blocks, w)
+    ref = gossip_mix_cuda(blocks, w, grid_stride=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before  # the count is the dispatcher's
+    assert torch.equal(got, ref)
+    torch.testing.assert_close(got.float(), gossip_mix_ref(blocks, w).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def _same(got, ref):
@@ -354,6 +384,94 @@ def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd, chunk, dtype, forget
     expect = mlstm_chunked_ref(q, k, v, li, lf, chunk=chunk)
     tol = 2e-2 if dtype == torch.bfloat16 else None
     torch.testing.assert_close(got.float(), expect.float(), atol=tol or 2e-4, rtol=tol or 2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forget_bias", [2.0, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,chunk", [
+    (1, 128, 2, 32, 32), (2, 256, 2, 64, 64), (1, 256, 4, 32, 128),
+    (2, 128, 4, 128, 128), (1, 256, 2, 512, 128), (1, 96, 1, 96, 32),
+    (2, 2048, 4, 512, 128),
+])
+def test_mlstm_scan_simt_entry_matches_plain(cuda, B, S, H, hd, chunk, dtype, forget_bias):
+    """The CUDA-core kernel kept for timing, at the same tolerances; it
+    counts no launch (the count is the dispatcher's)."""
+    gen = torch.Generator(device=cuda).manual_seed(S * hd + H)
+    q, k, v, li, lf = _mlstm_inputs(gen, B, S, H, hd, forget_bias, cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = LAUNCHES["mlstm_scan"]
+    got = mlstm_scan_cuda(q, k, v, li, lf, simt=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm_scan"] == before
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    expect = mlstm_chunked_ref(q, k, v, li, lf, chunk=chunk)
+    tol = 2e-2 if dtype == torch.bfloat16 else None
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol or 2e-4, rtol=tol or 2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [200, 300, 1000])
+def test_mlstm_scan_kernel_ragged_last_chunk(cuda, S):
+    """S not a multiple of the kernel's 128-token chunk: the last chunk is
+    padded with zeros and its rows past S are not written."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v, li, lf = _mlstm_inputs(gen, 2, S, 2, 96, 0.0, cuda)
+    got = mlstm_scan(q, k, v, li, lf, chunk=S // 4 if S % 4 == 0 else S)
+    expect = mlstm_chunked_ref(q, k, v, li, lf, chunk=S)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, expect, atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_kernel_at_forward_shape(cuda):
+    """xlstm-350m's forward shape (B=4, S=2048, H=4, hd=512) with unbiased
+    gates: the scratches the wrapper allocates for it (240 MiB of chunk
+    states, 16 MiB of scores), finite and within the reference's tolerance."""
+    B, S, H, hd = 4, 2048, 4, 512
+    states, scores = scratch_shapes(B, S, H, hd)
+    assert states == (4, 4, 15, 512, 512) and scores == (4, 4, 16, 128, 128)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, li, lf = _mlstm_inputs(gen, B, S, H, hd, 0.0, cuda)
+    got = mlstm_scan(q, k, v, li, lf)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, mlstm_chunked_ref(q, k, v, li, lf), atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_kernel_takes_misaligned_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, _, v, li, lf = _mlstm_inputs(gen, 1, 256, 2, 64, 2.0, cuda)
+    flat = torch.randn(1 + q.numel(), generator=gen, device=cuda)
+    k = flat[1:].view(q.shape)
+    assert k.data_ptr() % 16 != 0
+    torch.testing.assert_close(mlstm_scan(q, k, v, li, lf), mlstm_chunked_ref(q, k, v, li, lf),
+                               atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_xlstm_350m_forward_launches_mlstm_scan_once_per_mlstm_layer(cuda):
+    """The full xlstm-350m (24 layers, 20 mLSTM) at 256 tokens: 20 launches
+    of the scan per forward, none in the prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("xlstm-350m"), use_flash_kernel=True, remat=False)
+    assert cfg.block_pattern.count("mlstm") == 20
+    params = init_params(model_specs(cfg), seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 256)))
+    with torch.no_grad():
+        before = LAUNCHES["mlstm_scan"]
+        logits = T.forward(params, cfg, tokens.to(cuda))
+        torch.cuda.synchronize()
+        assert LAUNCHES["mlstm_scan"] == before + 20
+        assert bool(torch.isfinite(logits).all())
+        before = LAUNCHES["mlstm_scan"]
+        T.prefill(params, cfg, tokens.to(cuda), 260, cache_dtype=torch.float32)
+        assert LAUNCHES["mlstm_scan"] == before
 
 
 @pytest.mark.gpu
