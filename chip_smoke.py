@@ -62,7 +62,33 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    3 DPASGD rounds (``gossip_impl="pallas"``, 11 silos, the reduced
    internlm2-1.8b), one ``gossip_mix`` launch per round, then one round
    pallas vs einsum (<= 1e-5);
-10. checks that every instantiation of ``flash_attention`` (K3) runs
+10. holds K1's fourth entry, ``timing_recursion`` (every round of the
+   round-varying Eq. 4 recursion of a batch of MATCHA chains in one
+   launch), against its plain version on the card, bit for bit (216 random
+   pools: C in {1, 3, 24, 64} x R in {1, 2, 17, 150, 300} x U in {1, 5, 24,
+   64} x N in {2, 11, 87, 256, 512} x E in {1, N, 3N, 2048}, missing
+   self-loops, all -inf rows, a dst that covers only part of the nodes,
+   t0, float32 and float64), and times it in turns with its plain version
+   at the repo's engine shape (N = 64, a degree-8 random-geometric base
+   graph, 8 budgets x 8 seeds x 300 rounds) and at Ebone's design shape (8
+   budgets x 3 seeds x 150 rounds), beside its bound and its device time
+   (the profiler must see all 20 launches of a timed window);
+11. drives the MATCHA design path: ``design_schedule("matcha", ...)`` on
+   the card at the reference's defaults on the paper's five networks,
+   each with the counts set to 0 just before it and read just after: one
+   ``timing`` launch and nothing else a design, every chain's tau and the
+   chosen budget equal to the CPU's bit for bit; Geant under the
+   time-to-eps objective; the idle share of a traced design on Ebone (its
+   one timing launch seen by the profiler); and Table
+   10 (AWS NA, 120 rounds, 10 Gbps and 100 Mbps access) from the card,
+   each row equal to the CPU's;
+12. trains on MATCHA: ``train(..., designer="matcha")`` at internlm2-1.8b's
+   full width (4 of 24 layers, 4 silos, 3 rounds): finite losses, each
+   round's consensus matrix equal to a host ``ScheduleSlot``'s, no
+   ``gossip_mix`` launch (the mix is the reference's einsum), and one more
+   round's mix on the card equal to A @ pre-mix computed on the CPU
+   (1e-6 of the largest parameter, on a million columns);
+13. checks that every instantiation of ``flash_attention`` (K3) runs
    its products on the tensor cores (``HGMMA`` in the library's SASS) and
    that none spills at hd 80; holds it against its plain version on the
    card (float32 at 2e-5, bfloat16 at 2e-2; B in {1, 2} x S in {128, 256,
@@ -72,7 +98,7 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    in turns with the earlier CUDA-core kernel of the same source, its
    plain version and ``scaled_dot_product_attention``, beside its bound at
    the 3xTF32 rate and the float32 CUDA-core bound;
-11. drives the serving path through ``repro_torch.launch.serve.serve``:
+14. drives the serving path through ``repro_torch.launch.serve.serve``:
    h2o-danube-1.8b at full size (24 layers, random weights from seed 0,
    batch 2, an 8192-token prompt past the 4096 window, 32 tokens) with
    the kernel: one launch per layer in the prefill and none in decode,
@@ -81,7 +107,7 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    internlm2-1.8b at full size (batch 4, prompt 1024, 16 tokens); and the
    reduced danube on the card against the CPU path from the same weights
    (<= 1e-4);
-12. holds ``mlstm_scan`` (K4) against its plain chunked version on the
+15. holds ``mlstm_scan`` (K4) against its plain chunked version on the
    card (B in {1, 2} x S in {128, 256, 1024} x H in {1, 4} x hd in {32,
    64, 128, 512} x chunk in {64, 128} x the forget gate biased by +2 or
    unbiased, float32 at atol 2e-4 / rtol 2e-3, bfloat16 at 2e-2, finite
@@ -90,7 +116,7 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    CUDA-core kernel of the same source against plain, profiles the device
    kernels of one call and reports its scratch, and times the three in
    turns beside the 3xTF32 bound and the float32 CUDA-core bound;
-13. drives the full-sequence forward of xlstm-350m at full size (24
+16. drives the full-sequence forward of xlstm-350m at full size (24
    layers, random weights from seed 0, batch 4, 2048 tokens,
    ``use_flash_kernel``): one ``mlstm_scan`` launch per mLSTM layer (20),
    finite logits, K4's device time summed over the 20 launches (a second
@@ -100,7 +126,7 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    within 2e-3 or three times the difference between two plain forwards
    that differ only in chunk length (the sLSTM layers amplify rounding
    along the sequence), whichever is larger;
-14. serves xlstm-350m at full size through ``serve`` (batch 4, prompt
+17. serves xlstm-350m at full size through ``serve`` (batch 4, prompt
    2048, 129 tokens): no ``mlstm_scan`` launch in prefill or decode (they
    carry the state, as the reference's do), the last decode step against a
    teacher-forced forward through the kernel (20 launches) within 5e-3 or
@@ -133,6 +159,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core rate
+F64_FLOPS = 34e12           # H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # K3's sweep against its plain version, and h2o-danube-1.8b's prefill shape
 # (B, S = T, K, G, hd, window) where it is timed
@@ -401,27 +428,47 @@ def device_kernels(torch, fn, lead_in: bool = False) -> tuple:
     """Run ``fn`` under ``torch.profiler`` (CUDA activity) and return
     (traced wall s, {kernel name: (launches, device us)}).  An empty dict
     means the profiler saw no device events.  Late in a long run the
-    profiler has been seen to drop the first launches of a window; with
-    ``lead_in`` the window opens with a few spin kernels
-    (``torch.cuda._sleep``), which are left out of the result."""
+    profiler drops the first device events of a window (more than eight
+    of them late in this script's run) and now and then the last one;
+    with ``lead_in`` the window opens with 64 spin kernels
+    (``torch.cuda._sleep``) and closes with 8, all left out of the
+    result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def spin(n: int) -> None:
+        for _ in range(n):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if lead_in:
-            for _ in range(8):
-                torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
+            spin(64)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if lead_in:
+            spin(8)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and not (lead_in and "spin_kernel" in ev.key):
             kernels[ev.key] = (ev.count, float(getattr(ev, "self_device_time_total", 0.0)))
     return wall, kernels
+
+
+def complete_profile(torch, fn, complete, what: str, tries: int = 3) -> tuple:
+    """``device_kernels`` with the lead-in, repeated until ``complete``
+    holds for a window's kernels, in case the profiler drops a launch past
+    the spin kernels.  Returns (traced wall s, {kernel name: (launches,
+    device us)}, windows taken), and fails when none of ``tries`` windows
+    is complete."""
+    for window in range(1, tries + 1):
+        wall, kernels = device_kernels(torch, fn, lead_in=True)
+        if complete(kernels):
+            return wall, kernels, window
+    check(False, f"{what}: the profiler saw {kernels} in each of {tries} windows")
 
 
 def segmax_bound_ms(B: int, E: int, S: int) -> float:
@@ -925,6 +972,338 @@ def k2_plans_phase(torch, dev, overlays, N: int = 1 << 26) -> None:
         del blocks
 
 
+def timing_bound(C: int, R: int, U: int, E: int, N: int, elem_bytes: int) -> tuple:
+    """Least time of the timing recursion: each input read once -- the
+    [U, E] distinct weight rows, the [E] src and dst ids and the [C, R]
+    round ids -- and the [C, R+1, N] start times written once, over the
+    memory rate; or its 2*C*R*E adds and maxima over the float64 (float32)
+    rate, whichever is larger."""
+    t_bytes = (U * E * elem_bytes + E * 8 + C * R * 4 + C * (R + 1) * N * elem_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * C * R * E / (F64_FLOPS if elem_bytes == 8 else F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def geometric_gc(n: int, degree: int, seed: int = 0):
+    """The repo's MATCHA engine network (the generator of
+    benchmarks/matcha_budget.py, built here on the port's types): n silos
+    at random points of the unit square, latency 10 + 100 x distance ms,
+    10 Gbps access, and a random base graph of about ``degree`` pairs a
+    silo.  Returns ``(gc, pairs)``."""
+    import numpy as np
+
+    from repro_torch.core import ConnectivityGraph, SiloParams
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0.0, 1.0, (n, 2))
+    lat, bw = {}, {}
+    for i in range(n):
+        for j in range(n):
+            if i != j:
+                lat[(i, j)] = 10.0 + 100.0 * float(np.hypot(*(xy[i] - xy[j])))
+                bw[(i, j)] = 1.0
+    params = {v: SiloParams(comp_time_ms=float(rng.uniform(2.0, 6.0)), uplink_gbps=10.0,
+                            downlink_gbps=10.0) for v in range(n)}
+    gc = ConnectivityGraph(silos=tuple(range(n)), latency_ms=lat, available_bw_gbps=bw,
+                           silo_params=params)
+    pairs = sorted({(i, int(j)) for i in range(n) for j in rng.choice(n, degree, replace=False)
+                    if i < j})
+    return gc, pairs
+
+
+def timing_case(torch, gen, dev, C, R, U, E, N, dtype, carry, with_t0, partial):
+    """A MATCHA-like pool on the card: a self-loop per node first, random
+    arcs after (their dst in the lower half of the nodes with ``partial``),
+    a share of the arcs absent (-inf); with ``carry`` some rows drop some
+    self-loops and the last row is all -inf."""
+    k = min(N, E)
+    src = torch.randint(0, N, (E,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, max(N // 2, 1) if partial else N, (E,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    src[:k] = torch.arange(k, dtype=torch.int32, device=dev)
+    dst[:k] = src[:k]
+    w = torch.rand((U, E), generator=gen, device=dev, dtype=torch.float64) * 80 + 0.5
+    w[:, k:][torch.rand((U, E - k), generator=gen, device=dev) < 0.4] = float("-inf")
+    if carry:
+        w[:, :k][torch.rand((U, k), generator=gen, device=dev) < 0.3] = float("-inf")
+        w[U - 1] = float("-inf")
+    ids = torch.randint(0, U, (C, R), generator=gen, device=dev, dtype=torch.int32)
+    t0 = (torch.rand((C, N), generator=gen, device=dev, dtype=torch.float64) * 100).to(dtype) \
+        if with_t0 else None
+    return src, dst, w.to(dtype), ids, t0
+
+
+def timing_kernel_phase(torch, dev) -> dict:
+    """K1's fourth entry, the round-varying Eq. 4 recursion of MATCHA
+    pricing, against its plain version on the card, bit for bit, over a
+    sweep of random pools; then timed in turns with it at the repo's
+    engine shape and at Ebone's design shape."""
+    import random
+
+    import numpy as np
+
+    from repro_torch.core import (DEFAULT_MATCHA_BUDGETS, WORKLOADS, MatchaSchedule, TrainingParams,
+                                  greedy_edge_coloring, make_underlay,
+                                  matcha_schedule_from_connectivity)
+    from repro_torch.core.schedule import _sweep_inputs
+    from repro_torch.kernels import LAUNCHES, timing_recursion
+    from repro_torch.kernels.segment_max import timing_recursion_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pick = random.Random(6)
+    before = LAUNCHES["timing"]
+    n_cases = 0
+    for i in range(216):
+        C, R = pick.choice((1, 3, 24, 64)), pick.choice((1, 2, 17, 150, 300))
+        U, N = pick.choice((1, 5, 24, 64)), pick.choice((2, 11, 87, 256, 512))
+        E = pick.choice((1, N, 3 * N, 2048))
+        dtype = (torch.float32, torch.float64)[i % 2]
+        carry, with_t0, partial = i % 3 == 0, i % 4 == 1, i % 5 == 2
+        src, dst, w, ids, t0 = timing_case(torch, gen, dev, C, R, U, E, N, dtype, carry,
+                                           with_t0, partial)
+        got = timing_recursion(src, dst, w, ids, N, t0)
+        torch.cuda.synchronize()
+        ref = timing_recursion_ref(src, dst, w, ids, N, t0)
+        check(got.dtype == dtype and torch.equal(got, ref),
+              f"timing C={C} R={R} U={U} E={E} N={N} {dtype} carry={carry} t0={with_t0} "
+              f"partial={partial} differs from its plain version")
+        n_cases += 1
+    check(LAUNCHES["timing"] - before == n_cases, "the sweep's launches were not counted one per call")
+    print(f"kernel timing_recursion: sweep C in (1,3,24,64) x R in (1,2,17,150,300) x U in "
+          f"(1,5,24,64) x N in (2,11,87,256,512) x E in (1,N,3N,2048), missing self-loops, all--inf "
+          f"rows, partial dst cover, t0, f32/f64 ({n_cases} cases): bit-identical to the plain "
+          f"version")
+
+    M, Tc = WORKLOADS["inaturalist"]
+    tp = TrainingParams(model_size_mbits=M, local_steps=1)
+    gc, pairs = geometric_gc(64, 8)
+    matchings = tuple(tuple(m) for m in greedy_edge_coloring(pairs))
+    engine = [MatchaSchedule(matchings=matchings, budget=b) for b in DEFAULT_MATCHA_BUDGETS]
+    ebone = make_underlay("ebone").connectivity_graph(comp_time_ms=Tc)
+    eb_matchings = matcha_schedule_from_connectivity(ebone).matchings
+    designs = [MatchaSchedule(matchings=eb_matchings, budget=b) for b in DEFAULT_MATCHA_BUDGETS]
+    shapes = {}
+    for name, (scheds, g, R, seeds) in (("engine", (engine, gc, 300, tuple(range(8)))),
+                                        ("ebone_design", (designs, ebone, 150, (0, 1, 2)))):
+        arrays = _sweep_inputs(scheds, g, tp, R, seeds)
+        src, dst, w, ids = (torch.from_numpy(a).to(dev) for a in arrays)
+        N, (U, E), (C, _) = g.num_silos, w.shape, ids.shape
+        got = timing_recursion(src, dst, w, ids, N)
+        ref = timing_recursion_ref(src, dst, w, ids, N)
+        err = float((got - ref).abs().max())
+        check(torch.equal(got, ref), f"timing at the {name} shape: max abs err {err}")
+        runs = {"kernel": (lambda: timing_recursion(src, dst, w, ids, N), 50),
+                "plain": (lambda: timing_recursion_ref(src, dst, w, ids, N), 3)}
+        times = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            fn, reps = runs[k]
+            times[k].append(time_ms(torch, fn, reps=reps, warmup=1))
+        mean = {k: sum(t) / len(t) for k, t in times.items()}
+        bound, by = timing_bound(C, R, U, E, N, 8)
+        def timing_own(kernels):
+            return [(c, us) for k, (c, us) in kernels.items() if "timing_kernel" in k]
+
+        _, kernels, windows = complete_profile(
+            torch, lambda: [timing_recursion(src, dst, w, ids, N) for _ in range(20)],
+            lambda ks: [c for c, _ in timing_own(ks)] == [20],
+            f"timing at the {name} shape (timing_kernel 20 times)")
+        dev_ms = timing_own(kernels)[0][1] / 20 / 1e3
+        _, plain_kernels = device_kernels(torch, lambda: timing_recursion_ref(src, dst, w, ids, N),
+                                          lead_in=True)
+        plain_launches = sum(c for c, _ in plain_kernels.values())
+        print(f"kernel timing_recursion C={C} R={R} U={U} E={E} N={N} f64 ({name}), in turns: ms "
+              f"{fmt_times(times['kernel'])}  device_ms {dev_ms:.5f} (profile window {windows})  "
+              f"plain_ms {fmt_times(times['plain'])} ({plain_launches} device kernels a call)  "
+              f"library_ms null  bound_ms {bound:.6f} ({by})  max_abs_err {err:.3g}")
+        shapes[name] = {"ms": mean["kernel"], "device_ms": dev_ms, "plain_ms": mean["plain"],
+                        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                        "library_ms": None, "plain_launches": plain_launches}
+    return shapes
+
+
+def matcha_design_phase(torch, dev) -> dict:
+    """MATCHA designs on the card at the reference's defaults (8 budgets x
+    3 seeds x 150 rounds) on the paper's five networks, each with the
+    counts set to 0 just before it and read just after: one ``timing``
+    launch a design, every chain's tau equal to the CPU's bit for bit and
+    the same budget chosen.  Then the time-to-eps objective on Geant, the
+    idle share of a design on Ebone, and Table 10 from the card."""
+    from repro_torch.core import (DEFAULT_MATCHA_BUDGETS, NETWORK_NAMES, WORKLOADS,
+                                  MatchaSchedule, TrainingParams, average_cycle_times_batched,
+                                  design_schedule, make_underlay,
+                                  matcha_schedule_from_connectivity,
+                                  matcha_schedule_from_underlay, ring_overlay)
+    from repro_torch.core.schedule import _estimate_from_chains, _sweep_inputs
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts, timing_recursion
+
+    M, Tc = WORKLOADS["inaturalist"]
+    tp = TrainingParams(model_size_mbits=M, local_steps=1)
+    seeds = (0, 1, 2)
+    rows, launches, graphs = [], 0, {}
+    for net in NETWORK_NAMES:
+        gc = make_underlay(net).connectivity_graph(comp_time_ms=Tc)
+        graphs[net] = gc
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sched = design_schedule("matcha", gc, tp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = dict(LAUNCHES)
+        check(n_launch["timing"] == 1 and sum(n_launch.values()) == 1,
+              f"{net}: a MATCHA design launched {n_launch}, expected one timing launch")
+        launches += n_launch["timing"]
+        cpu_sched = design_schedule("matcha", gc, tp, device="cpu")
+        check(sched == cpu_sched, f"{net}: card chose budget {sched.budget}, CPU {cpu_sched.budget}")
+        cands = [MatchaSchedule(matchings=sched.matchings, budget=b) for b in DEFAULT_MATCHA_BUDGETS]
+        card = average_cycle_times_batched(cands, gc, tp, rounds=150, seeds=seeds, device=dev)
+        cpu = average_cycle_times_batched(cands, gc, tp, rounds=150, seeds=seeds, device="cpu")
+        check(bool((card == cpu).all()), f"{net}: card and CPU chains differ: {card} vs {cpu}")
+        est = _estimate_from_chains(card[DEFAULT_MATCHA_BUDGETS.index(sched.budget)])
+        ring = ring_overlay(gc, tp).cycle_time_ms
+        print(f"matcha design {net}: n {gc.num_silos}  matchings {sched.num_matchings}  budget "
+              f"{sched.budget:g}  tau {est.tau_ms:.6f} ms  ci95 {est.ci95_ms:.6f}  ring tau "
+              f"{ring:.6f} ms  ring/matcha {ring / est.tau_ms:.4f}  wall {wall:.4f} s  timing "
+              f"launches 1; {card.size} chains card == CPU bit for bit, same budget")
+        rows.append({"net": net, "n": gc.num_silos, "budget": sched.budget, "tau": est.tau_ms,
+                     "ci95": est.ci95_ms, "ring_tau": ring, "wall_s": wall})
+
+    gc = graphs["geant"]
+    s_card = design_schedule("matcha", gc, tp, objective="time_to_eps", device=dev)
+    s_cpu = design_schedule("matcha", gc, tp, objective="time_to_eps", device="cpu")
+    from repro_torch.core import schedule_rho
+
+    rho = schedule_rho(s_card, gc, rounds=128, seed=0)
+    check(s_card == s_cpu, f"geant time_to_eps: card budget {s_card.budget}, CPU {s_cpu.budget}")
+    print(f"matcha design geant (time_to_eps): budget {s_card.budget:g}  rho {rho:.6f}; "
+          f"card == CPU")
+
+    # The idle share of a design on Ebone: the device's busy time under the
+    # profiler over the traced design's own wall time, beside an untraced
+    # design timed just before it.
+    gc = graphs["ebone"]
+    t0 = time.perf_counter()
+    design_schedule("matcha", gc, tp, device=dev)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    traced, kernels, windows = complete_profile(
+        torch, lambda: design_schedule("matcha", gc, tp, device=dev),
+        lambda ks: [c for k, (c, _) in ks.items() if "timing_kernel" in k] == [1],
+        "matcha design ebone profile (timing_kernel once)")
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    n_kernels = sum(c for c, _ in kernels.values())
+    k1 = sum(us for k, (_, us) in kernels.items() if "timing_kernel" in k) / 1e6
+    print(f"matcha design ebone profile: traced wall {traced:.4f} s (untraced just before "
+          f"{untraced:.4f} s), device busy {busy:.6f} s over {n_kernels} kernels, timing_kernel "
+          f"{k1:.6f} s; idle share of the traced design {1 - busy / traced:.4f} (profile window "
+          f"{windows})")
+    # the same design's stages on the host clock: the activation masks, the
+    # rest of the host work (dedup, Eq. 3 pricing of the distinct rows),
+    # and the recursion with its copies to and from the card
+    cands = [MatchaSchedule(matchings=matcha_schedule_from_connectivity(gc).matchings, budget=b)
+             for b in DEFAULT_MATCHA_BUDGETS]
+    t0 = time.perf_counter()
+    for c in cands:
+        for seed in seeds:
+            c.activation_masks(150, seed)
+    t_masks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays = _sweep_inputs(cands, gc, tp, 150, seeds)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    times = timing_recursion(*(torch.from_numpy(a).to(dev) for a in arrays), gc.num_silos)
+    times[:, 150].max(dim=1).values.cpu()
+    t_dev = time.perf_counter() - t0
+    print(f"matcha design ebone stages (host clock): activation masks {t_masks:.4f} s, dedup + "
+          f"Eq. 3 pricing of {arrays[2].shape[0]} distinct rows x {arrays[2].shape[1]} arcs "
+          f"{t_host - t_masks:.4f} s ({arrays[2].nbytes / 2**20:.1f} MiB of weights), copy + "
+          f"recursion + read-back {t_dev:.4f} s")
+
+    budgets = (1.0, 0.8, 0.6, 0.5, 0.4, 0.2, 0.1)
+    print("matcha table 10 (AWS NA, ring speedup vs MATCHA+, 120 rounds): access " +
+          " ".join(f"Cb={cb:g}" for cb in budgets))
+    for access in (10.0, 0.1):
+        u = make_underlay("aws_na", access_capacity_gbps=access)
+        gc = u.connectivity_graph(comp_time_ms=Tc)
+        ring = ring_overlay(gc, tp).cycle_time_ms
+        scheds = [matcha_schedule_from_underlay(u, cb) for cb in budgets]
+        card = average_cycle_times_batched(scheds, gc, tp, rounds=120, seeds=(0,), device=dev)
+        cpu = average_cycle_times_batched(scheds, gc, tp, rounds=120, seeds=(0,), device="cpu")
+        check(bool((card == cpu).all()), f"table 10 at {access} Gbps: card and CPU differ")
+        print(f"matcha table 10 {access:g} Gbps: " + " ".join(f"{t / ring:.4f}" for t in card[:, 0])
+              + "  (card == CPU)")
+    return {"rows": rows, "launches": launches}
+
+
+def matcha_train_phase(torch, dev) -> dict:
+    """Static ``--designer matcha`` training at internlm2-1.8b's full width
+    (4 of 24 layers, 4 silos, s = 2, 4 x 64 tokens a silo, 3 rounds): each
+    round's consensus matrix is the host ScheduleSlot's, and no gossip_mix
+    launch (the mix is the reference's einsum); then one more round's mix
+    on the card against A @ pre-mix computed on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MatchaSchedule, greedy_edge_coloring
+    from repro_torch.fed import ScheduleSlot
+    from repro_torch.fed.dpasgd import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.train import batch_to_device, train
+
+    cfg = get_config("internlm2-1.8b", n_layers=4)
+    steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = train(cfg, silos=4, gossip_impl="einsum", local_steps=2, batch_per_silo=4, seq_len=64,
+                steps=steps, device=dev, designer="matcha", matcha_budget=0.5,
+                log=lambda line: print(line, flush=True))
+    launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+    host = ScheduleSlot(MatchaSchedule(matchings=tuple(tuple(m) for m in
+                                                       greedy_edge_coloring(pairs)),
+                                       budget=0.5), 4)
+    sched = res.schedule_slot.schedule
+    for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
+        print(f"matcha train: round {i} wall {sec:.4f} s loss {loss:.6f} matchings "
+              f"{sched.round_active(i)} ({len(sched.round_edges(i))} arcs)")
+        check(np.array_equal(res.consensus[i], host.matrix_for_round(i)),
+              f"matcha train round {i}: the step's matrix is not the host ScheduleSlot's")
+    print(f"matcha train: peak device memory {peak / 2**30:.2f} GiB; gossip_mix launches "
+          f"{launches['gossip_mix']}; each round's matrix == the host ScheduleSlot's")
+    check(all(math.isfinite(x) for x in res.losses), f"non-finite loss {res.losses}")
+    check(launches["gossip_mix"] == 0, f"matcha training launched gossip_mix {launches}")
+
+    # One more round through the same step, at the first round past the
+    # run whose sampled matrix is not the identity: the local steps update
+    # the state's buffer in place and the mix returns a new one, so the
+    # old buffer holds the pre-mix parameters.  What the card mixed is held
+    # against A @ pre-mix in float64 on the CPU, on a random million of
+    # the columns.
+    k = next(i for i in range(steps, steps + 100)
+             if not np.array_equal(host.matrix_for_round(i), np.eye(4)))
+    A = res.schedule_slot.matrix_for_round(k)
+    step_fn = make_train_step(res.cfg, res.fed, res.optimizer, None, consensus_arg=True)
+    pre = res.state["params"]
+    new, _ = step_fn(res.state, batch_to_device(res.batcher.batch(k), dev), A)
+    idx = torch.randint(0, pre.shape[1], (1 << 20,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    pre_cols = pre[:, idx].double().cpu()
+    got = new["params"][:, idx].double().cpu()
+    want = torch.from_numpy(np.asarray(A, dtype=np.float64)) @ pre_cols
+    err = float((got - want).abs().max())
+    scale = float(pre_cols.abs().max())
+    print(f"matcha train: round {k}'s mix on the card (matchings {sched.round_active(k)}) "
+          f"against A @ pre-mix in float64 on the CPU over {idx.numel()} columns: max abs err "
+          f"{err:.3g} (largest |param| {scale:.3g}, limit {1e-6 * scale:.3g})")
+    check(err <= 1e-6 * scale, f"matcha train round {k}: the card's mix is not A @ pre-mix "
+          f"(max abs err {err})")
+    check(not torch.equal(got, pre_cols), f"matcha train round {k}: the mix changed nothing")
+    out = {"round_s": res.step_seconds, "losses": res.losses, "peak_bytes": peak}
+    del new, pre, res
+    return out
+
+
 def attn_pairs(S: int, T: int, causal: bool, window) -> int:
     """Visible (query, key) pairs of one (batch, head) at positions
     0..S-1 against 0..T-1."""
@@ -1322,15 +1701,19 @@ def mlstm_kernel_phase(torch, dev) -> dict:
     del got, simt, ref
     # device kernels of one call, by name, and the scratch it allocates
     calls = 5
-    _, kernels = device_kernels(torch, lambda: [mlstm_scan(q, k, v, li, lf)
-                                                for _ in range(calls)], lead_in=True)
-    seen = {short_kernel_name(name): (n, us) for name, (n, us) in kernels.items()
-            if "mlstm_" in name}
-    check(len(seen) == device_kernels_per_call(S) and {n for n, _ in seen.values()} == {calls},
-          f"the profiler saw the mlstm_scan device kernels {seen} in {calls} calls, expected "
-          f"{device_kernels_per_call(S)} kernels launched once a call")
+    def k4_seen(kernels):
+        return {short_kernel_name(name): (n, us) for name, (n, us) in kernels.items()
+                if "mlstm_" in name}
+
+    _, kernels, windows = complete_profile(
+        torch, lambda: [mlstm_scan(q, k, v, li, lf) for _ in range(calls)],
+        lambda ks: (len(k4_seen(ks)) == device_kernels_per_call(S)
+                    and {n for n, _ in k4_seen(ks).values()} == {calls}),
+        f"mlstm_scan in {calls} calls ({device_kernels_per_call(S)} device kernels once a call)")
+    seen = k4_seen(kernels)
     per_call_txt = ", ".join(f"{name} {us / n:.1f} us" for name, (n, us) in
-                             sorted(seen.items())) + f" (mean of {calls} calls)"
+                             sorted(seen.items())) + \
+        f" (mean of {calls} calls, profile window {windows})"
     scratch = sum(math.prod(shape) * 4 for shape in scratch_shapes(B, S, H, hd))
     # In turns on one card: kernel, CUDA-core kernel, plain, then back.
     runs = {"kernel": (lambda: mlstm_scan(q, k, v, li, lf), 10),
@@ -1441,19 +1824,23 @@ def xlstm_forward_phase(torch, dev) -> dict:
     check(bool(torch.isfinite(logits).all()), "xlstm forward: non-finite logits")
     # K4's device time within the forward: its kernels, by name, summed over the launches
     with torch.no_grad():
-        traced_s, kernels = device_kernels(torch, lambda: T.forward(params, cfg, tokens),
-                                           lead_in=True)
-    k4 = {short_kernel_name(name): v for name, v in kernels.items() if "mlstm_" in name}
-    check(len(k4) == device_kernels_per_call(S) and {n for n, _ in k4.values()} == {n_mlstm},
-          f"xlstm forward profile: the profiler saw the mlstm_scan device kernels {k4}, "
-          f"expected {device_kernels_per_call(S)} kernels launched {n_mlstm} times each")
+        def k4_of(kernels):
+            return {short_kernel_name(name): v for name, v in kernels.items() if "mlstm_" in name}
+
+        traced_s, kernels, windows = complete_profile(
+            torch, lambda: T.forward(params, cfg, tokens),
+            lambda ks: (len(k4_of(ks)) == device_kernels_per_call(S)
+                        and {n for n, _ in k4_of(ks).values()} == {n_mlstm}),
+            f"xlstm forward profile ({device_kernels_per_call(S)} mlstm_scan device kernels "
+            f"{n_mlstm} times each)")
+    k4 = k4_of(kernels)
     k4_s = sum(us for _, us in k4.values()) * 1e-6
     busy_s = sum(us for _, us in kernels.values()) * 1e-6
     print(f"forward profile: {cfg.arch_id} [{B}x{S}] traced wall {traced_s:.4f} s, device "
           f"busy {busy_s:.4f} s over {sum(n for n, _ in kernels.values())} kernels; "
           f"mlstm_scan device time {k4_s:.4f} s over its {n_mlstm} launches (" +
           ", ".join(f"{name} {n} x {us / n:.1f} us" for name, (n, us) in sorted(k4.items())) +
-          ")")
+          f"; profile window {windows})")
     record = []
     t0 = time.perf_counter()
     plain = forward_at_chunk(torch, params, dataclasses.replace(cfg, use_flash_kernel=False),
@@ -1665,6 +2052,13 @@ def main() -> int:
     design_s = time.perf_counter() - t0
     k2_plans_phase(torch, dev, design["overlays"])
     t0 = time.perf_counter()
+    timing = timing_kernel_phase(torch, dev)
+    matcha = matcha_design_phase(torch, dev)
+    torch.cuda.empty_cache()
+    mtrain = matcha_train_phase(torch, dev)
+    torch.cuda.empty_cache()
+    matcha_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     attn = flash_kernel_phase(torch, dev)
     served = serve_phase(torch, dev)
     serve_s = time.perf_counter() - t0
@@ -1686,6 +2080,12 @@ def main() -> int:
           f"(per-level {karp['scoring']['per_level_ms']:.4f}); design wall s "
           f"{[(r['net'], round(r['wall_s'], 4)) for r in design['rows']]}; karp launches "
           f"{design['launches']} over the design phase; design phases took {design_s:.1f} s")
+    print(f"summary: timing_recursion ebone design shape ms {timing['ebone_design']['ms']:.4f} "
+          f"(plain {timing['ebone_design']['plain_ms']:.4f}), engine shape ms "
+          f"{timing['engine']['ms']:.4f} (plain {timing['engine']['plain_ms']:.4f}); matcha design "
+          f"wall s {[(r['net'], round(r['wall_s'], 4)) for r in matcha['rows']]}; matcha round "
+          f"wall s {[round(x, 4) for x in mtrain['round_s']]}, peak GiB "
+          f"{mtrain['peak_bytes'] / 2**30:.2f}; matcha phases took {matcha_s:.1f} s")
     danube = served["h2o-danube-1.8b"]
     print(f"summary: flash_attention danube prefill shape ms {attn['ms']:.4f} (CUDA-core entry "
           f"{attn['simt_ms']:.4f}; bound {attn['bound_ms']:.4f} at 3xTF32, "
@@ -1725,6 +2125,18 @@ def main() -> int:
         "bound_ms": climb["bound_ms"],
         "bound_by": climb["bound_by"],
         "library_ms": climb["library_ms"],
+    }, {
+        "name": "timing_recursion",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_max.cu",
+        "replaces": "src/repro/kernels/segment_max.py:82",
+        "launches": matcha["launches"],
+        "max_abs_err": timing["ebone_design"]["max_abs_err"],
+        "ms": timing["ebone_design"]["ms"],
+        "plain_ms": timing["ebone_design"]["plain_ms"],
+        "bound_ms": timing["ebone_design"]["bound_ms"],
+        "bound_by": timing["ebone_design"]["bound_by"],
+        "library_ms": timing["ebone_design"]["library_ms"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -51,6 +51,20 @@ def ring_matrix(n: int, tour: Sequence[int]) -> np.ndarray:
     return A
 
 
+def metropolis_matrix(n: int, edges: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """Metropolis-Hastings weights (alternative to local-degree)."""
+    deg = _degrees(n, edges)
+    A = np.zeros((n, n), dtype=np.float64)
+    for (i, j) in edges:
+        if i == j:
+            continue
+        A[j, i] = 1.0 / (1.0 + max(deg[i], deg[j]))
+    A = np.maximum(A, A.T)  # symmetrize support
+    for i in range(n):
+        A[i, i] = 1.0 - A[i].sum()
+    return A
+
+
 def is_doubly_stochastic(A: np.ndarray, tol: float = 1e-9) -> bool:
     """True iff ``A`` ([n, n]) is nonnegative with unit row and column
     sums — the precondition for the Birkhoff decomposition."""
@@ -59,3 +73,18 @@ def is_doubly_stochastic(A: np.ndarray, tol: float = 1e-9) -> bool:
         and bool(np.allclose(A.sum(axis=0), 1.0, atol=1e-8))
         and bool(np.allclose(A.sum(axis=1), 1.0, atol=1e-8))
     )
+
+
+def spectral_gap(A: np.ndarray) -> float:
+    """1 - second largest singular value of A - (1/n) 11^T — governs the
+    per-round consensus contraction (classic worst-case bound)."""
+    n = A.shape[0]
+    M = A - np.full((n, n), 1.0 / n)
+    s = np.linalg.svd(M, compute_uv=False)
+    return float(1.0 - s[0])
+
+
+def star_matrix(n: int, center: int) -> np.ndarray:
+    """FedAvg-style star: one round of leaf->center averaging followed by
+    broadcast equals the rank-one averaging matrix."""
+    return np.full((n, n), 1.0 / n)

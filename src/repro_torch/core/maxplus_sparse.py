@@ -22,6 +22,9 @@ storage:
 * :func:`batched_is_strongly_connected_sparse` /
   :func:`reachable_from_sparse` / :func:`scc_labels_sparse` --
   reachability and SCCs along edges;
+* :func:`timing_recursion_unique_rounds_sparse_torch` -- the
+  round-varying Eq. 4 recursion behind MATCHA pricing (on the card, one
+  launch of the hand-written persistent recursion for all rounds);
 * :class:`DeltaPricer` -- incremental cycle-time certificates for the
   host rewire climb;
 * :func:`batched_overlay_delay_edges` -- Eq. 3 pricing of a batch of
@@ -40,7 +43,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels import karp_cycle_time, select_segment_max_impl
+from ..kernels import karp_cycle_time, select_segment_max_impl, timing_recursion
 from ..kernels.segment_max import karp_cycle_time_ref, karp_from_step
 from .maxplus_vec import MISSING, karp_from_levels, missing_mask
 
@@ -878,3 +881,28 @@ def batched_cycle_time_sparse_torch(src, dst, w, num_nodes: int, *,
         return vals.view(B, N, D).amax(dim=2)
 
     return karp_from_step(step, B, N, w.dtype, w.device)
+
+
+# ---------------------------------------------------------------------------
+# The round-varying timing recursion on a device (torch)
+
+
+def timing_recursion_unique_rounds_sparse_torch(src, dst, w_unique, round_ids, num_nodes: int,
+                                                t0=None) -> torch.Tensor:
+    """Eq. 4 recursion with round-varying weights drawn from a pool of
+    distinct weight rows (the reference's
+    ``timing_recursion_unique_rounds_sparse``): round k of chain c runs
+    over the arcs ``(src, dst)`` ``[E]`` weighted by
+    ``w_unique[round_ids[c, k]]`` (``-inf`` = absent), and a vertex without
+    a present self-loop that round keeps its previous start.  Returns
+    ``[C, R+1, N]`` start times on ``w_unique``'s device and in its dtype
+    (float32 or float64), through
+    :func:`repro_torch.kernels.timing_recursion` -- on the card one launch
+    of the persistent K1 recursion for every round of every chain, on the
+    CPU its plain loop; bit-identical to the reference's numpy engine in
+    float64."""
+    w_unique = torch.as_tensor(w_unique)
+    dev = w_unique.device
+    return timing_recursion(torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev),
+                            w_unique, torch.as_tensor(round_ids, device=dev), int(num_nodes),
+                            None if t0 is None else torch.as_tensor(t0, device=dev))

@@ -1534,3 +1534,60 @@ OVERLAY_KINDS = (
     "star", "mst", "delta_mbst", "ring", "ring_2opt", "sparse_rewire",
     "delta_rewire", "hierarchical",
 )
+
+
+def design_schedule(
+    kind: str,
+    gc: ConnectivityGraph,
+    tp: TrainingParams,
+    *,
+    center: Optional[Node] = None,
+    budgets: Optional[Sequence[float]] = None,
+    rounds: int = 150,
+    seeds: Sequence[int] = (0, 1, 2),
+    sample_seed: int = 0,
+    objective: str = "tau",
+    mixing_rounds: int = 128,
+    device: DeviceLike = "cuda",
+):
+    """Run one named designer and return a :class:`repro_torch.core.schedule.Schedule`.
+
+    The schedule-valued superset of :func:`design_overlay`: every
+    :data:`OVERLAY_KINDS` designer is wrapped in a
+    :class:`~repro_torch.core.schedule.FixedSchedule`, and ``kind="matcha"``
+    runs the randomized designer — a budget sweep
+    (:func:`~repro_torch.core.schedule.design_matcha_schedule`) that prices
+    every budget × seed Monte-Carlo chain in one call, its Eq. 4
+    recursion on ``device`` (one launch of the K1 recursion on the card),
+    and returns the budget minimizing ``objective`` (``"tau"``: mean τ̄;
+    ``"time_to_eps"``: the composite ``τ̄ / −log(ρ)`` with ρ the expected
+    contraction over ``mixing_rounds`` sampled rounds — see
+    :mod:`repro_torch.core.mixing`).
+    ``budgets``/``rounds``/``seeds``/``sample_seed``/``objective``
+    parameterize the sweep; fixed kinds design by cycle time alone and
+    pass ``device`` to :func:`design_overlay`.
+    """
+    from .schedule import (
+        DEFAULT_MATCHA_BUDGETS,
+        FixedSchedule,
+        design_matcha_schedule,
+    )
+
+    kind = kind.lower()
+    if kind == "matcha":
+        schedule, _ = design_matcha_schedule(
+            gc,
+            tp,
+            budgets=DEFAULT_MATCHA_BUDGETS if budgets is None else budgets,
+            rounds=rounds,
+            seeds=seeds,
+            sample_seed=sample_seed,
+            objective=objective,
+            mixing_rounds=mixing_rounds,
+            device=device,
+        )
+        return schedule
+    return FixedSchedule(design_overlay(kind, gc, tp, center=center, device=device))
+
+
+SCHEDULE_KINDS = OVERLAY_KINDS + ("matcha",)

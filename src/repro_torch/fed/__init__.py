@@ -3,6 +3,9 @@
 * :class:`~repro_torch.fed.gossip.GossipPlan` / :class:`~repro_torch.fed.gossip.PlanSlot`
   — a consensus matrix decomposed into Birkhoff transfers, and its
   versioned hot-swap hook;
+* :class:`~repro_torch.fed.gossip.ScheduleSlot` — the schedule-valued
+  slot for randomized plans: one plan per round from a shared round
+  counter;
 * :func:`~repro_torch.fed.gossip.gossip_einsum`,
   :func:`~repro_torch.fed.gossip.gossip_permute`,
   :func:`~repro_torch.fed.gossip.gossip_fused`,
@@ -11,15 +14,17 @@
 * :class:`~repro_torch.fed.dpasgd.DPASGDConfig`,
   :func:`~repro_torch.fed.dpasgd.make_train_step`,
   :func:`~repro_torch.fed.dpasgd.init_state`,
-  :func:`~repro_torch.fed.dpasgd.local_sgd_steps` — the Eq. 2 train step;
+  :func:`~repro_torch.fed.dpasgd.local_sgd_steps`,
+  :func:`~repro_torch.fed.dpasgd.masked_consensus` — the Eq. 2 train step;
 * :func:`~repro_torch.fed.topology_runtime.plan_from_overlay` (a designed
   overlay) and :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
 """
 
-from .dpasgd import DPASGDConfig, init_state, local_sgd_steps, make_train_step
+from .dpasgd import DPASGDConfig, init_state, local_sgd_steps, make_train_step, masked_consensus
 from .gossip import (
     GossipPlan,
     PlanSlot,
+    ScheduleSlot,
     collective_bytes_per_round,
     gossip_einsum,
     gossip_fused,
@@ -32,8 +37,10 @@ __all__ = [
     "init_state",
     "local_sgd_steps",
     "make_train_step",
+    "masked_consensus",
     "GossipPlan",
     "PlanSlot",
+    "ScheduleSlot",
     "collective_bytes_per_round",
     "gossip_einsum",
     "gossip_fused",

@@ -6,7 +6,8 @@ with its overlay in-neighbours through the consensus matrix A:
     w_i(k+1) = sum_{j in N_i^+ u {i}} A_ij w_j(k)        (mix rounds)
     w_i(k+1) = w_i(k) - alpha * grad f_i(w_i(k))          (local rounds)
 
-Counterpart of ``repro.fed.dpasgd`` on its static path.  The state keeps
+Counterpart of ``repro.fed.dpasgd`` on its static path, and on the
+per-round consensus matrix of a randomized schedule (``consensus_arg``).  The state keeps
 every silo's parameters and optimizer slot as rows of flat
 ``[n_silos, P]`` buffers (``[P]`` for one silo).  The reference's
 ``vmap`` over silos is a loop over the rows: each silo's gradient lands
@@ -28,7 +29,7 @@ from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamLayout, init_params_
 from repro_torch.optim import Optimizer
-from .gossip import GOSSIP_IMPLS, GossipPlan, mix
+from .gossip import GOSSIP_IMPLS, GossipPlan, gossip_einsum, mix
 
 
 @dataclass(frozen=True)
@@ -48,6 +49,26 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
         return T.loss_fn(params, cfg, batch)
 
     return loss
+
+
+def masked_consensus(A, active_mask) -> torch.Tensor:
+    """Renormalize a consensus matrix over the active silos.
+
+    ``A`` is ``[n, n]`` row-stochastic, ``active_mask`` is ``[n]``
+    (bool/0-1).  Arcs touching an inactive silo are dropped and each
+    surviving row is renormalized to sum to 1, so the weight a silo gave
+    its departed in-neighbours is returned to the survivors
+    proportionally.  Inactive rows (and active rows whose in-neighbours
+    all left) become identity: a departed silo's stale parameters are
+    frozen, not pulled toward the survivors.  Torch ops on ``A``'s device
+    and dtype."""
+    A = torch.as_tensor(A)
+    m = (torch.as_tensor(active_mask, device=A.device) > 0).to(A.dtype)
+    Am = A * m[None, :] * m[:, None]
+    rows = Am.sum(dim=1, keepdim=True)
+    keep = rows > 0
+    out = Am / torch.where(keep, rows, torch.ones_like(rows))
+    return torch.where(keep, out, torch.eye(A.shape[0], dtype=A.dtype, device=A.device))
 
 
 def local_sgd_steps(
@@ -98,7 +119,7 @@ def local_sgd_steps(
 
 
 def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
-                    plan: Optional[GossipPlan]) -> Callable:
+                    plan: Optional[GossipPlan], *, consensus_arg: bool = False) -> Callable:
     """Build the DPASGD train step ``step_fn(state, batch) -> (state,
     {"loss"})``.
 
@@ -106,18 +127,34 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
     (or ``models.params.from_jax_params`` of a reference state);
     batch = ``{"tokens", "labels"}`` of shape ``[n_silos?, s, B, S]``.
     The round's mix is one call of the chosen lowering; under ``pallas``
-    it writes the mixed parameters back into the state's buffer."""
+    it writes the mixed parameters back into the state's buffer.
+
+    With ``consensus_arg=True`` the step takes the round's ``[n, n]``
+    consensus matrix as an input -- ``step_fn(state, batch, consensus,
+    active_mask=None)`` -- and mixes with :func:`gossip_einsum`: the
+    lowering for randomized schedules
+    (:class:`~repro_torch.fed.gossip.ScheduleSlot`), whose topology
+    changes every round.  ``plan`` is ignored then.  ``active_mask``
+    (``[n]`` 0/1) renormalizes the matrix over the active silos
+    (:func:`masked_consensus`)."""
     if fed.gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(fed.gossip_impl)
     n_silos = cfg.n_silos
-    if n_silos > 1 and fed.gossip_impl != "none" and plan is None:
+    if consensus_arg and fed.gossip_impl not in ("einsum", "none"):
+        raise ValueError(
+            "consensus_arg=True lowers gossip as an einsum of the given matrix; "
+            f"gossip_impl={fed.gossip_impl!r} builds its mix from a fixed plan "
+            "and cannot follow a per-round matrix")
+    if consensus_arg:
+        plan = None
+    elif n_silos > 1 and fed.gossip_impl != "none" and plan is None:
         raise ValueError(f"gossip_impl={fed.gossip_impl!r} needs a plan")
     if plan is not None and plan.n_silos != n_silos:
         raise ValueError(f"plan spans {plan.n_silos} silos, config has {n_silos}")
     loss_fn = make_loss_fn(cfg)
     layout = ParamLayout(T.model_specs(cfg))
 
-    def step_fn(state, batch):
+    def step_fn(state, batch, consensus=None, active_mask=None):
         params, opt_state = state["params"], state["opt_state"]
         if params.shape[-1] != layout.size:
             raise ValueError(f"state holds {params.shape[-1]} params per silo, "
@@ -138,7 +175,15 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
             loss = torch.stack(losses).mean()
             # consensus mix (the paper's technique)
             with torch.no_grad():
-                params = mix(params, plan, fed.gossip_impl, out=params)
+                if consensus_arg and fed.gossip_impl != "none":
+                    if consensus is None:
+                        raise ValueError("consensus_arg=True: pass the round's consensus matrix")
+                    A = torch.as_tensor(consensus)
+                    if active_mask is not None:
+                        A = masked_consensus(A, active_mask)
+                    params = gossip_einsum(params, A)
+                else:
+                    params = mix(params, plan, fed.gossip_impl, out=params)
         step = state["step"] + fed.local_steps
         return {"params": params, "opt_state": opt_state, "step": step}, {"loss": loss}
 

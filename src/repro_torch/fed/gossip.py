@@ -19,6 +19,11 @@ that dimension.  Four lowerings, with the reference's names:
                  match; here it selects the CUDA kernel.
 * ``none``     — no mixing.
 
+Randomized schedules (MATCHA) sample a fresh topology every round: a
+:class:`ScheduleSlot` turns the shared round counter into that round's
+plan, and the train step takes its matrix as an input and mixes it with
+the ``einsum`` lowering, as the reference does (no ``gossip_mix`` launch).
+
 The one-process-per-silo lowering across cards (``torch.distributed``
 point-to-point) is a later slice.
 """
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.birkhoff import birkhoff_decomposition
+from repro_torch.core.consensus import local_degree_matrix
 from repro_torch.kernels import ops as kops
 
 GOSSIP_IMPLS = ("einsum", "ppermute", "pallas", "none")
@@ -110,6 +116,102 @@ class PlanSlot:
         for cb in self._callbacks:
             cb(plan, self.version)
         return self.version
+
+
+class ScheduleSlot(PlanSlot):
+    """Hot-swap slot for *schedule*-valued state (randomized plans).
+
+    Extends :class:`PlanSlot` from one fixed :class:`GossipPlan` to a
+    :class:`repro_torch.core.schedule.Schedule`: every communication round
+    the active schedule samples that round's overlay
+    (``schedule.round_edges(k)``) and the slot materializes it as a
+    consensus matrix / :class:`GossipPlan`.  Because ``round_edges`` is a
+    pure function of (schedule state, round counter), **every silo
+    holding an equal slot derives the identical plan for round k from the
+    shared round counter alone** — no cross-silo coordination, the
+    property MATCHA deployments rely on (Appendix G.3).
+
+    Plans are cached per sampled edge set, bounded FIFO at
+    ``max_cached_plans`` (a MATCHA schedule over few matchings revisits a
+    small subset family; over many matchings almost every round is fresh
+    and an unbounded cache would grow for the process lifetime), and
+    ``version`` moves only on :meth:`swap_schedule` — per-round sampling
+    is expected churn, not a topology change.  For a deterministic
+    :class:`~repro_torch.core.schedule.FixedSchedule` the slot degenerates
+    to a :class:`PlanSlot` whose plan never varies.
+    """
+
+    def __init__(self, schedule, n_silos: int, silos: Optional[Sequence] = None,
+                 max_cached_plans: int = 512):
+        self._n = int(n_silos)
+        self._silos = tuple(silos) if silos is not None else None
+        self._schedule = schedule
+        self._plan_cache: dict = {}
+        self._max_cached = int(max_cached_plans)
+        super().__init__(self.plan_for_round(0))
+
+    @property
+    def schedule(self):
+        return self._schedule
+
+    def swap_schedule(self, schedule, label: str = "",
+                      silos: Optional[Sequence] = None) -> int:
+        """Install a new schedule (fixed or randomized); bumps ``version``
+        and fires the ``on_swap`` callbacks with the round-0 plan.
+
+        ``silos`` re-pins the label -> silo-position order — pass it when
+        the active universe changed (the new schedule spans different
+        silos than the old one); the round-0 plan is then allowed to
+        change silo count, and the caller must rebuild the state to match.
+        A swap that raises (a callback included) leaves the slot as it
+        was."""
+        resized = silos is not None
+        rollback = (self._schedule, self._silos, self._n, self._plan_cache,
+                    self._plan, self.version, list(self.history))
+        if resized:
+            self._silos = tuple(silos)
+            self._n = len(self._silos)
+        self._schedule = schedule
+        self._plan_cache = {}
+        try:
+            return self.swap(self.plan_for_round(0), label=label,
+                             allow_resize=resized)
+        except Exception:
+            # failed swaps leave the slot untouched (PlanSlot invariant) —
+            # including the base-class plan/version/history, which a
+            # raising on_swap callback would otherwise leave half-moved
+            (self._schedule, self._silos, self._n, self._plan_cache,
+             self._plan, self.version, history) = rollback
+            self.history[:] = history
+            raise
+
+    def _index(self, label) -> int:
+        if self._silos is not None:
+            return self._silos.index(label)
+        return int(label)
+
+    def plan_for_round(self, round_idx: int) -> GossipPlan:
+        """The (deterministic) gossip plan of communication round
+        ``round_idx`` under the active schedule."""
+        edges = self._schedule.round_edges(round_idx)
+        idx_edges = tuple(
+            sorted(
+                (self._index(i), self._index(j)) for (i, j) in edges if i != j
+            )
+        )
+        plan = self._plan_cache.get(idx_edges)
+        if plan is None:
+            A = local_degree_matrix(self._n, list(idx_edges))
+            plan = GossipPlan.from_matrix(A)
+            if len(self._plan_cache) >= self._max_cached:  # FIFO bound
+                self._plan_cache.pop(next(iter(self._plan_cache)))
+            self._plan_cache[idx_edges] = plan
+        return plan
+
+    def matrix_for_round(self, round_idx: int) -> np.ndarray:
+        """Consensus matrix of round ``round_idx`` — the array fed to a
+        ``consensus_arg`` train step (no rebuild between rounds)."""
+        return self.plan_for_round(round_idx).matrix
 
 
 def gossip_einsum(w: torch.Tensor, A) -> torch.Tensor:

@@ -1,13 +1,14 @@
-// Row-wise segment max over an edge batch, and the two persistent
+// Row-wise segment max over an edge batch, and the three persistent
 // recursions built on it, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/segment_max.py::edge_segment_max_pallas
-// and the per-level loops around it in the reference's rewire climb
+// and the per-level loops around it in the reference: the rewire climb's
 // (src/repro/core/maxplus_sparse.py::batched_cycle_time_sparse_jax, one
 // segment max per Karp level, and the reach body of
-// src/repro/core/topologies.py::_rewire_climb_fn, one per hop).  Three
-// entry points:
+// src/repro/core/topologies.py::_rewire_climb_fn, one per hop) and
+// MATCHA pricing's (maxplus_sparse.py::timing_recursion_time_varying_sparse_jax,
+// one segment max per round).  Four entry points:
 //
 // segment_max_launch computes the standalone segment max
 //   out[b, s] = max vals[b, e]  over e with ids[b, e] == s
@@ -25,6 +26,17 @@
 // reach_launch computes, for the same arc lists and a present mask, the
 // vertices reachable from vertex 0 along present arcs forward (src ->
 // dst) and backward (dst -> src): out [2, B, N] of 0/1 bytes.
+//
+// timing_recursion_launch computes the round-varying Eq. 4 recursion of
+// C Monte-Carlo chains over one arc pool (src, dst) [E] (int32) whose
+// weights change by round: row ids[c, k] of w [U, E] (float32 or float64;
+// -inf marks an arc absent that round) weights round k of chain c, and
+//   t_v(k+1) = max( max over arcs (u -> v) of t_u(k) + w[ids[c, k], e],
+//                   carry_v )
+// where carry_v is t_v(k) when row ids[c, k] has no present self-loop at
+// v and -inf otherwise; out [C, R+1, N] holds t(0) = t0 (or 0) .. t(R).
+// It is what src/repro/core/maxplus_sparse.py::
+// timing_recursion_unique_rounds_sparse computes on the host.
 //
 // Design.  The TPU kernel compares every edge tile with every segment
 // tile, O(E * S) dense vector work, because its VPU cannot scatter.  Here
@@ -57,10 +69,23 @@
 // does, so the result equals the plain version bit for bit.
 // Reachability sets a byte per vertex, in place, and stops at the first
 // hop that changes nothing (__syncthreads_or): r only grows, so the
-// fixpoint is the same set that N - 1 synchronous hops reach.  An id
-// outside [0, N) in either recursion stops the kernel (__trap), which the
-// caller sees as a CUDA error at the next synchronise, as with torch's own
-// indexing kernels.
+// fixpoint is the same set that N - 1 synchronous hops reach.  The timing
+// recursion runs one block per chain over all R rounds, one barrier a
+// round where the reference has a lax.scan step: t lives in shared memory
+// as keys in three rotating buffers (read t(k), fold t(k+1), reset the
+// third), each round is one pass over the E arcs reading their ids and
+// weight row ids[c, k] from global memory (L1- and L2-resident at MATCHA's
+// sizes), and the carry is one more atomicMax of t_v(k) into t_v(k+1), so
+// it needs no barrier of its own.  Whether a row has a present self-loop at v is
+// known before its round: the pass of round k also stamps, for round
+// k + 1's row, each v with a present self-loop (two stamp buffers by
+// parity, so a stamp is written only while nobody reads it), and round
+// 0's stamps are set before the rounds.  Every add is __dadd_rn (or
+// __fadd_rn) and max is exact, so the result is the plain version's and
+// the reference's numpy host engine's bit for bit.  An id outside [0, N)
+// in any recursion, or a round id outside [0, U), stops the kernel
+// (__trap), which the caller sees as a CUDA error at the next synchronise,
+// as with torch's own indexing kernels.
 //
 // Bound.  The standalone kernel reads each value and id once and writes
 // each output once, (B*E*(sizeof(T) + 4) + B*S*sizeof(T)) bytes, with one
@@ -72,7 +97,14 @@
 // dependent levels, one barrier and one pass over the row's arcs each,
 // which no amount of parallelism across rows removes.  A wide row could
 // spread over a thread-block cluster, sharing the level through
-// distributed shared memory; that is left to a later change.
+// distributed shared memory; that is left to a later change.  The timing
+// recursion's least time is the larger of its bytes (the U*E*sizeof(T)
+// distinct weight rows, E*8 arc ids and C*R*4 round ids read once,
+// C*(R+1)*N*sizeof(T) written) and its operations (2*C*R*E adds and
+// maxima); its real floor is the chain of R dependent rounds, one barrier
+// and one pass over the arcs each.  C is 24 to 64 chains at MATCHA's
+// sizes, so most of the 132 SMs idle: spreading a chain over a cluster is
+// later work too.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -455,6 +487,106 @@ cudaError_t launch_karp(const void* src, const void* dst, const void* w, void* l
   return cudaGetLastError();
 }
 
+// One block per chain c.  src and dst are read from global memory every
+// round (L1-resident at MATCHA's sizes): staging them in shared memory
+// measured 1.5 % faster at Ebone's design shape and 1.6 % slower at the
+// engine shape on an H100 (scripts/port_timing_ab.py), so it is not kept.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+timing_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+              const T* __restrict__ w, const int32_t* __restrict__ ids,
+              const T* __restrict__ t0, T* __restrict__ out, int R, int U, int E, int N) {
+  using A = Arith<T>;
+  using C = typename A::C;
+  using Key = KeyOf<T>;
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  Key* keys = reinterpret_cast<Key*>(smem_raw);      // 3 buffers of N keys
+  int* stamp = reinterpret_cast<int*>(keys + 3 * N);  // 2 buffers of N rounds
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t c = blockIdx.x;
+  const int32_t* g_ids = ids + c * R;
+  T* o = out + c * (int64_t)(R + 1) * N;
+  const C ninf = neg_inf_of<C>();
+  const Key kneg = encode_key(ninf);
+
+  for (int v = tid; v < N; v += nt) {
+    const C x = t0 ? A::load(t0[c * N + v]) : C(0);
+    keys[v] = encode_key(x);
+    keys[N + v] = kneg;
+    keys[2 * N + v] = kneg;
+    stamp[v] = -1;
+    stamp[N + v] = -1;
+    o[v] = A::store(x);
+  }
+  for (int e = tid; e < E; e += nt)
+    if ((unsigned)src[e] >= (unsigned)N || (unsigned)dst[e] >= (unsigned)N) __trap();
+  for (int k = tid; k < R; k += nt)
+    if ((unsigned)g_ids[k] >= (unsigned)U) __trap();
+  __syncthreads();
+  // round 0's self-loop stamps
+  if (R > 0) {
+    const T* w0 = w + (int64_t)g_ids[0] * E;
+    for (int e = tid; e < E; e += nt) {
+      const int32_t s = src[e], d = dst[e];
+      if (s == d && A::load(w0[e]) > ninf) stamp[d] = 0;
+    }
+  }
+  __syncthreads();
+
+  // Round k reads t(k) from cur, folds t(k+1) into nxt, resets spare (read
+  // in round k-1, so free since the last barrier), stores t(k) to out
+  // (row 0 is stored above) and stamps round k+1's self-loops.
+  Key* cur = keys;
+  Key* nxt = keys + N;
+  Key* spare = keys + 2 * N;
+  for (int k = 0; k < R; ++k) {
+    const T* wk = w + (int64_t)g_ids[k] * E;
+    const int* st = stamp + (k & 1) * N;
+    int* st_next = stamp + ((k + 1) & 1) * N;
+    const T* wn = k + 1 < R ? w + (int64_t)g_ids[k + 1] * E : nullptr;
+    for (int e = tid; e < E; e += nt) {
+      const int32_t s = src[e], d = dst[e];
+      const C x = A::add(decode_key(cur[s]), A::load(wk[e]));
+      if (!(x == ninf)) atomicMax(&nxt[d], encode_key(x));
+      if (wn && s == d && A::load(wn[e]) > ninf) st_next[d] = k + 1;
+    }
+    for (int v = tid; v < N; v += nt) {
+      if (st[v] != k) atomicMax(&nxt[v], cur[v]);  // no present self-loop: carry t_v(k)
+      spare[v] = kneg;
+      if (k >= 1) o[(int64_t)k * N + v] = A::store(decode_key(cur[v]));
+    }
+    __syncthreads();
+    Key* t = cur;
+    cur = nxt;
+    nxt = spare;
+    spare = t;
+  }
+  if (R > 0)
+    for (int v = tid; v < N; v += nt) o[(int64_t)R * N + v] = A::store(decode_key(cur[v]));
+}
+
+template <typename T>
+size_t timing_level_bytes(int64_t N) {
+  return (size_t)N * (3 * sizeof(KeyOf<T>) + 2 * sizeof(int));
+}
+
+template <typename T>
+cudaError_t launch_timing(const void* src, const void* dst, const void* w, const void* ids,
+                          const void* t0, void* out, int64_t C, int64_t R, int64_t U, int64_t E,
+                          int64_t N, cudaStream_t stream) {
+  const size_t smem = timing_level_bytes<T>(N);
+  if (smem > max_smem_optin()) return cudaErrorInvalidValue;
+  auto kernel = &timing_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)C, threads_for(E > N ? E : N), smem, stream>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+      static_cast<const T*>(w), static_cast<const int32_t*>(ids), static_cast<const T*>(t0),
+      static_cast<T*>(out), (int)R, (int)U, (int)E, (int)N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (src/repro_torch/kernels/segment_max.py).
@@ -515,6 +647,33 @@ extern "C" int reach_launch(const void* src, const void* dst, const void* presen
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
       static_cast<const uint8_t*>(present), static_cast<uint8_t*>(out), (int)B, (int)E, (int)N);
   return (int)cudaGetLastError();
+}
+
+// w is contiguous [U, E] (dtype 0 = float32, 1 = float64), src and dst are
+// int32 [E] in [0, N), ids int32 [C, R] in [0, U), t0 [C, N] of w's type
+// or null for zeros, out [C, R+1, N] of w's type.  Nothing is launched
+// when C is 0.
+extern "C" int timing_recursion_launch(const void* src, const void* dst, const void* w,
+                                       const void* ids, const void* t0, void* out, int64_t C,
+                                       int64_t R, int64_t U, int64_t E, int64_t N, int dtype,
+                                       void* stream) {
+  if (C < 0 || R < 0 || U < 0 || E < 1 || N < 1 || C > 0x7fffffffLL || R > 0x7fffffffLL ||
+      U > 0x7fffffffLL || E > 0x7fffffffLL || N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_timing<float>(src, dst, w, ids, t0, out, C, R, U, E, N, s);
+    case 1: return (int)launch_timing<double>(src, dst, w, ids, t0, out, C, R, U, E, N, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The most nodes a timing recursion of this dtype can hold in the current
+// device's shared memory (its three key buffers and two stamp buffers).
+extern "C" int64_t timing_recursion_max_nodes(int dtype) {
+  const size_t per_node = dtype == 1 ? timing_level_bytes<double>(1) : timing_level_bytes<float>(1);
+  return (int64_t)(max_smem_optin() / per_node);
 }
 
 extern "C" const char* segment_max_error_string(int err) {

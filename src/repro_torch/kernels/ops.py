@@ -29,10 +29,12 @@ from .segment_max import (
     karp_cycle_time_ref,
     reach_from_zero_cuda,
     reach_from_zero_ref,
+    timing_recursion_cuda,
+    timing_recursion_ref,
 )
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "karp": 0, "mlstm_scan": 0,
-                            "reach": 0, "segment_max": 0}
+                            "reach": 0, "segment_max": 0, "timing": 0}
 
 
 def reset_launch_counts() -> None:
@@ -109,6 +111,33 @@ def reach_from_zero(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
             LAUNCHES["reach"] += 1
         return res
     raise ValueError(f"reach_from_zero: no kernel for device {present.device}")
+
+
+def timing_recursion(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
+                     round_ids: torch.Tensor, num_nodes: int,
+                     t0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[C, R+1, N]`` start times of the unique-rounds Eq. 4 recursion:
+    arcs ``src -> dst`` ``[E]`` shared by every round, round k of chain c
+    weighted by row ``round_ids[c, k]`` of ``w_unique`` ``[U, E]``
+    (``-inf`` marks an absent arc; a vertex without a present self-loop
+    keeps its start), from ``t0`` ``[C, N]`` (default zeros).  On the
+    card every round of every chain is one launch of the persistent K1
+    recursion; the ids and ``t0`` follow ``w_unique`` to its device."""
+    if w_unique.device.type == "cpu":
+        return timing_recursion_ref(src, dst, w_unique, round_ids, num_nodes, t0)
+    if w_unique.is_cuda:
+        dev = w_unique.device
+
+        def ids(t):
+            return t.to(device=dev, dtype=torch.int32).contiguous()
+
+        res = timing_recursion_cuda(ids(src), ids(dst), w_unique.contiguous(), ids(round_ids),
+                                    num_nodes, None if t0 is None else
+                                    t0.to(device=dev, dtype=w_unique.dtype).contiguous())
+        if res.numel():
+            LAUNCHES["timing"] += 1
+        return res
+    raise ValueError(f"timing_recursion: no kernel for device {w_unique.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,7 @@ encoding -- O(E) work per row instead of O(E·S).  :func:`edge_segment_max_ref`
 is the same function in plain PyTorch: the CPU path, and what the kernel
 is held against on the card.
 
-The same source holds two persistent recursions over such arc lists,
+The same source holds three persistent recursions over such arc lists,
 each one launch where the per-level path launched once a level:
 
 * :func:`karp_cycle_time_cuda` -- all N Karp levels and the final
@@ -29,12 +29,16 @@ each one launch where the per-level path launched once a level:
   row (:func:`karp_cycle_time_ref` is the plain scatter loop);
 * :func:`reach_from_zero_cuda` -- the rewire climb's forward and
   backward reachability from vertex 0, one block per row and direction
-  (:func:`reach_from_zero_ref` is the plain hop loop).
+  (:func:`reach_from_zero_ref` is the plain hop loop);
+* :func:`timing_recursion_cuda` -- all R rounds of the round-varying
+  Eq. 4 recursion of a batch of Monte-Carlo chains (MATCHA pricing), one
+  block per chain (:func:`timing_recursion_ref` is the plain loop: one
+  gather and one ``scatter_reduce_`` a round).
 
-Both are bit-identical to their plain versions: max is exact, the
+All three are bit-identical to their plain versions: max is exact, the
 reachability flags are 0/1, and every add, subtraction and division of
-the Karp kernel is done in the input type with round-to-nearest, as
-torch does.
+the Karp and timing kernels is done in the input type with
+round-to-nearest, as torch does.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -108,6 +112,8 @@ class _Lib(NamedTuple):
     segment_max: Callable
     karp: Callable
     reach: Callable
+    timing: Callable
+    timing_max_nodes: Callable
     error_string: Callable
 
 
@@ -122,13 +128,19 @@ def _library() -> _Lib:
                            [ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
            "karp": (lib.karp_cycle_time_launch,
                     [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
-           "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr])}
+           "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]),
+           "timing": (lib.timing_recursion_launch,
+                      [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ctypes.c_int,
+                       ptr])}
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.timing_recursion_max_nodes.argtypes = [ctypes.c_int]
+    lib.timing_recursion_max_nodes.restype = i64
     lib.segment_max_error_string.argtypes = [ctypes.c_int]
     lib.segment_max_error_string.restype = ctypes.c_char_p
-    return _Lib(*(fn for fn, _ in fns.values()), lib.segment_max_error_string)
+    return _Lib(*(fn for fn, _ in fns.values()), lib.timing_recursion_max_nodes,
+                lib.segment_max_error_string)
 
 
 def _device_of(t: torch.Tensor):
@@ -349,4 +361,114 @@ def reach_from_zero_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Te
         err = lib.reach(src.data_ptr(), dst.data_ptr(), present.data_ptr(), out.data_ptr(),
                         B, E, N, stream)
     _raise_on(err, "reach", lib)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The round-varying Eq. 4 timing recursion (MATCHA pricing)
+
+_TIMING_DTYPES = (torch.float32, torch.float64)
+
+
+def check_timing_inputs(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
+                        round_ids: torch.Tensor, num_nodes: int,
+                        t0: Optional[torch.Tensor] = None) -> None:
+    """Types and shapes of a timing recursion, and, for tensors off the
+    card, arc ids in ``[0, N)`` and round ids in ``[0, U)`` (on the card
+    an out-of-range id stops the kernel, which surfaces as a CUDA error
+    at the next synchronise)."""
+    if w_unique.dtype not in _TIMING_DTYPES:
+        raise TypeError(f"timing_recursion needs float32/float64 weights, got {w_unique.dtype}")
+    _check_int_ids("timing_recursion", src=src, dst=dst, round_ids=round_ids)
+    if src.dim() != 1 or dst.shape != src.shape:
+        raise ValueError(f"src and dst must both be [E]; got {tuple(src.shape)} and "
+                         f"{tuple(dst.shape)}")
+    if src.shape[0] == 0:
+        raise ValueError("timing_recursion needs at least one arc (E = 0)")
+    if w_unique.dim() != 2 or w_unique.shape[1] != src.shape[0]:
+        raise ValueError(f"w_unique must be [U, E] with E = {src.shape[0]}; got "
+                         f"{tuple(w_unique.shape)}")
+    if round_ids.dim() != 2:
+        raise ValueError(f"round_ids must be [C, R], got {tuple(round_ids.shape)}")
+    N = int(num_nodes)
+    if N < 1:
+        raise ValueError(f"num_nodes must be >= 1, got {N}")
+    if t0 is not None and tuple(t0.shape) != (round_ids.shape[0], N):
+        raise ValueError(f"t0 must be [C, N] = {(round_ids.shape[0], N)}, got {tuple(t0.shape)}")
+    _check_ids_on_host(N, src, dst)
+    _check_ids_on_host(w_unique.shape[0], round_ids)
+
+
+def timing_recursion_ref(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
+                         round_ids: torch.Tensor, num_nodes: int,
+                         t0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The unique-rounds Eq. 4 recursion in plain PyTorch: ``[C, R+1, N]``
+    start times with ``t(k+1)[c, v] = max( max over arcs (u -> v) of
+    t(k)[c, u] + w_unique[round_ids[c, k], e], carry )``, where the carry
+    is ``t(k)[c, v]`` when row ``round_ids[c, k]`` has no present
+    self-loop at v and ``-inf`` otherwise.  A round is one gather of the
+    sources and one ``scatter_reduce_`` (``amax``) into a row seeded with
+    the carry; the per-row self-loop flags are computed once.  Computes
+    in ``w_unique``'s dtype (``t0``, default zeros, is cast to it)."""
+    check_timing_inputs(src, dst, w_unique, round_ids, num_nodes, t0)
+    N = int(num_nodes)
+    dev, dt = w_unique.device, w_unique.dtype
+    src, dst = src.to(dev).long(), dst.to(dev).long()
+    ids = round_ids.to(dev).long()
+    C, R = ids.shape
+    U = w_unique.shape[0]
+    self_arc = src == dst
+    present = (w_unique[:, self_arc] > float("-inf")).to(dt)
+    has_self = torch.zeros((U, N), dtype=dt, device=dev)
+    has_self.scatter_reduce_(1, src[self_arc].expand(U, -1), present, "amax")
+    has_self = has_self > 0
+    seg = (torch.arange(C, device=dev)[:, None] * N + dst[None, :]).ravel()
+    t = (torch.zeros((C, N), dtype=dt, device=dev) if t0 is None
+         else t0.to(device=dev, dtype=dt))
+    out = torch.empty((C, R + 1, N), dtype=dt, device=dev)
+    out[:, 0] = t
+    for k in range(R):
+        ids_k = ids[:, k]
+        vals = t[:, src] + w_unique[ids_k]
+        nxt = torch.where(has_self[ids_k], float("-inf"), t).view(-1)
+        t = nxt.scatter_reduce_(0, seg, vals.view(-1), "amax").view(C, N)
+        out[:, k + 1] = t
+    return out
+
+
+def timing_recursion_cuda(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
+                          round_ids: torch.Tensor, num_nodes: int,
+                          t0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One persistent launch for every round of every chain, on PyTorch's
+    current stream.  Takes contiguous int32 ``src``/``dst`` ``[E]`` and
+    ``round_ids`` ``[C, R]``, ``w_unique`` ``[U, E]`` (float32 or
+    float64) and an optional ``t0`` ``[C, N]`` of its dtype, on one card;
+    returns ``[C, R+1, N]`` in ``w_unique``'s dtype, bit-identical to
+    :func:`timing_recursion_ref`.  Raises if N is past what the card's
+    shared memory holds, or if the launch fails."""
+    check_timing_inputs(src, dst, w_unique, round_ids, num_nodes, t0)
+    tensors = (src, dst, w_unique, round_ids) + (() if t0 is None else (t0,))
+    if not all(t.is_cuda and t.device == w_unique.device for t in tensors):
+        raise ValueError(f"timing_recursion_cuda needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not (src.dtype == dst.dtype == round_ids.dtype == torch.int32
+            and all(t.is_contiguous() for t in tensors)):
+        raise ValueError("timing_recursion_cuda needs contiguous int32 ids and weights")
+    if t0 is not None and t0.dtype != w_unique.dtype:
+        raise TypeError(f"t0 must have the weights' dtype {w_unique.dtype}, got {t0.dtype}")
+    (U, E), (C, R) = w_unique.shape, round_ids.shape
+    N = int(num_nodes)
+    code = _DTYPE_CODES[w_unique.dtype]
+    lib = _library()
+    with _device_of(w_unique):
+        limit = int(lib.timing_max_nodes(code))
+        if N > limit:
+            raise ValueError(f"timing_recursion: N = {N} nodes do not fit the card's shared "
+                             f"memory; the limit for {w_unique.dtype} is {limit} nodes")
+        out = torch.empty((C, R + 1, N), dtype=w_unique.dtype, device=w_unique.device)
+        stream = torch.cuda.current_stream(w_unique.device).cuda_stream
+        err = lib.timing(src.data_ptr(), dst.data_ptr(), w_unique.data_ptr(),
+                         round_ids.data_ptr(), None if t0 is None else t0.data_ptr(),
+                         out.data_ptr(), C, R, U, E, N, code, stream)
+    _raise_on(err, "timing_recursion", lib)
     return out

@@ -518,3 +518,126 @@ def test_xlstm_forward_through_kernel_matches_cpu(cuda):
         got_pre, _ = T.prefill(card, cfg, tokens.to(cuda), 160, cache_dtype=torch.float32)
         assert LAUNCHES["mlstm_scan"] == before
     torch.testing.assert_close(got_pre.cpu(), ref_pre, atol=1e-4, rtol=1e-4)
+
+
+def _timing_inputs(gen, dev, C, R, U, E, N, dtype, carry, with_t0):
+    """A MATCHA-like arc pool: a self-loop per node first (with ``carry``
+    some rows drop some of them, and one row is all -inf), then random
+    arcs whose dst covers only the lower half of the nodes in half the
+    cases; random round ids and, with ``with_t0``, random start times."""
+    k = min(N, E)
+    src = torch.randint(0, N, (E,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, max(N // 2, 1), (E,), generator=gen, device=dev, dtype=torch.int32)
+    src[:k] = torch.arange(k, dtype=torch.int32, device=dev)
+    dst[:k] = src[:k]
+    w = torch.rand((U, E), generator=gen, device=dev, dtype=torch.float64) * 50 + 1
+    w[:, k:][torch.rand((U, E - k), generator=gen, device=dev) < 0.4] = float("-inf")
+    if carry:
+        w[:, :k][torch.rand((U, k), generator=gen, device=dev) < 0.3] = float("-inf")
+        w[U - 1] = float("-inf")
+    ids = torch.randint(0, U, (C, R), generator=gen, device=dev, dtype=torch.int32)
+    t0 = (torch.rand((C, N), generator=gen, device=dev, dtype=torch.float64) * 10
+          if with_t0 else None)
+    return src, dst, w.to(dtype), ids, None if t0 is None else t0.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C,R,U,E,N,carry,with_t0", [
+    (1, 1, 1, 1, 2, False, False), (3, 17, 5, 40, 11, True, True),
+    (24, 150, 24, 261, 87, False, False), (64, 300, 64, 576, 64, True, False),
+    (8, 40, 9, 2048, 512, True, True), (2, 5, 3, 30000, 300, True, True)])
+def test_timing_kernel_matches_plain_bit_for_bit(cuda, C, R, U, E, N, carry, with_t0, dtype):
+    from repro_torch.kernels import timing_recursion
+    from repro_torch.kernels.segment_max import timing_recursion_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(C * R + E)
+    args = _timing_inputs(gen, cuda, C, R, U, E, N, dtype, carry, with_t0)
+    before = LAUNCHES["timing"]
+    got = timing_recursion(*args[:4], N, args[4])
+    torch.cuda.synchronize()
+    assert LAUNCHES["timing"] == before + 1
+    assert got.dtype == dtype and got.shape == (C, R + 1, N)
+    assert torch.equal(got, timing_recursion_ref(*args[:4], N, args[4]))
+
+
+@pytest.mark.gpu
+def test_timing_launches_count_one_per_call_and_none_when_empty(cuda):
+    from repro_torch.kernels import timing_recursion
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    src, dst, w, ids, _ = _timing_inputs(gen, cuda, 4, 10, 3, 20, 6, torch.float64, True, False)
+    before = LAUNCHES["timing"]
+    timing_recursion(src, dst, w, ids, 6)
+    timing_recursion(src, dst, w, ids, 6)
+    assert LAUNCHES["timing"] == before + 2
+    empty = timing_recursion(src, dst, w, ids[:0], 6)
+    assert empty.shape == (0, 11, 6) and LAUNCHES["timing"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_timing_kernel_refuses_more_nodes_than_shared_memory_holds(cuda, dtype):
+    from repro_torch.kernels import timing_recursion
+
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    w = torch.ones((1, 1), dtype=dtype, device=cuda)
+    ids = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    before = LAUNCHES["timing"]
+    with pytest.raises(ValueError, match="limit"):
+        timing_recursion(one, one, w, ids, 1 << 20)
+    assert LAUNCHES["timing"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["src", "dst", "round_id"])
+def test_timing_kernel_out_of_range_ids_give_a_cuda_error(cuda, bad):
+    """The kernel stops at an id outside its range; the fault kills the
+    CUDA context, so it is provoked in a subprocess."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.segment_max import timing_recursion_cuda\n"
+        "d = torch.device('cuda')\n"
+        "src = torch.tensor([0, 1, 1], dtype=torch.int32, device=d)\n"
+        "dst = torch.tensor([0, 1, 0], dtype=torch.int32, device=d)\n"
+        "ids = torch.zeros((2, 4), dtype=torch.int32, device=d)\n"
+        f"bad = {bad!r}\n"
+        "if bad == 'src': src[2] = 7\n"
+        "if bad == 'dst': dst[2] = -1\n"
+        "if bad == 'round_id': ids[1, 3] = 2\n"
+        "w = torch.ones((2, 3), dtype=torch.float64, device=d)\n"
+        "timing_recursion_cuda(src, dst, w, ids, 2)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    src_dir = Path(__file__).resolve().parent.parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src_dir))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr
+
+
+@pytest.mark.gpu
+def test_matcha_design_on_card_equals_cpu(cuda):
+    """Gaia's MATCHA budget sweep at the reference's defaults: one timing
+    launch, every chain's tau and the chosen budget as on the CPU."""
+    import repro_torch.core as P
+
+    M, Tc = P.WORKLOADS["inaturalist"]
+    gc = P.make_underlay("gaia").connectivity_graph(comp_time_ms=Tc)
+    tp = P.TrainingParams(model_size_mbits=M, local_steps=1)
+    matchings = P.matcha_schedule_from_connectivity(gc).matchings
+    cands = [P.MatchaSchedule(matchings=matchings, budget=b) for b in P.DEFAULT_MATCHA_BUDGETS]
+    before = LAUNCHES["timing"]
+    card = P.average_cycle_times_batched(cands, gc, tp, rounds=150, seeds=(0, 1, 2), device=cuda)
+    assert LAUNCHES["timing"] == before + 1
+    cpu = P.average_cycle_times_batched(cands, gc, tp, rounds=150, seeds=(0, 1, 2), device="cpu")
+    np.testing.assert_array_equal(card, cpu)
+    s_card = P.design_schedule("matcha", gc, tp, device=cuda)
+    s_cpu = P.design_schedule("matcha", gc, tp, device="cpu")
+    assert s_card == s_cpu

@@ -14,7 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import TrainingParams, design_overlay, make_underlay  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    TrainingParams,
+    design_overlay,
+    design_schedule,
+    make_underlay,
+)
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.fed import init_state  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -79,8 +84,10 @@ def _cfg():
     lambda: design_overlay("sparse_rewire", make_underlay("gaia").connectivity_graph(25.4),
                            TrainingParams(42.88)),
     lambda: serve(_cfg(), batch=1, gen=2),
+    lambda: design_schedule("matcha", make_underlay("gaia").connectivity_graph(25.4),
+                            TrainingParams(42.88)),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
-        "design_overlay", "serve"])
+        "design_overlay", "serve", "design_schedule"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
