@@ -133,7 +133,26 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    three times the rounding floor of such forwards, whichever is larger, the
    sLSTM loop's share and a profile of prefill and decode; then the
    reduced xlstm on the card against the CPU from the same weights (the
-   served logits and a forward through the kernel, <= 1e-4).
+   served logits and a forward through the kernel, <= 1e-4);
+18. drives the ``--dynamic`` path through ``train(..., dynamic=True)``:
+   h2o-danube-1.8b at full width (1 of 24 layers, random weights from
+   seed 0), Gaia's 11 silos under the churn scenario (silo 5 leaves and
+   rejoins), ``gossip_impl="pallas"``, 25 rounds: an 11 -> 10 and a 10 ->
+   11 migration, each equal on the card to the same migration on the CPU
+   from the same state, with survivors bit-identical and joiners at the
+   float64 consensus (checked on the card); the leaver's checkpoint
+   re-read and equal to its pre-migration row; one ``gossip_mix`` launch
+   a round; around each ``observe_round``, the K1 launches the code
+   predicts (``rewire_steps + 1`` ``karp`` and ``reach`` a re-design, one
+   ``timing`` a calibration); finite losses; each round's wall time, K, n
+   and peak memory, each migration's and re-design's wall time;
+19. runs the online controller on the card without a model: Gaia
+   link failure with the ring as incumbent and the default configuration
+   (at least one re-design, the slot moved twice, a closed critical
+   circuit, more rounds by the deadline than the non-adaptive overlay,
+   the climb's ``karp`` / ``reach`` launches as predicted) and a MATCHA
+   re-fit on a degraded silo (``timing`` launches only); then both with
+   the climb off, each re-design equal to the CPU's field for field.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -144,6 +163,7 @@ outside the repository, it exits non-zero as well.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -2006,6 +2026,262 @@ def xlstm_serve_phase(torch, dev) -> dict:
     return out
 
 
+CHURN_STEPS = 25  # phase 18's rounds: Gaia churn, 11 -> 10 -> 11 silos
+
+
+def redesign_launches(rd, rewire_steps: int, n_silos: int) -> dict:
+    """The K1 launches one re-design makes on the card, as the code
+    predicts them: a fixed-pool re-design runs the rewire climb (one
+    ``karp`` and one ``reach`` launch per scored climb step, ``rewire_steps
+    + 1`` each, when it has 2 to 383 silos and the climb is on) and one
+    calibration (``timing``); a MATCHA re-fit runs the budget sweep and a
+    calibration (two ``timing`` launches) and no climb."""
+    if rd.schedule.is_randomized:
+        return {"karp": 0, "reach": 0, "timing": 2}
+    climb = rewire_steps + 1 if rewire_steps and 2 <= n_silos < 384 else 0
+    return {"karp": climb, "reach": climb, "timing": 1}
+
+
+def dynamic_train_phase(torch, dev) -> dict:
+    """``train(..., dynamic=True)`` on Gaia churn at h2o-danube-1.8b's full
+    width (1 of 24 layers, 11 -> 10 -> 11 silos, 25 rounds, pallas): each
+    migration on the card equal to the same migration on the CPU, survivors
+    and joiners verified on the card, the leaver's checkpoint re-read, one
+    gossip_mix launch a round, and each observed round's K1 launches as the
+    code predicts them."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.dynamics import ControllerConfig
+    from repro_torch.dynamics import controller as ctl_mod
+    from repro_torch.fed import migrate_silo_state
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.models import ParamLayout, model_specs, state_to_tree
+
+    cfg = get_config("h2o-danube-1.8b", n_layers=1)
+    layout = ParamLayout(model_specs(cfg))
+    print(f"dynamic train: {cfg.arch_id} d_model {cfg.d_model} vocab {cfg.vocab_size} layers "
+          f"{cfg.n_layers} (of 24), P {layout.size}, Gaia churn, pallas, {CHURN_STEPS} rounds")
+    migrations, observed = [], []
+
+    def on_migration(info):
+        # the same migration on the CPU from the same pre-migration state,
+        # one buffer at a time; the leavers' rows for the checkpoint check
+        old, new = info["old_state"], info["new_state"]
+        t = time.perf_counter()
+        same = {}
+        for key in ("params", "opt_state"):
+            host = migrate_silo_state({"params": old[key].cpu(), "opt_state": None, "step": 0},
+                                      info["old_active"], info["new_active"])[0]["params"]
+            same[key] = torch.equal(new[key].cpu(), host)
+            del host
+        rows = {v: {k: old[k][info["old_active"].index(v)].cpu() for k in ("params", "opt_state")}
+                for v in info["left"]}
+        migrations.append(dict(info, cpu_equal=same, cpu_check_s=time.perf_counter() - t,
+                               rows=rows, step=old["step"], old_state=None, new_state=None))
+
+    observe = ctl_mod.OnlineTopologyController.observe_round
+
+    def observe_counted(self, duration_ms):
+        before = dict(LAUNCHES)
+        rd = observe(self, duration_ms)
+        observed.append(({k: LAUNCHES[k] - before[k] for k in LAUNCHES}, rd, len(self.gc.silos)))
+        return rd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        final_path = os.path.join(tmp, "final.msgpack")
+        ctl_mod.OnlineTopologyController.observe_round = observe_counted
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = train(cfg, dynamic=True, underlay="gaia", scenario="churn", gossip_impl="pallas",
+                        designer="auto", local_steps=2, batch_per_silo=4, seq_len=64,
+                        steps=CHURN_STEPS, verify_migration=True,
+                        churn_checkpoint=os.path.join(tmp, "leavers"), checkpoint=final_path,
+                        device=dev, on_migration=on_migration,
+                        log=lambda line: print(line, flush=True))
+        finally:
+            ctl_mod.OnlineTopologyController.observe_round = observe
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        final_gb = os.path.getsize(final_path) / 1e9
+        checkpointed = 0
+        for m in migrations:
+            for v, path in zip(m["left"], m["checkpoints"]):
+                got = load_checkpoint(path, state_to_tree(dict(m["rows"][v], step=m["step"]),
+                                                          layout))
+                for key in ("params", "opt_state"):
+                    row = layout.flatten_into(got[key], torch.empty(layout.size))
+                    check(torch.equal(row, m["rows"][v][key]),
+                          f"leaver {v}'s checkpoint {key} is not its pre-migration row")
+                check(int(got["step"]) == m["step"], f"leaver {v}'s checkpoint step")
+                checkpointed += 1
+                print(f"dynamic train: leaver silo {v} checkpoint ({os.path.getsize(path) / 1e9:.3f}"
+                      f" GB) re-read by load_checkpoint == its pre-migration row (params and "
+                      f"momentum, step {m['step']})")
+    for i, (rec, sec, loss) in enumerate(zip(res.rounds, res.step_seconds, res.losses)):
+        print(f"dynamic train: round {i} wall {sec:.4f} s K {rec['K']} n {rec['n']} peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB loss {loss:.6f}")
+    check(all(math.isfinite(x) for x in res.losses), f"non-finite loss {res.losses}")
+    moves = [(len(m["old_active"]), len(m["new_active"])) for m in migrations]
+    check((11, 10) in moves and (10, 11) in moves, f"membership moves {moves}")
+    for m in migrations:
+        print(f"dynamic train: migration {len(m['old_active'])} -> {len(m['new_active'])} (left "
+              f"{list(m['left'])}, joined {list(m['joined'])}) wall {m['wall_s']:.4f} s on the "
+              f"card; survivors bit-identical {m['survivors_ok']}, joiners at the float64 "
+              f"consensus {m['joiners_ok']}; card == CPU migration {m['cpu_equal']} (checked in "
+              f"{m['cpu_check_s']:.1f} s)")
+        check(m["survivors_ok"] and m["joiners_ok"], f"migration invariants {m['left'], m['joined']}")
+        check(all(m["cpu_equal"].values()), f"the card's migration is not the CPU's: {m['cpu_equal']}")
+    check(checkpointed >= 1, "no leaver checkpoint was written")
+    check(launches["gossip_mix"] == CHURN_STEPS,
+          f"gossip_mix launched {launches['gossip_mix']} times in {CHURN_STEPS} rounds")
+    rewire_steps = ControllerConfig().rewire_steps
+    for i, (d, rd, n) in enumerate(observed):
+        check(d["gossip_mix"] == 0 and d["segment_max"] == 0, f"round {i}: observe launched {d}")
+        want = ({"karp": 0, "reach": 0, "timing": 0} if rd is None
+                else redesign_launches(rd, rewire_steps, n))
+        got = {k: d[k] for k in want}
+        if rd is not None:
+            print(f"dynamic train: re-design at round {i} ({'membership -> ' + str(len(rd.membership)) + ' silos' if rd.membership else 'strike'}"
+                  f") -> {rd.schedule.name}: elapsed {rd.elapsed_s:.4f} s, {rd.n_candidates} "
+                  f"candidates, predicted tau {rd.predicted_tau_ms:.3f} ms, launches {got}")
+        check(got == want, f"round {i}: observe_round launched {got}, the code predicts {want}")
+    redesigns = res.controller.redesigns
+    check(launches["timing"] == 1 + len(redesigns),
+          f"timing launches {launches['timing']}, calibrations {1 + len(redesigns)}")
+    peak = max(r["peak_bytes"] for r in res.rounds)
+    print(f"dynamic train: {len(redesigns)} re-designs, {res.membership_slot.version} membership "
+          f"swaps, launches {launches}; peak device memory {peak / 2**30:.2f} GiB; final "
+          f"checkpoint {final_gb:.2f} GB; train() wall {wall:.1f} s")
+    out = {"launches": launches, "round_s": res.step_seconds, "peak_bytes": peak,
+           "K": res.rounds[-1]["K"], "n_elems": len(res.active) * layout.size,
+           "migration_s": [m["wall_s"] for m in migrations],
+           "redesign_s": [rd.elapsed_s for rd in redesigns], "wall_s": wall}
+    del res, migrations
+    return out
+
+
+def _controller_loop(dev, case: str, config, counted: bool = False):
+    """The reference tests' Gaia loops without a model: ``linkfail`` with
+    the ring as incumbent and a PlanSlot, or ``matcha``: a degraded silo
+    under ``schedule_family="matcha"`` with a ScheduleSlot.  Returns the
+    controller, the slot, the per-round K1 launches and the rounds
+    completed by the deadline."""
+    import repro_torch.core as C
+    import repro_torch.dynamics as D
+    from repro_torch.fed import PlanSlot, ScheduleSlot, plan_from_overlay
+    from repro_torch.kernels import LAUNCHES
+
+    M, Tc = C.WORKLOADS["inaturalist"]
+    u = C.make_underlay("gaia")
+    gc = u.connectivity_graph(comp_time_ms=Tc)
+    tp = C.TrainingParams(model_size_mbits=M, local_steps=1)
+    ring = C.ring_overlay(gc, tp)
+    tau = ring.cycle_time_ms
+    if case == "linkfail":
+        deadline = 400 * tau
+        sc = D.link_failure_scenario(u, Tc, t_fail_ms=deadline / 3, overlay_edges=ring.edges,
+                                     horizon_ms=deadline)
+        slot = PlanSlot(plan_from_overlay(ring, gc.num_silos))
+        kw = {"plan_slot": slot}
+        rounds = None
+    else:
+        sc = D.silo_degrade_scenario(u, Tc, silo=3, t_ms=30 * tau, factor=0.02,
+                                     horizon_ms=300 * tau)
+        slot = ScheduleSlot(C.FixedSchedule(ring), gc.num_silos, silos=gc.silos)
+        kw = {"schedule_slot": slot}
+        rounds, deadline = 100, None
+    tl = D.DynamicTimeline(sc, tp)
+    tl.set_overlay(ring.edges)
+
+    def provider():
+        ep = tl.current_epoch()
+        return D.active_subgraph(ep.gc, ep.active)
+
+    ctl = D.OnlineTopologyController(gc, tp, ring, config=config, connectivity_provider=provider,
+                                     device=dev, **kw)
+    per_round, k = [], 0
+    while (tl.now_ms < deadline) if rounds is None else (k < rounds):
+        before = dict(LAUNCHES)
+        rd = ctl.observe_round(tl.step())
+        per_round.append(({n: LAUNCHES[n] - before[n] for n in LAUNCHES}, rd))
+        if rd is not None:
+            tl.set_schedule(rd.schedule)
+        k += 1
+    done = (sum(1 for f in tl.round_finish_ms[1:] if f <= deadline) if deadline else None)
+    baseline = (D.simulate_dynamic(sc, tp, ring.edges, num_rounds=500).rounds_completed_by(deadline)
+                if deadline else None)
+    return ctl, slot, per_round, done, baseline
+
+
+def redesign_record(rd) -> tuple:
+    """The fields of a re-design two runs must share (not its wall time)."""
+    sched = rd.schedule
+    return (rd.round_idx, None if rd.overlay is None else rd.overlay.edges,
+            None if not sched.is_randomized else (sched.matchings, sched.budget, sched.sample_seed),
+            rd.predicted_tau_ms, rd.n_candidates, rd.bottleneck, rd.membership, rd.measured_ms,
+            rd.expected_window_ms)
+
+
+def controller_phase(torch, dev) -> dict:
+    """The online controller on the card without a model: Gaia link failure
+    (rewire climb on: karp/reach launches as predicted) and a MATCHA re-fit
+    on a degraded silo (timing launches only), then both with the climb off,
+    each re-design equal to the CPU's field for field."""
+    from repro_torch.dynamics import ControllerConfig
+
+    t0 = time.perf_counter()
+    cfg = ControllerConfig(seed=0)
+    ctl, slot, per_round, done, baseline = _controller_loop(dev, "linkfail", cfg)
+    check(len(ctl.redesigns) >= 1 and slot.version >= 2,
+          f"linkfail: {len(ctl.redesigns)} re-designs, slot version {slot.version}")
+    rd = ctl.redesigns[0]
+    check(len(rd.bottleneck) >= 2 and rd.bottleneck[0] == rd.bottleneck[-1],
+          f"linkfail: the critical circuit {rd.bottleneck} does not close")
+    check(done > baseline, f"linkfail: {done} rounds by the deadline, non-adaptive {baseline}")
+    karp = reach = 0
+    for i, (d, r) in enumerate(per_round):
+        want = ({"karp": 0, "reach": 0, "timing": 0} if r is None
+                else redesign_launches(r, cfg.rewire_steps, len(ctl.gc.silos)))
+        got = {k: d[k] for k in want}
+        check(got == want, f"linkfail round {i}: launched {got}, the code predicts {want}")
+        karp, reach = karp + d["karp"], reach + d["reach"]
+    print(f"controller linkfail (card, rewire on): {len(ctl.redesigns)} re-designs, first at round "
+          f"{rd.round_idx} -> {rd.overlay.name} tau {rd.predicted_tau_ms:.3f} ms ({rd.n_candidates}"
+          f" candidates in {rd.elapsed_s:.4f} s), bottleneck {rd.bottleneck}; slot version "
+          f"{slot.version}; {done} rounds by the deadline against {baseline} non-adaptive; karp "
+          f"launches {karp}, reach {reach}")
+    mcfg = ControllerConfig(seed=0, schedule_family="matcha", matcha_budgets=(0.1, 0.2, 0.3, 0.5),
+                            matcha_rounds=80, matcha_seeds=(0, 1))
+    ctl, slot, per_round, _, _ = _controller_loop(dev, "matcha", mcfg)
+    check(len(ctl.redesigns) >= 1 and ctl.redesigns[0].schedule.is_randomized
+          and slot.schedule.is_randomized, "matcha: no re-fit to a randomized schedule")
+    timing = 0
+    for i, (d, r) in enumerate(per_round):
+        want = ({"karp": 0, "reach": 0, "timing": 0} if r is None
+                else redesign_launches(r, mcfg.rewire_steps, 11))
+        got = {k: d[k] for k in want}
+        check(got == want, f"matcha round {i}: launched {got}, the code predicts {want}")
+        timing += d["timing"]
+    rd = ctl.redesigns[0]
+    print(f"controller matcha (card): re-fit at round {rd.round_idx} -> {rd.schedule.name}@"
+          f"{rd.schedule.budget:g} tau {rd.predicted_tau_ms:.3f} ms in {rd.elapsed_s:.4f} s; "
+          f"timing launches {timing}, karp and reach 0")
+    for case, c in (("linkfail", dataclasses.replace(cfg, rewire_restarts=0)),
+                    ("matcha", dataclasses.replace(mcfg, rewire_restarts=0))):
+        card = [redesign_record(r) for r in _controller_loop(dev, case, c)[0].redesigns]
+        cpu = [redesign_record(r) for r in _controller_loop("cpu", case, c)[0].redesigns]
+        print(f"controller parity {case} (rewire_restarts=0): {len(card)} re-designs, card == CPU "
+              f"{card == cpu}")
+        check(card == cpu and card, f"controller {case}: the card's re-designs are not the CPU's")
+    return {"wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -2067,6 +2343,17 @@ def main() -> int:
     xfwd = xlstm_forward_phase(torch, dev)
     xserve = xlstm_serve_phase(torch, dev)
     xlstm_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dynamic phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          "from the earlier phases")
+    t0 = time.perf_counter()
+    dyn = dynamic_train_phase(torch, dev)
+    torch.cuda.empty_cache()
+    dyn_shape = slice_shape_phase(torch, dev, dyn["K"], dyn["n_elems"])
+    torch.cuda.empty_cache()
+    ctl = controller_phase(torch, dev)
+    dynamic_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -2100,13 +2387,22 @@ def main() -> int:
           f"{xfwd['kernel_s']:.4f} (plain {xfwd['plain_s']:.4f}); serve prefill s / decode "
           f"tok/s / peak GiB {xserve['prefill_s']:.4f} / {xserve['decode_tok_s']:.2f} / "
           f"{xserve['peak_bytes'] / 2**30:.2f}; xlstm phases took {xlstm_s:.1f} s")
+    print(f"summary: dynamic churn round wall s {[round(x, 4) for x in dyn['round_s']]}; "
+          f"migration wall s {[round(x, 4) for x in dyn['migration_s']]}; re-design wall s "
+          f"{[round(x, 4) for x in dyn['redesign_s']]}; peak GiB {dyn['peak_bytes'] / 2**30:.2f}; "
+          f"gossip_mix at the dynamic shape (K={dyn['K']}, N={dyn['n_elems']}) ms "
+          f"{dyn_shape['ms']:.4f} (torch.lerp {dyn_shape['library_ms']:.4f}, bound "
+          f"{dyn_shape['bound_ms']:.4f}); controller phase {ctl['wall_s']:.1f} s; dynamic phases "
+          f"took {dynamic_s:.1f} s")
     climb = karp["ebone_climb"]
+    dl = dyn["launches"]
     record = {"kernels": [{
         "name": "gossip_mix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
-        "launches": tr["launches"],
+        "launches": tr["launches"] + dl["gossip_mix"],
+        "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2118,7 +2414,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": design["launches"],
+        "launches": design["launches"] + dl["karp"],
+        "launches_by_path": {"design": design["launches"], "dynamic_train": dl["karp"]},
         "max_abs_err": climb["max_abs_err"],
         "ms": climb["ms"],
         "plain_ms": climb["plain_ms"],
@@ -2130,7 +2427,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": matcha["launches"],
+        "launches": matcha["launches"] + dl["timing"],
+        "launches_by_path": {"matcha_design": matcha["launches"], "dynamic_train": dl["timing"]},
         "max_abs_err": timing["ebone_design"]["max_abs_err"],
         "ms": timing["ebone_design"]["ms"],
         "plain_ms": timing["ebone_design"]["plain_ms"],

@@ -9,7 +9,12 @@ batches ``[B, N, N]`` are scored at once:
   broadcast ``np.max`` sweep per DP level;
 * :func:`reachability_closure` / :func:`batched_is_strongly_connected`
   -- boolean matrix-power transitive closure;
-* :func:`scc_labels` -- strongly-connected components.
+* :func:`scc_labels` -- strongly-connected components;
+* the Eq. 4 timing recursion on dense state, static
+  (:func:`batched_timing_recursion`) and piecewise-constant over network
+  epochs (:func:`batched_timing_recursion_piecewise`, the engine of
+  :mod:`repro_torch.dynamics.simulate`), and the critical circuit
+  (:func:`critical_circuit_dense`).
 
 Karp on a batch runs the *multi-source* variant: ``D_0(v) = 0`` for every
 vertex and ``D_k(v)`` is the max weight of a walk of exactly k arcs ending
@@ -29,6 +34,7 @@ import numpy as np
 
 # The "absent arc" sentinel of every engine in the port.
 MISSING = float("-inf")
+NEG_INF = MISSING  # the reference's name for it
 
 # Above this vertex count the boolean matrix-power closure (O(N^3 log N)
 # bits) loses to iterative Tarjan (O(N + E)).
@@ -153,6 +159,15 @@ def cycle_time_dense(W: np.ndarray) -> float:
     return float(batched_cycle_time(np.asarray(W, dtype=np.float64)))
 
 
+def batched_throughput(weights: np.ndarray) -> np.ndarray:
+    """1 / tau per graph (inf where tau <= 0 or the graph is acyclic)."""
+    tau = np.atleast_1d(batched_cycle_time(weights))
+    out = np.full_like(tau, np.inf)
+    pos = tau > 0
+    out[pos] = 1.0 / tau[pos]
+    return out
+
+
 def reachability_closure(adj: np.ndarray) -> np.ndarray:
     """Reflexive-transitive closure of boolean adjacency ``[..., N, N]``.
 
@@ -251,3 +266,196 @@ def _tarjan_labels(A: np.ndarray) -> np.ndarray:
                 parent = work[-1][0]
                 lowlink[parent] = min(lowlink[parent], lowlink[v])
     return labels
+
+
+# ---------------------------------------------------------------------------
+# Timing recursion (Eq. 4) on dense state
+
+
+def timing_recursion_dense(
+    W: np.ndarray, num_rounds: int, t0: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Evolve ``t(k+1) = W^T (x) t(k)`` (max-plus) for ``num_rounds`` rounds.
+
+    ``W`` is ``[N, N]``; a missing self-loop acts as weight 0 (a silo with
+    no modeled computation delay still observes its own previous start).
+    Returns ``[num_rounds + 1, N]``.
+    """
+    out = batched_timing_recursion(
+        np.asarray(W, dtype=np.float64)[None],
+        num_rounds,
+        None if t0 is None else np.asarray(t0, dtype=np.float64)[None],
+    )
+    return out[0]
+
+
+def batched_timing_recursion(
+    W: np.ndarray, num_rounds: int, t0: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Batched Eq. 4 recursion: ``[B, N, N]`` weights -> ``[B, R+1, N]``."""
+    W = np.asarray(W, dtype=np.float64)
+    B, N, _ = W.shape
+    Weff = W.copy()
+    idx = np.arange(N)
+    diag = Weff[:, idx, idx]
+    Weff[:, idx, idx] = np.where(missing_mask(diag), 0.0, diag)
+    t = (np.zeros((B, N), dtype=np.float64) if t0 is None
+         else np.asarray(t0, dtype=np.float64).copy())
+    out = np.empty((B, num_rounds + 1, N), dtype=np.float64)
+    out[:, 0] = t
+    for k in range(num_rounds):
+        # t_j(k+1) = max_i t_i(k) + W[i, j]
+        t = np.max(t[:, :, None] + Weff, axis=1)
+        out[:, k + 1] = t
+    return out
+
+
+def empirical_cycle_time_dense(W: np.ndarray, num_rounds: int = 200) -> float:
+    """Estimate tau from the slope of the dense recursion tail."""
+    t = timing_recursion_dense(W, num_rounds)
+    warmup = num_rounds // 2
+    return float(np.max((t[num_rounds] - t[warmup]) / (num_rounds - warmup)))
+
+
+# ---------------------------------------------------------------------------
+# Time-varying (piecewise-constant) timing recursion
+
+
+def _epoch_of(starts: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Epoch index per entry of ``t``: the last epoch whose start <= t.
+
+    ``starts`` is ``[E]`` (or ``[B, E]`` matching a leading batch dim of
+    ``t``) of nondecreasing epoch start times with ``starts[..., 0]``
+    covering t=0.
+    """
+    if starts.ndim == 1:
+        e = np.searchsorted(starts, t, side="right") - 1
+    else:
+        # batched: one boolean reduction instead of a per-row searchsorted
+        e = np.sum(starts[:, None, :] <= t[:, :, None], axis=-1) - 1
+    return np.clip(e, 0, starts.shape[-1] - 1)
+
+
+def timing_recursion_piecewise(
+    Ws: np.ndarray,
+    epoch_starts_ms: np.ndarray,
+    num_rounds: int,
+    t0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Eq. 4 recursion under a piecewise-constant time-varying network.
+
+    ``Ws`` is ``[E, N, N]``: one Eq. 3 delay matrix per network epoch,
+    ``epoch_starts_ms`` the ``[E]`` nondecreasing epoch start instants
+    (``epoch_starts_ms[0] <= 0``).  At round k, silo i transmits with the
+    delays of the epoch containing its *start* time ``t_i(k)`` -- rows of
+    the effective delay matrix are gathered per silo, so silos straddling
+    an event boundary see different network states within one round.
+    With a single epoch this reduces to :func:`timing_recursion_dense`
+    bit for bit.
+
+    Returns ``[num_rounds + 1, N]`` start times.
+    """
+    out = batched_timing_recursion_piecewise(
+        np.asarray(Ws, dtype=np.float64)[None],
+        np.asarray(epoch_starts_ms, dtype=np.float64)[None],
+        num_rounds,
+        None if t0 is None else np.asarray(t0, dtype=np.float64)[None],
+    )
+    return out[0]
+
+
+def batched_timing_recursion_piecewise(
+    Ws: np.ndarray,
+    epoch_starts_ms: np.ndarray,
+    num_rounds: int,
+    t0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Batched scenario form: ``[B, E, N, N]`` epochs -> ``[B, R+1, N]``.
+
+    Each scenario b carries its own epoch matrices ``Ws[b]`` and epoch
+    grid ``epoch_starts_ms[b]`` (``[B, E]``); scenarios advance in
+    lockstep over rounds.
+    """
+    Ws = np.asarray(Ws, dtype=np.float64)
+    if Ws.ndim != 4 or Ws.shape[-1] != Ws.shape[-2]:
+        raise ValueError(f"expected [B, E, N, N] epoch weights, got {Ws.shape}")
+    B, E, N, _ = Ws.shape
+    starts = np.asarray(epoch_starts_ms, dtype=np.float64)
+    if starts.shape != (B, E):
+        raise ValueError(f"epoch_starts_ms shape {starts.shape} != {(B, E)}")
+    Weff = Ws.copy()
+    idx = np.arange(N)
+    diag = Weff[:, :, idx, idx]
+    Weff[:, :, idx, idx] = np.where(missing_mask(diag), 0.0, diag)
+    t = (np.zeros((B, N), dtype=np.float64) if t0 is None
+         else np.asarray(t0, dtype=np.float64).copy())
+    out = np.empty((B, num_rounds + 1, N), dtype=np.float64)
+    out[:, 0] = t
+    b_idx = np.arange(B)[:, None]
+    for k in range(num_rounds):
+        e = _epoch_of(starts, t)  # [B, N] epoch per *sender*
+        Wk = Weff[b_idx, e, idx[None, :], :]  # gather rows -> [B, N, N]
+        t = np.max(t[:, :, None] + Wk, axis=1)
+        out[:, k + 1] = t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Critical circuit (vectorized tight-subgraph extraction)
+
+
+def critical_circuit_dense(
+    W: np.ndarray, *, tau: Optional[float] = None
+) -> Tuple[float, List[int]]:
+    """(tau, circuit) attaining the max cycle mean of a dense ``[N, N]``
+    weight matrix; the circuit is a closed vertex-index walk
+    ``[v0, ..., v0]`` (empty for acyclic graphs).
+
+    Longest-path potentials under the reduced weights ``W - tau`` converge
+    in <= N max-plus matvec sweeps, the *tight* arcs ``pot[u] + w'(u,v) ==
+    pot[v]`` form one boolean matrix, and a vertex on a critical circuit
+    is any diagonal hit of ``tight @ closure(tight)``.  Only the final
+    circuit walk -- output-sized -- runs in Python.
+    """
+    W = np.asarray(W, dtype=np.float64)
+    N = W.shape[0]
+    if tau is None:
+        tau = float(batched_cycle_time(W))
+    if missing_mask(tau) or N == 0:
+        return NEG_INF, []
+    finite = W > NEG_INF
+    with np.errstate(invalid="ignore"):
+        Wr = np.where(finite, W - tau, NEG_INF)
+    eps = 1e-9 * max(1.0, abs(tau))
+    # Longest-path potentials from the all-zeros super-source.
+    pot = np.zeros(N, dtype=np.float64)
+    for _ in range(N):
+        nxt = np.maximum(pot, np.max(pot[:, None] + Wr, axis=0))
+        if np.all(nxt <= pot + eps):
+            pot = nxt
+            break
+        pot = nxt
+    tight = finite & (pot[:, None] + Wr >= pot[None, :] - 10 * eps)
+    # Vertex on a critical circuit: closed tight walk of length >= 1.
+    closure = reachability_closure(tight)
+    on_cycle = np.diag(tight @ closure)
+    hits = np.nonzero(on_cycle)[0]
+    if hits.size == 0:  # numerically degenerate; caller falls back
+        return tau, []
+    v0 = int(hits[0])
+    # Deterministic walk over tight arcs restricted to vertices that can
+    # reach v0 tightly: the walk must revisit some vertex within N steps,
+    # and any closed tight walk has original mean exactly tau.
+    back = closure[:, v0]
+    pos = {v0: 0}
+    walk = [v0]
+    cur = v0
+    while True:
+        succ = np.nonzero(tight[cur] & back)[0]
+        if not succ.size:
+            raise RuntimeError("tight subgraph lost the certified circuit")
+        cur = int(succ[0])
+        if cur in pos:
+            return tau, walk[pos[cur]:] + [cur]
+        pos[cur] = len(walk)
+        walk.append(cur)

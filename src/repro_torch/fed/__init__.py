@@ -6,6 +6,8 @@
 * :class:`~repro_torch.fed.gossip.ScheduleSlot` — the schedule-valued
   slot for randomized plans: one plan per round from a shared round
   counter;
+* :class:`~repro_torch.fed.gossip.MembershipSlot` — the versioned active
+  silo set under churn;
 * :func:`~repro_torch.fed.gossip.gossip_einsum`,
   :func:`~repro_torch.fed.gossip.gossip_permute`,
   :func:`~repro_torch.fed.gossip.gossip_fused`,
@@ -16,13 +18,25 @@
   :func:`~repro_torch.fed.dpasgd.init_state`,
   :func:`~repro_torch.fed.dpasgd.local_sgd_steps`,
   :func:`~repro_torch.fed.dpasgd.masked_consensus` — the Eq. 2 train step;
+* :func:`~repro_torch.fed.dpasgd.migrate_silo_state`,
+  :func:`~repro_torch.fed.dpasgd.slice_silo_row` — re-stacking the state
+  over a new active set, and one silo's row as a checkpoint tree;
 * :func:`~repro_torch.fed.topology_runtime.plan_from_overlay` (a designed
   overlay) and :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
 """
 
-from .dpasgd import DPASGDConfig, init_state, local_sgd_steps, make_train_step, masked_consensus
+from .dpasgd import (
+    DPASGDConfig,
+    init_state,
+    local_sgd_steps,
+    make_train_step,
+    masked_consensus,
+    migrate_silo_state,
+    slice_silo_row,
+)
 from .gossip import (
     GossipPlan,
+    MembershipSlot,
     PlanSlot,
     ScheduleSlot,
     collective_bytes_per_round,
@@ -38,7 +52,10 @@ __all__ = [
     "local_sgd_steps",
     "make_train_step",
     "masked_consensus",
+    "migrate_silo_state",
+    "slice_silo_row",
     "GossipPlan",
+    "MembershipSlot",
     "PlanSlot",
     "ScheduleSlot",
     "collective_bytes_per_round",

@@ -15,19 +15,24 @@ in one flat ``[P]`` buffer through per-leaf gradient views, and the
 update rewrites the silo's rows in place.  The step updates the state's
 buffers in place and returns the state; clone them first to keep the
 old values.
+
+Under elastic membership (``--dynamic`` churn) :func:`migrate_silo_state`
+re-stacks the rows from one active silo set to another on the state's
+device, and :func:`slice_silo_row` takes one silo's row out in the tree
+shape a checkpoint holds.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.params import ParamLayout, init_params_
+from repro_torch.models.params import ParamLayout, init_params_, state_to_tree
 from repro_torch.optim import Optimizer
 from .gossip import GOSSIP_IMPLS, GossipPlan, gossip_einsum, mix
 
@@ -69,6 +74,109 @@ def masked_consensus(A, active_mask) -> torch.Tensor:
     keep = rows > 0
     out = Am / torch.where(keep, rows, torch.ones_like(rows))
     return torch.where(keep, out, torch.eye(A.shape[0], dtype=A.dtype, device=A.device))
+
+
+def _is_silo_stacked(x, n_silos: int) -> bool:
+    """One rule for "does this entry of the state carry the leading silo
+    dimension": a ``[n_silos, P]`` buffer (``[P]`` when one silo).  Shared
+    by the migration and the leaver-row slicer so they cannot drift apart;
+    ``None`` (a stateless optimizer) and the int step counter are shared,
+    not stacked."""
+    if not isinstance(x, torch.Tensor):
+        return False
+    return x.ndim == 2 and x.shape[0] == n_silos or (n_silos == 1 and x.ndim == 1)
+
+
+def slice_silo_row(state: Dict[str, Any], active: Sequence[int], silo: int,
+                   layout: ParamLayout) -> Dict[str, Any]:
+    """One silo's row of a silo-stacked train state, in the tree shape a
+    checkpoint holds (:func:`repro_torch.checkpoint.save_silo_checkpoint`):
+    ``{"params": tree, "opt_state": tree or (), "step": int32}`` of host
+    numpy arrays without the silo dimension, ``layout`` giving the leaves
+    of a row.  ``active`` is the label tuple the state's rows are stacked
+    by."""
+    row = tuple(active).index(silo)
+    n = len(active)
+
+    def pick(x):
+        if not _is_silo_stacked(x, n):
+            return x
+        return x.view(n, -1)[row]
+
+    return state_to_tree({k: pick(v) for k, v in state.items()}, layout)
+
+
+# Columns per float64 scratch chunk of the joiners' consensus row.
+_CONSENSUS_CHUNK = 1 << 24
+
+
+def consensus_row(x: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:
+    """Uniform mean of rows ``rows`` of a ``[n, P]`` buffer, accumulated in
+    float64 in the order of ``rows`` and cast back to the buffer's dtype:
+    the same bits as the reference's ``x[rows].mean(axis=0,
+    dtype=np.float64).astype(x.dtype)`` (numpy reduces the leading axis
+    row by row, starting from the first, then divides by the count).  Runs
+    on ``x``'s device with a float64 scratch of at most
+    ``_CONSENSUS_CHUNK`` columns."""
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    for lo in range(0, x.shape[1], _CONSENSUS_CHUNK):
+        hi = min(lo + _CONSENSUS_CHUNK, x.shape[1])
+        acc = x[rows[0], lo:hi].double()
+        for r in rows[1:]:
+            acc += x[r, lo:hi].double()
+        out[lo:hi] = acc.div_(len(rows))
+    return out
+
+
+def migrate_silo_state(state: Dict[str, Any], old_active: Sequence[int],
+                       new_active: Sequence[int]
+                       ) -> Tuple[Dict[str, Any], Tuple[int, ...], Tuple[int, ...]]:
+    """Re-stack the silo-stacked train state from one active set to another.
+
+    ``old_active`` / ``new_active`` are the sorted silo-label tuples the
+    state's rows are (was / will be) stacked by — row k holds silo
+    ``active[k]``.  On the state's device, for ``params`` and
+    ``opt_state``:
+
+    * **survivors** (labels in both sets) keep their rows *bit-identical*
+      — one ``index_select`` gathers them;
+    * **leavers'** rows are dropped (checkpoint them first if wanted —
+      ``train(..., churn_checkpoint=...)``);
+    * **joiners** are initialized at the survivors' consensus average
+      (:func:`consensus_row`: float64, cast back to the buffer's dtype).
+
+    The step counter passes through.  Returns ``(new_state, joined,
+    left)``; the new buffers are fresh tensors (a one-silo set gives
+    ``[P]`` rows, as :func:`init_state` does), and the caller drops the
+    old ones."""
+    old_active = tuple(old_active)
+    new_active = tuple(new_active)
+    old_index = {v: k for k, v in enumerate(old_active)}
+    survivors = [v for v in new_active if v in old_index]
+    if not survivors:
+        raise ValueError(
+            f"no surviving silos between {old_active} and {new_active}: "
+            "cannot migrate state"
+        )
+    joined = tuple(v for v in new_active if v not in old_index)
+    left = tuple(v for v in old_active if v not in set(new_active))
+    surv_rows = [old_index[v] for v in survivors]
+
+    def move(x):
+        if not _is_silo_stacked(x, len(old_active)):
+            return x  # shared entry: the step counter, a stateless optimizer's None
+        x2 = x.view(len(old_active), -1)
+        # joiners' rows are gathered from the first survivor, then overwritten
+        src = [old_index.get(v, surv_rows[0]) for v in new_active]
+        out = x2.index_select(0, torch.tensor(src, dtype=torch.long, device=x.device))
+        if joined:
+            avg = consensus_row(x2, surv_rows)
+            for k, v in enumerate(new_active):
+                if v not in old_index:
+                    out[k] = avg
+        return out[0] if len(new_active) == 1 else out
+
+    return {k: move(v) for k, v in state.items()}, joined, left
 
 
 def local_sgd_steps(

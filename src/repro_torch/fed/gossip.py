@@ -24,8 +24,13 @@ Randomized schedules (MATCHA) sample a fresh topology every round: a
 plan, and the train step takes its matrix as an input and mixes it with
 the ``einsum`` lowering, as the reference does (no ``gossip_mix`` launch).
 
-The one-process-per-silo lowering across cards (``torch.distributed``
-point-to-point) is a later slice.
+Elastic membership (silo churn under ``--dynamic``): a
+:class:`MembershipSlot` publishes the active silo set, and on a move the
+training loop re-stacks the ``[n, P]`` state over the new set
+(:func:`repro_torch.fed.dpasgd.migrate_silo_state`) and rebuilds its step.
+
+The one-process-per-silo lowering (``torch.distributed`` point-to-point,
+one silo per card) needs a multi-card machine and is a later slice.
 """
 
 from __future__ import annotations
@@ -212,6 +217,78 @@ class ScheduleSlot(PlanSlot):
         """Consensus matrix of round ``round_idx`` — the array fed to a
         ``consensus_arg`` train step (no rebuild between rounds)."""
         return self.plan_for_round(round_idx).matrix
+
+
+class MembershipSlot:
+    """Versioned active-silo set — the elastic-membership sibling of
+    :class:`PlanSlot` / :class:`ScheduleSlot`.
+
+    The silo *universe* (labels ``0..n_universe-1``, the underlay's full
+    silo set) is fixed at launch; the *active* subset changes on
+    ``SiloJoin`` / ``SiloLeave`` churn.  The silo-stacked train state is
+    sized to ``active``, so unlike a plan swap a membership swap cannot be
+    absorbed by rebuilding the step alone: the training loop watches
+    ``version`` and on a move migrates the state (survivors keep their
+    rows bit-identical, joiners enter at the survivors' consensus average
+    — :func:`repro_torch.fed.dpasgd.migrate_silo_state`) and rebuilds the
+    train step over the new silo count.  The online controller calls
+    :meth:`swap` when its membership signal drifts, *before* resizing the
+    plan/schedule slots, so consumers always observe membership first.
+
+    ``swap`` with an unchanged active set is a no-op (version does not
+    move); ``history`` keeps the (version, label) audit trail and
+    ``on_swap`` callbacks fire synchronously with ``(active, version)``.
+    """
+
+    def __init__(self, active: Sequence[int], n_universe: int):
+        self._universe = int(n_universe)
+        self._active = self._validate(active)
+        self.version = 0
+        self.history: List[Tuple[int, str]] = [(0, "init")]
+        self._callbacks: List[Any] = []
+
+    def _validate(self, active: Sequence[int]) -> Tuple[int, ...]:
+        act = tuple(sorted(int(v) for v in active))
+        if not act:
+            raise ValueError("membership cannot be empty: >= 1 active silo")
+        if len(set(act)) != len(act):
+            raise ValueError(f"duplicate silos in membership {act}")
+        if act[0] < 0 or act[-1] >= self._universe:
+            raise ValueError(
+                f"membership {act} outside universe 0..{self._universe - 1}"
+            )
+        return act
+
+    @property
+    def active(self) -> Tuple[int, ...]:
+        """Sorted active silo labels; index k is row k of the state."""
+        return self._active
+
+    @property
+    def n_active(self) -> int:
+        return len(self._active)
+
+    @property
+    def n_universe(self) -> int:
+        return self._universe
+
+    def on_swap(self, callback) -> Any:
+        """Register ``callback(active, version)``; returns it."""
+        self._callbacks.append(callback)
+        return callback
+
+    def swap(self, active: Sequence[int], label: str = "") -> int:
+        """Install a new active set; returns the (possibly unmoved)
+        version.  No-op when the set is unchanged."""
+        act = self._validate(active)
+        if act == self._active:
+            return self.version
+        self._active = act
+        self.version += 1
+        self.history.append((self.version, label))
+        for cb in self._callbacks:
+            cb(act, self.version)
+        return self.version
 
 
 def gossip_einsum(w: torch.Tensor, A) -> torch.Tensor:

@@ -1,13 +1,12 @@
-"""Training launcher: DPASGD over a static topology, on one card.
+"""Training launcher: DPASGD over a designed topology, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --silos 4 --topology ring --gossip-impl pallas --steps 30
 
-Counterpart of ``repro.launch.train`` on its static path, with the same
-flags plus ``--device`` (default ``cuda``; ``--device cpu`` with
-``--reduced`` runs the small variant on the CPU).  ``main`` parses the
-flags and calls :func:`train`, which scripts can call at a depth the CLI
-has no flag for.
+Counterpart of ``repro.launch.train``, with the same flags plus
+``--device`` (default ``cuda``; ``--device cpu`` with ``--reduced`` runs
+the small variant on the CPU).  ``main`` parses the flags and calls
+:func:`train`, which scripts can call at a depth the CLI has no flag for.
 
 ``--designer matcha`` trains on a randomized schedule: homogeneous MATCHA
 over the complete silo graph (``--matcha-budget`` is its activation
@@ -18,6 +17,28 @@ with the ``einsum`` lowering:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --silos 4 --designer matcha --steps 30
+
+``--dynamic`` attaches the online topology controller: the WAN between
+the silos is simulated from a real underlay (``--underlay``; the silo
+count follows it) through a seeded event scenario (``--scenario``), each
+round advances the simulated network clock by one communication round,
+and when the controller detects a throughput regression it re-designs
+the overlay and hot-swaps the gossip plan; the loop rebuilds its train
+step on the new plan.  Membership is elastic: on ``SiloLeave`` /
+``SiloJoin`` churn (``--scenario churn``, or ``--scenario random`` with
+``--p-churn > 0``) the controller swaps a ``MembershipSlot`` and the loop
+re-stacks the ``[n, P]`` state over the new active set on the card —
+survivors keep their rows bit-identical, leavers' rows are dropped
+(``--churn-checkpoint`` saves them first), joiners enter at the
+survivors' float64 consensus average — and rebuilds the step:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+        --dynamic --underlay gaia --scenario churn --gossip-impl pallas --steps 25
+
+The step is eager, so a plan swap costs one :func:`make_train_step` call
+and nothing is re-traced; the reference's recompile accounting
+(``TraceCounter``) has nothing to count here and is not ported, nor are
+its ``--trace-out`` / ``--metrics-interval`` (the observability layer).
 """
 
 from __future__ import annotations
@@ -44,11 +65,13 @@ from repro_torch.optim import Optimizer, momentum
 
 TOPOLOGIES = ("ring", "star", "chain", "none", "mst", "ring_2opt", "delta_mbst")
 DESIGNERS = ("auto", "sparse-rewire", "delta-rewire", "hierarchical", "matcha")
+SCENARIOS = ("linkfail", "silodegrade", "random", "static", "churn")
+MEASURED_DESIGNERS = ("sparse-rewire", "delta-rewire", "hierarchical")
 
 
 @dataclass
 class TrainResult:
-    cfg: ModelConfig                # with n_silos set
+    cfg: ModelConfig                # with n_silos set (the last active count under --dynamic)
     fed: DPASGDConfig
     optimizer: Optimizer
     plan: Optional[GossipPlan]
@@ -58,10 +81,69 @@ class TrainResult:
     step_seconds: List[float] = field(default_factory=list)
     schedule_slot: Optional[ScheduleSlot] = None  # --designer matcha
     consensus: List[np.ndarray] = field(default_factory=list)  # each round's matrix, matcha
+    # --dynamic: the controller, the membership slot, the final active
+    # silos, and per round {"K": the plan's transfers, "n": silos trained,
+    # "peak_bytes": on the card}
+    controller: Any = None
+    membership_slot: Any = None
+    active: tuple = ()
+    rounds: List[Dict[str, Any]] = field(default_factory=list)
 
 
 def batch_to_device(raw: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in raw.items()}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _verify_migration(old_state, new_state, old_active, new_active, joined):
+    """(survivors bit-identical, joiners at the float64 consensus) of a
+    migration, checked on the state's device."""
+    from repro_torch.fed.dpasgd import _is_silo_stacked, consensus_row
+
+    oi = {v: k for k, v in enumerate(old_active)}
+    ni = {v: k for k, v in enumerate(new_active)}
+    survivors = [v for v in new_active if v in oi]
+    srows = [oi[v] for v in survivors]
+    ok_surv = ok_join = True
+    for key, old in old_state.items():
+        if not _is_silo_stacked(old, len(old_active)):
+            continue
+        o = old.view(len(old_active), -1)
+        w = new_state[key].view(len(new_active), -1)
+        ok_surv &= all(torch.equal(o[oi[v]], w[ni[v]]) for v in survivors)
+        if joined:
+            avg = consensus_row(o, srows)
+            ok_join &= all(torch.equal(avg, w[ni[v]]) for v in joined)
+    return ok_surv, ok_join
+
+
+def _scenario(kind: str, underlay, Tc: float, tau0: float, steps: int, overlay_edges,
+              scenario_seed: int, p_churn: float):
+    """The reference launcher's scenarios, timed against the horizon of
+    ``steps`` rounds at the predicted cycle time."""
+    from repro_torch.dynamics import (churn_scenario, link_failure_scenario,
+                                      random_scenario, silo_degrade_scenario,
+                                      static_scenario)
+
+    horizon = tau0 * max(steps, 1)
+    if kind == "linkfail":
+        return link_failure_scenario(underlay, Tc, t_fail_ms=horizon / 3,
+                                     overlay_edges=overlay_edges, horizon_ms=horizon)
+    if kind == "silodegrade":
+        return silo_degrade_scenario(underlay, Tc, silo=underlay.load_centrality_center(),
+                                     t_ms=horizon / 3, horizon_ms=horizon)
+    if kind == "random":
+        return random_scenario(underlay, Tc, seed=scenario_seed, horizon_ms=horizon,
+                               p_churn=p_churn)
+    if kind == "churn":
+        return churn_scenario(underlay, Tc, silo=underlay.num_silos // 2,
+                              t_leave_ms=horizon / 4, t_rejoin_ms=horizon / 2,
+                              horizon_ms=horizon)
+    return static_scenario(underlay, Tc, horizon_ms=horizon)
 
 
 def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
@@ -69,6 +151,10 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
           batch_per_silo: int = 4, seq_len: int = 64, steps: int = 30,
           lr: float = 0.05, seed: int = 0, device: DeviceLike = "cuda",
           designer: str = "auto", matcha_budget: float = 0.5, scenario_seed: int = 0,
+          dynamic: bool = False, underlay: str = "gaia", workload: str = "inaturalist",
+          scenario: str = "linkfail", p_churn: float = 0.15, objective: str = "tau",
+          checkpoint: str = "", churn_checkpoint: str = "", verify_migration: bool = False,
+          on_migration: Optional[Callable[[Dict[str, Any]], None]] = None,
           log: Callable[[str], None] = print) -> TrainResult:
     """Train ``cfg`` with DPASGD for ``steps`` rounds and print the
     reference's ``step k loss ...`` lines.  Each round's time is taken
@@ -76,13 +162,31 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     host (which waits for every kernel the round queued, the mix
     included).
 
-    ``designer="matcha"`` trains on homogeneous MATCHA over the complete
+    ``designer="matcha"`` trains on a randomized schedule whose round
+    matrices come from a :class:`ScheduleSlot` and are mixed with the
+    ``einsum`` lowering, whatever ``gossip_impl`` asks for (apart from
+    ``"none"``): without ``dynamic``, homogeneous MATCHA over the complete
     silo graph (activation probability ``matcha_budget``, sampling seed
-    ``scenario_seed``): each round's consensus matrix comes from a
-    :class:`ScheduleSlot` and is mixed with the ``einsum`` lowering,
-    whatever ``gossip_impl`` asks for (apart from ``"none"``).  The
-    measurement-based designers need network measurements and are
-    ignored here, as in the reference without ``--dynamic``."""
+    ``scenario_seed``).  The measurement-based designers need ``dynamic``
+    and are ignored without it, as in the reference.
+
+    ``dynamic=True`` runs the reference's ``--dynamic`` loop on
+    ``underlay`` (``silos`` is then its silo count) under ``scenario``:
+    each round first steps the simulated WAN, then trains on the active
+    silos' batches, then feeds the round's simulated duration to the
+    online controller (on ``device``), which may hot-swap the plan (the
+    step is rebuilt) or the membership (the state is re-stacked with
+    :func:`~repro_torch.fed.dpasgd.migrate_silo_state` and the step
+    rebuilt over the new silo count).  ``churn_checkpoint`` is a directory
+    for the leavers' rows; ``verify_migration`` checks each migration on
+    the card and prints the result; ``on_migration`` is called with the
+    old and new states, active sets, joiners, leavers and checkpoint paths
+    of each migration before the old buffers are dropped.  Every round's
+    K (transfers of its plan), n and, on the card, peak memory are printed
+    and kept in ``TrainResult.rounds``.
+
+    ``checkpoint`` writes the final parameters (every silo's) there in
+    the reference's format."""
     dev = resolve_device(device)
     if gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(gossip_impl)
@@ -90,6 +194,14 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         raise KeyError(topology)
     if designer not in DESIGNERS:
         raise KeyError(designer)
+    if scenario not in SCENARIOS:
+        raise KeyError(scenario)
+    net = None
+    if dynamic:
+        from repro_torch.core import make_underlay
+
+        net = make_underlay(underlay)
+        silos = net.num_silos
     n = silos
     cfg = dataclasses.replace(cfg, n_silos=n)
     opt = momentum(lr, 0.9)
@@ -102,49 +214,229 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             f"round's matrix requested={gossip_impl} used=einsum")
     fed = DPASGDConfig(local_steps=local_steps,
                        gossip_impl=("einsum" if sched_mode else gossip_impl) if n > 1 else "none")
-    if designer in ("sparse-rewire", "delta-rewire", "hierarchical"):
-        log(f"[train] designer-ignored --designer {designer} needs --dynamic "
-            "(network measurements)")
-    plan = slot = None
-    if designer == "matcha" and n > 1:
-        # Homogeneous MATCHA: matchings of the complete silo graph.
-        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-        schedule = MatchaSchedule(
-            matchings=tuple(tuple(m) for m in greedy_edge_coloring(pairs)),
-            budget=matcha_budget, sample_seed=scenario_seed)
-        slot = ScheduleSlot(schedule, n)
-        log(f"matcha: homogeneous K_{n} base graph, {schedule.num_matchings} matchings, "
-            f"C_b={schedule.budget:g} (per-round sampled plans)")
+    plan = slot = sched_slot = mem_slot = timeline = controller = None
+    if dynamic:
+        from repro_torch.core import (DEFAULT_MATCHA_BUDGETS, OVERLAY_KINDS, WORKLOADS,
+                                      TrainingParams, design_overlay, design_schedule)
+        from repro_torch.dynamics import (ControllerConfig, DynamicTimeline,
+                                          OnlineTopologyController, active_subgraph)
+        from repro_torch.fed import MembershipSlot, PlanSlot, plan_from_overlay
+
+        M, Tc = WORKLOADS[workload]
+        tp = TrainingParams(model_size_mbits=M, local_steps=local_steps)
+        gc0 = net.connectivity_graph(comp_time_ms=Tc)
+        if designer in MEASURED_DESIGNERS:
+            kind = designer.replace("-", "_")
+        else:
+            kind = topology if topology in OVERLAY_KINDS else "ring"
+        overlay = design_overlay(kind, gc0, tp, device=dev)
+        schedule = None
+        if designer == "matcha":
+            schedule = design_schedule("matcha", gc0, tp, sample_seed=scenario_seed,
+                                       objective=objective, device=dev)
+            tau0 = schedule.price(gc0, tp, rounds=150, seeds=(0,), device=dev).tau_ms
+            log(f"dynamic: {underlay} N={n}, matcha schedule (budget sweep -> "
+                f"C_b={schedule.budget:g}, {schedule.num_matchings} matchings), "
+                f"predicted tau={tau0:.1f} ms")
+        else:
+            tau0 = overlay.cycle_time_ms
+            log(f"dynamic: {underlay} N={n}, {kind} overlay, predicted tau={tau0:.1f} ms")
+        timeline = DynamicTimeline(_scenario(scenario, net, Tc, tau0, steps, overlay.edges,
+                                             scenario_seed, p_churn), tp)
+
+        def provider():
+            epoch = timeline.current_epoch()
+            return active_subgraph(epoch.gc, epoch.active)
+
+        mem_slot = MembershipSlot(range(n), n)
+        if schedule is not None:
+            timeline.set_schedule(schedule)
+            sched_slot = ScheduleSlot(schedule, n)
+            cfg_ctl = ControllerConfig(seed=scenario_seed, schedule_family="matcha",
+                                       matcha_budgets=DEFAULT_MATCHA_BUDGETS,
+                                       objective=objective)
+            slot_kw = dict(schedule_slot=sched_slot)
+        else:
+            timeline.set_overlay(overlay.edges)
+            slot = PlanSlot(plan_from_overlay(overlay, n))
+            cfg_ctl = ControllerConfig(seed=scenario_seed, objective=objective)
+            slot_kw = dict(plan_slot=slot)
+            plan = slot.plan
+        controller = OnlineTopologyController(
+            gc0, tp, overlay, schedule=schedule, config=cfg_ctl,
+            connectivity_provider=provider, membership_slot=mem_slot,
+            membership_provider=timeline.current_active, device=dev, **slot_kw)
     else:
-        # Without network measurements the measurement-based kinds fall
-        # back to their homogeneous equivalents, as in the reference.
-        kind = {"delta_mbst": "mst", "ring_2opt": "ring"}.get(topology, topology)
-        if kind != topology:
-            log(f"topology {topology} needs network measurements; using {kind}")
-        plan = plan_for_n_silos(kind, n) if n > 1 else None
+        if designer in MEASURED_DESIGNERS:
+            log(f"[train] designer-ignored --designer {designer} needs --dynamic "
+                "(network measurements)")
+        if designer == "matcha" and n > 1:
+            # Homogeneous MATCHA: matchings of the complete silo graph.
+            pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+            schedule = MatchaSchedule(
+                matchings=tuple(tuple(m) for m in greedy_edge_coloring(pairs)),
+                budget=matcha_budget, sample_seed=scenario_seed)
+            sched_slot = ScheduleSlot(schedule, n)
+            log(f"matcha: homogeneous K_{n} base graph, {schedule.num_matchings} matchings, "
+                f"C_b={schedule.budget:g} (per-round sampled plans)")
+        else:
+            # Without network measurements the measurement-based kinds fall
+            # back to their homogeneous equivalents, as in the reference.
+            kind = {"delta_mbst": "mst", "ring_2opt": "ring"}.get(topology, topology)
+            if kind != topology:
+                log(f"topology {topology} needs network measurements; using {kind}")
+            plan = plan_for_n_silos(kind, n) if n > 1 else None
     step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode)
     state = init_state(cfg, opt, seed=seed, device=dev)
+    # The data stream spans the full silo universe: under elastic
+    # membership each silo label keeps its own (non-iid) distribution
+    # across leaves/rejoins; the batcher stacks only the active labels.
     stream = SyntheticLMStream(cfg.vocab_size, seq_len, n_silos=max(n, 1))
     batcher = FederatedBatcher(stream, local_steps, batch_per_silo)
-    result = TrainResult(cfg=cfg, fed=fed, optimizer=opt, plan=plan,
-                         batcher=batcher, state=state, schedule_slot=slot)
+    # the result takes the state at the end: holding the first round's
+    # dict would keep a buffer alive that a mix replaces
+    result = TrainResult(cfg=cfg, fed=fed, optimizer=opt, plan=plan, batcher=batcher,
+                         state={}, schedule_slot=sched_slot, controller=controller,
+                         membership_slot=mem_slot)
+    built_version = slot.version if slot is not None else 0
+    built_mem_version = mem_slot.version if mem_slot is not None else 0
+    active = tuple(range(n))
     t0 = time.time()
     for i in range(steps):
+        if dynamic and dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)  # each round's own peak
         t_step = time.perf_counter()
-        batch = batch_to_device(batcher.batch(i), dev)
+        if dynamic:
+            # one round == one communication round of simulated WAN,
+            # simulated *first*, so the consensus mask below (and the
+            # controller after the step) see the epoch the round spans
+            duration = timeline.step()
+        batch = batch_to_device(batcher.batch(i, silos=active if dynamic else None), dev)
         if sched_mode:
-            A = slot.matrix_for_round(i)  # this round's sampled topology
+            round_plan = sched_slot.plan_for_round(i)  # this round's sampled topology
+            A = round_plan.matrix
             result.consensus.append(A)
-            state, metrics = step_fn(state, batch, A)
+            if dynamic:
+                # renormalize over the silos still active at the end of
+                # this round: a leaver's stale params must not be mixed in
+                # during the one-round lag before the membership rebuild
+                ep_active = set(timeline.current_active())
+                flags = [1.0 if v in ep_active else 0.0 for v in active]
+                n_act = int(sum(flags))
+                if n_act < len(active):
+                    log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
+                        f"(mid-round churn)")
+                state, metrics = step_fn(state, batch, A, torch.tensor(flags))
+            else:
+                state, metrics = step_fn(state, batch, A)
         else:
+            round_plan = plan
             state, metrics = step_fn(state, batch)
+        del batch
         loss = float(metrics["loss"])
         result.step_seconds.append(time.perf_counter() - t_step)
         result.losses.append(loss)
+        if dynamic:
+            rec = {"K": len(round_plan.terms) if round_plan is not None else 0,
+                   "n": len(active)}
+            redesign = controller.observe_round(duration)
+            if redesign is not None:
+                timeline.set_schedule(redesign.schedule)
+                name = (redesign.overlay.name if redesign.overlay
+                        else redesign.schedule.name)
+                rand = ("randomized schedule" if redesign.schedule.is_randomized
+                        else "overlay")
+                log(f"step {i:4d} [t={timeline.now_ms/1e3:7.1f}s sim] controller re-design "
+                    f"-> {rand} {name} tau {redesign.measured_ms:.1f} -> "
+                    f"{redesign.predicted_tau_ms:.1f} ms ({redesign.n_candidates} candidates "
+                    f"in {redesign.elapsed_s*1e3:.0f} ms), bottleneck {redesign.bottleneck}")
+            if mem_slot.version != built_mem_version:
+                # rebinding ``state`` drops the old buffers before the
+                # step is rebuilt over the new silo count
+                state = _migrate_membership(
+                    state, cfg, dev, active, mem_slot.active, mem_slot.version, i,
+                    churn_checkpoint, verify_migration, on_migration, log)
+                active = mem_slot.active
+                n = len(active)
+                cfg = dataclasses.replace(cfg, n_silos=n)
+                step_fn = make_train_step(cfg, fed, opt,
+                                          slot.plan if slot is not None else None,
+                                          consensus_arg=sched_mode)
+                built_version = slot.version if slot is not None else 0
+                built_mem_version = mem_slot.version
+            if slot is not None and slot.version != built_version:
+                # hot-swap: rebuild the train step on the new plan
+                step_fn = make_train_step(cfg, fed, opt, slot.plan)
+                built_version = slot.version
+            # sched_slot swaps need no rebuild: the consensus matrix is a
+            # step input and matrix_for_round follows the new schedule
+            peak = ""
+            if dev.type == "cuda":
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+                peak = f" peak {rec['peak_bytes'] / 2**30:.2f} GiB"
+            result.rounds.append(rec)
+            log(f"round {i} wall {result.step_seconds[-1]:.4f} s K {rec['K']} n {rec['n']}"
+                + peak)
         if i % max(1, steps // 10) == 0 or i == steps - 1:
             log(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)")
-    result.state = state
+    if dynamic:
+        final = controller.schedule
+        desc = (f"randomized schedule {final.name} (C_b={getattr(final, 'budget', 0):g})"
+                if final.is_randomized else f"overlay {controller.overlay.name}")
+        log(f"dynamic summary: {timeline.rounds_done} rounds in {timeline.now_ms/1e3:.1f}s "
+            f"simulated, {len(controller.redesigns)} re-design(s), {mem_slot.version} "
+            f"membership swap(s) ({len(active)}/{net.num_silos} silos active), final {desc} "
+            f"(tau {controller.predicted_tau_ms:.1f} ms)")
+        result.plan = slot.plan if slot is not None else None
+    if checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
+        from repro_torch.models import ParamLayout, model_specs, state_to_tree
+
+        t_ck = time.perf_counter()
+        tree = state_to_tree(state, ParamLayout(model_specs(cfg)))
+        save_checkpoint(checkpoint, tree["params"], step=steps)
+        del tree
+        log(f"checkpoint -> {checkpoint} ({time.perf_counter() - t_ck:.1f} s)")
+    result.cfg, result.state, result.active = cfg, state, active
     return result
+
+
+def _migrate_membership(state, cfg, dev, active, new_active, version, i,
+                        churn_checkpoint, verify_migration, on_migration, log):
+    """Elastic membership: re-stack the state over ``new_active`` on its
+    device, checkpoint the leavers' rows, verify on request, and print the
+    reference's ``membership`` line.  Returns the new state."""
+    from repro_torch.fed import migrate_silo_state, slice_silo_row
+    from repro_torch.models import ParamLayout, model_specs
+
+    _sync(dev)
+    t_mig = time.perf_counter()
+    new_state, joined, left = migrate_silo_state(state, active, new_active)
+    _sync(dev)
+    wall = time.perf_counter() - t_mig
+    paths = []
+    if churn_checkpoint and left:
+        from repro_torch.checkpoint import save_silo_checkpoint
+
+        layout = ParamLayout(model_specs(cfg))
+        for v in left:
+            # full row: params AND optimizer slot (plus the shared step
+            # counter), so a later rejoin can recover what the silo trained
+            row = slice_silo_row(state, active, v, layout)
+            paths.append(save_silo_checkpoint(churn_checkpoint, v, row, step=i))
+            log(f"step {i:4d} leaver silo {v} checkpoint -> {paths[-1]}")
+    msg = (f"step {i:4d} membership v{version}: {len(active)} -> {len(new_active)} silos "
+           f"(left {list(left)}, joined {list(joined)}); mesh+state rebuilt")
+    record = {"old_active": active, "new_active": new_active, "joined": joined, "left": left,
+              "wall_s": wall, "checkpoints": paths}
+    if verify_migration:
+        ok_surv, ok_join = _verify_migration(state, new_state, active, new_active, joined)
+        record.update(survivors_ok=ok_surv, joiners_ok=ok_join)
+        msg += f", survivors-bit-identical={ok_surv}, joiners-at-consensus={ok_join}"
+    if on_migration is not None:
+        on_migration(dict(record, old_state=state, new_state=new_state))
+    log(msg + f" (migration {wall:.4f} s)")
+    return new_state
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -159,15 +451,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--checkpoint", default="",
+                    help="write the final parameters here (msgpack, the reference's format)")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="simulate a time-varying WAN and run the online topology controller "
+                         "(silo count follows the underlay; membership is elastic: on "
+                         "SiloJoin/SiloLeave the state is re-stacked over the active silos)")
     ap.add_argument("--designer", default="auto", choices=list(DESIGNERS),
-                    help="'matcha' trains on a randomized schedule (homogeneous MATCHA, "
-                         "per-round sampled plans mixed by einsum); the measurement-based "
-                         "designers need --dynamic, which the port does not have yet, and "
-                         "are ignored")
+                    help="'matcha' trains on a randomized schedule (per-round sampled plans "
+                         "mixed by einsum; with --dynamic the budget is swept on the measured "
+                         "underlay and re-fit on drift, without it homogeneous MATCHA); "
+                         "'sparse-rewire' (the rewire search), 'delta-rewire' (its host "
+                         "delta-priced climb) and 'hierarchical' design the initial overlay "
+                         "from the measurements and need --dynamic; default: --topology")
     ap.add_argument("--matcha-budget", type=float, default=0.5,
-                    help="MATCHA activation probability C_b")
+                    help="static-mode MATCHA activation probability C_b")
+    ap.add_argument("--objective", default="tau", choices=["tau", "time_to_eps"],
+                    help="what design/re-design optimizes (needs --dynamic): 'tau' cycle time "
+                         "alone, 'time_to_eps' the composite tau / -log(rho)")
+    ap.add_argument("--underlay", default="gaia")
+    ap.add_argument("--workload", default="inaturalist")
+    ap.add_argument("--scenario", default="linkfail", choices=list(SCENARIOS))
     ap.add_argument("--scenario-seed", type=int, default=0,
-                    help="MATCHA's sampling seed")
+                    help="seed of the scenario, the controller and MATCHA's sampling")
+    ap.add_argument("--p-churn", type=float, default=0.15,
+                    help="--scenario random: probability mass of silo leave/rejoin churn")
+    ap.add_argument("--churn-checkpoint", default="",
+                    help="directory: a departing silo's state row is checkpointed there "
+                         "before its row is dropped")
+    ap.add_argument("--verify-migration", action="store_true",
+                    help="after each membership rebuild, check on the card that survivors "
+                         "are bit-identical and joiners sit at the consensus average")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
@@ -178,6 +492,10 @@ def main(argv: Optional[List[str]] = None) -> int:
           batch_per_silo=args.batch_per_silo, seq_len=args.seq_len,
           steps=args.steps, lr=args.lr, device=args.device, designer=args.designer,
           matcha_budget=args.matcha_budget, scenario_seed=args.scenario_seed,
+          dynamic=args.dynamic, underlay=args.underlay, workload=args.workload,
+          scenario=args.scenario, p_churn=args.p_churn, objective=args.objective,
+          checkpoint=args.checkpoint, churn_checkpoint=args.churn_checkpoint,
+          verify_migration=args.verify_migration,
           log=lambda line: print(line, flush=True))
     return 0
 

@@ -4,6 +4,7 @@ from .params import (
     ParamSpec,
     from_jax_params,
     init_params,
+    state_to_tree,
 )
 from .transformer import forward, loss_fn, model_specs
 
@@ -14,6 +15,7 @@ __all__ = [
     "SSMConfig",
     "from_jax_params",
     "init_params",
+    "state_to_tree",
     "forward",
     "loss_fn",
     "model_specs",

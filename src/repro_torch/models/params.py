@@ -8,7 +8,8 @@ state keeps every silo's parameters as one row of a flat ``[n_silos, P]``
 buffer; :class:`ParamLayout` gives the per-leaf views of a row, so the
 fused gossip mix needs no concatenation and a silo's gradient comes out
 flat.  Leaves are laid out in the reference's ``tree_flatten`` order
-(dict keys sorted, lists in order).
+(dict keys sorted, lists in order).  :func:`from_jax_params` carries the
+reference's trees in and :func:`state_to_tree` carries a state back out.
 """
 
 from __future__ import annotations
@@ -195,3 +196,28 @@ def from_jax_params(tree, *, device: DeviceLike = "cuda"):
 
     return {"params": flat(params), "opt_state": flat(tree["opt_state"]),
             "step": int(np.asarray(tree["step"]))}
+
+
+def state_to_tree(state, layout: ParamLayout):
+    """The reference's train-state tree of a port state: the inverse of
+    :func:`from_jax_params`' state branch.
+
+    ``params`` and ``opt_state`` (flat ``[n_silos, P]`` buffers, ``[P]``
+    for one silo) become trees of host numpy arrays shaped by ``layout``
+    with the leading silo dimension kept (``()`` for a stateless
+    optimizer's None), and ``step`` an int32 scalar, as the reference's
+    ``init_state`` makes it."""
+
+    def tree(buf):
+        if buf is None:
+            return ()
+        x = buf.detach().cpu().numpy()
+        lead = x.shape[:-1]
+        if x.shape[-1] != layout.size:
+            raise ValueError(f"buffer holds {x.shape[-1]} params per silo, "
+                             f"the layout needs {layout.size}")
+        return layout.unflatten([x[..., o:o + math.prod(s)].reshape(lead + s)
+                                 for o, s in zip(layout.offsets, layout.shapes)])
+
+    return {"params": tree(state["params"]), "opt_state": tree(state["opt_state"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

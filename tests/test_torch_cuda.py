@@ -641,3 +641,71 @@ def test_matcha_design_on_card_equals_cpu(cuda):
     s_card = P.design_schedule("matcha", gc, tp, device=cuda)
     s_cpu = P.design_schedule("matcha", gc, tp, device="cpu")
     assert s_card == s_cpu
+
+
+@pytest.mark.gpu
+def test_migration_on_card_equals_cpu(cuda):
+    """11 -> 10 -> 11 silos, float32 rows of a P that is not a multiple of
+    4: survivors gathered and joiners averaged in float64 on the card give
+    the CPU's bits."""
+    from repro_torch.fed import migrate_silo_state
+
+    P = 1_000_003
+    gen = torch.Generator().manual_seed(11)
+    state = {"params": torch.randn((11, P), generator=gen),
+             "opt_state": torch.randn((11, P), generator=gen), "step": 6}
+    full, less = tuple(range(11)), tuple(v for v in range(11) if v != 5)
+    cpu, card = state, {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                        for k, v in state.items()}
+    for old, new in ((full, less), (less, full)):
+        cpu, *moved_cpu = migrate_silo_state(cpu, old, new)
+        card, *moved_card = migrate_silo_state(card, old, new)
+        assert moved_card == moved_cpu
+        assert card["params"].is_cuda and card["params"].shape == (len(new), P)
+        for k in ("params", "opt_state"):
+            assert torch.equal(card[k].cpu(), cpu[k])
+    assert not torch.equal(cpu["params"][5], state["params"][5])  # silo 5 re-entered at the mean
+
+
+def _linkfail_loop(device):
+    """The reference test's Gaia link-failure loop, ring incumbent,
+    rewire climb off: the re-design records (wall time aside)."""
+    import repro_torch.core as C
+    import repro_torch.dynamics as D
+    from repro_torch.fed import PlanSlot, plan_from_overlay
+
+    M, Tc = C.WORKLOADS["inaturalist"]
+    u = C.make_underlay("gaia")
+    gc = u.connectivity_graph(comp_time_ms=Tc)
+    tp = C.TrainingParams(model_size_mbits=M, local_steps=1)
+    ring = C.ring_overlay(gc, tp)
+    deadline = 400 * ring.cycle_time_ms
+    tl = D.DynamicTimeline(D.link_failure_scenario(u, Tc, t_fail_ms=deadline / 3,
+                                                   overlay_edges=ring.edges,
+                                                   horizon_ms=deadline), tp)
+    tl.set_overlay(ring.edges)
+    slot = PlanSlot(plan_from_overlay(ring, gc.num_silos))
+
+    def provider():
+        ep = tl.current_epoch()
+        return D.active_subgraph(ep.gc, ep.active)
+
+    ctl = D.OnlineTopologyController(gc, tp, ring, plan_slot=slot, device=device,
+                                     config=D.ControllerConfig(seed=0, rewire_restarts=0),
+                                     connectivity_provider=provider)
+    while tl.now_ms < deadline:
+        rd = ctl.observe_round(tl.step())
+        if rd is not None:
+            tl.set_schedule(rd.schedule)
+    return [(rd.round_idx, rd.overlay.edges, rd.predicted_tau_ms, rd.measured_ms,
+             rd.n_candidates, rd.bottleneck, rd.expected_window_ms, rd.drift)
+            for rd in ctl.redesigns], slot.version
+
+
+@pytest.mark.gpu
+def test_controller_linkfail_on_card_equals_cpu(cuda):
+    before = LAUNCHES["timing"]
+    card = _linkfail_loop(cuda)
+    assert LAUNCHES["timing"] == before + 1 + len(card[0])  # one calibration each
+    assert card == _linkfail_loop("cpu")
+    assert len(card[0]) >= 1 and card[1] >= 2

@@ -51,6 +51,21 @@ def test_import_loads_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_dynamics_and_checkpoint_load_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.dynamics, repro_torch.checkpoint\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    scanned = {p.relative_to(REPO).parts[:3] for p in PORT_FILES}
+    assert ("src", "repro_torch", "dynamics") in scanned
+    assert ("src", "repro_torch", "checkpoint") in scanned
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_or_jax_imports(path):
     bad = []
@@ -75,6 +90,14 @@ def _cfg():
     return get_config("internlm2-1.8b").reduced()
 
 
+def _controller():
+    from repro_torch.core import ring_overlay
+    from repro_torch.dynamics import OnlineTopologyController
+
+    gc, tp = make_underlay("gaia").connectivity_graph(25.4), TrainingParams(42.88)
+    return OnlineTopologyController(gc, tp, ring_overlay(gc, tp))
+
+
 @pytest.mark.parametrize("call", [
     lambda: resolve_device(),
     lambda: init_state(_cfg(), momentum(0.05)),
@@ -86,8 +109,11 @@ def _cfg():
     lambda: serve(_cfg(), batch=1, gen=2),
     lambda: design_schedule("matcha", make_underlay("gaia").connectivity_graph(25.4),
                             TrainingParams(42.88)),
+    lambda: _controller(),
+    lambda: train(_cfg(), dynamic=True, steps=1),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
-        "design_overlay", "serve", "design_schedule"])
+        "design_overlay", "serve", "design_schedule", "OnlineTopologyController",
+        "train_dynamic"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
