@@ -152,7 +152,34 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    circuit, more rounds by the deadline than the non-adaptive overlay,
    the climb's ``karp`` / ``reach`` launches as predicted) and a MATCHA
    re-fit on a degraded silo (``timing`` launches only); then both with
-   the climb off, each re-design equal to the CPU's field for field.
+   the climb off, each re-design equal to the CPU's field for field;
+20. holds ``flash_attention`` (K3) against its plain version at hd 128
+   with the query groups of the MoE family and the last dense configs
+   ((K, G) in {(4, 8), (1, 48), (8, 12)} x S in {128, 1024}, B = 2,
+   causal, float32 at 2e-5) and times it at qwen3-moe-30b-a3b's prefill
+   shape (B=2, S=T=1024, K=4, G=8, hd=128) in turns with its plain version
+   and ``scaled_dot_product_attention``, beside its 3xTF32 bound;
+21. serves qwen3-moe-30b-a3b (8 of 48 layers), deepseek-v2-lite-16b (8 of
+   27: the dense MLA layer and 7 ``mla_moe``), granite-20b (4 of 52) and
+   mistral-large-123b (2 of 88) at full width through ``serve`` (random
+   weights from seed 0, batch 2, a 1024-token prompt, 16 tokens, float32,
+   ``use_flash_kernel``): K3 launches in prefill equal to the
+   ``attn``/``attn_moe`` layers (0 for deepseek), none in decode, finite
+   logits, the share of (token, expert) assignments each MoE layer drops
+   at the published capacity factor; at ``capacity_factor = n_experts``
+   (dropless) the kernel prefill against the plain prefill (<= 2e-3), the
+   last decode step against a teacher-forced plain forward (<= 5e-3), each
+   attention layer through K3 against its plain path on the same input
+   (<= 2e-3) and the count of tokens whose top-k expert set differs
+   between the two runs; a profile and an MoE layer's parts (dispatch,
+   expert products, the rest) timed by events; then the four reduced
+   configs on the card against the CPU (<= 1e-4);
+22. trains qwen3-moe-30b-a3b at full width (1 of 48 layers) through
+   ``train`` on 2 silos of a ring, ``gossip_impl="pallas"``, 3 rounds at
+   the published capacity factor: one ``gossip_mix`` launch a round,
+   finite losses equal to cross entropy plus the router's aux loss, the
+   round's profile; then one more round whose mix through K2 equals, bit
+   for bit, K2's plain version on the same stack.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -162,6 +189,7 @@ outside the repository, it exits non-zero as well.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -200,6 +228,19 @@ K4_MAIN = (4, 2048, 4, 512)
 # training context) and a serving run (batch, prompt length, tokens)
 XLSTM_FORWARD = (4, 2048)
 XLSTM_SERVE = (4, 2048, 129)
+# K3 at hd 128 with the query groups (K, G) of qwen3-moe-30b-a3b, granite-20b
+# (MQA) and mistral-large-123b, and qwen3-moe-30b-a3b's prefill shape
+# (B, S = T, K, G, hd) where it is timed
+K3_ZOO = {"KG": ((4, 8), (1, 48), (8, 12)), "S": (128, 1024)}
+K3_QWEN3 = (2, 1024, 4, 8, 128)
+# the MoE family and the last dense configs served at full width, depth cut
+# so that the float32 weights fit one card: (arch, layers kept), and the run
+# (batch, prompt length, tokens generated)
+ZOO_SERVE = (("qwen3-moe-30b-a3b", 8), ("deepseek-v2-lite-16b", 8), ("granite-20b", 4),
+             ("mistral-large-123b", 2))
+ZOO_RUN = (2, 1024, 16)
+# DPASGD on the MoE model: (arch, layers kept, silos on a ring, rounds)
+MOE_TRAIN = ("qwen3-moe-30b-a3b", 1, 2, 3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2282,6 +2323,420 @@ def controller_phase(torch, dev) -> dict:
     return {"wall_s": time.perf_counter() - t0}
 
 
+def flash_zoo_phase(torch, dev) -> dict:
+    """K3 at hd 128 with the query groups of the MoE family and the last
+    dense configs, against its plain version; then timed at
+    qwen3-moe-30b-a3b's prefill shape in turns with its plain version and
+    ``scaled_dot_product_attention``, beside its bound."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst, n_cases = 0.0, 0
+    for K, G in K3_ZOO["KG"]:
+        for S in K3_ZOO["S"]:
+            q = torch.randn((2, S, K, G, 128), generator=gen, device=dev)
+            k = torch.randn((2, S, K, 128), generator=gen, device=dev)
+            v = torch.randn((2, S, K, 128), generator=gen, device=dev)
+            got = flash_attention(q, k, v, causal=True, window=None)
+            ref = flash_attention_ref(q, k, v, causal=True, window=None)
+            err = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+                  f"flash_attention hd 128 K={K} G={G} S={S}: max abs err {err}")
+            worst, n_cases = max(worst, err), n_cases + 1
+    print(f"kernel flash_attention: hd 128 x (K, G) {K3_ZOO['KG']} x S {K3_ZOO['S']}, B 2, "
+          f"causal, f32 ({n_cases} cases) within tolerance 2e-5 (max abs err {worst:.3g})")
+
+    B, S, K, G, hd = K3_QWEN3
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    ref = flash_attention_ref(q, k, v, causal=True, window=None)
+    got = flash_attention(q, k, v, causal=True, window=None)
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"flash_attention at the qwen3-moe prefill shape: max abs err {err}")
+    # Yardstick only, never called by the port: one causal GQA
+    # scaled_dot_product_attention over [B, H, S, hd].
+    F = torch.nn.functional
+    qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+    sdpa_err = float((sdpa().transpose(1, 2).reshape(q.shape) - ref).abs().max())
+    del got, ref
+    runs = {"kernel": (lambda: flash_attention(q, k, v, causal=True, window=None), 20),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True, window=None), 5),
+            "sdpa": (sdpa, 10)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, reps = runs[name]
+        times[name].append(time_ms(torch, fn, reps=reps, warmup=1))
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    bound, by = attn_bound_ms(B, S, S, K, G, hd, None, 4, passes=3, rate=TF32_FLOPS)
+    bound_f32, _ = attn_bound_ms(B, S, S, K, G, hd, None, 4)
+    pairs = attn_pairs(S, S, True, None) * B * K * G
+    print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} causal f32 (qwen3-moe "
+          f"prefill), in turns: ms {fmt_times(times['kernel'])}  plain_ms "
+          f"{fmt_times(times['plain'])}  library_ms scaled_dot_product_attention "
+          f"{fmt_times(times['sdpa'])} (max abs diff to plain {sdpa_err:.3g})  bound_ms "
+          f"{bound:.4f} ({by}, 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s; {pairs} visible "
+          f"pairs)  float32 CUDA-core bound {bound_f32:.4f}  max_abs_err {err:.3g}  achieved "
+          f"{4 * hd * pairs / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of fp32-accurate "
+          f"products ({bound / mean['kernel']:.1%} of the bound)")
+    return {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": mean["sdpa"],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": max(err, worst)}
+
+
+@contextlib.contextmanager
+def recording(module, name: str, record: list, keep):
+    """Replace ``module.name`` by a wrapper that appends ``keep(args,
+    result)`` to ``record`` after each call."""
+    orig = getattr(module, name)
+
+    def run(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        record.append(keep(args, out))
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield record
+    finally:
+        setattr(module, name, orig)
+
+
+def topk_sets_differ(torch, a, b) -> int:
+    """Tokens whose set of chosen experts differs between two dispatches."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def moe_layer_parts(torch, p, cfg, x, prefill_s: float, n_moe: int) -> dict:
+    """One MoE layer's parts on its recorded prefill input, timed by CUDA
+    events: the router and the dispatch, the three expert products, and the
+    whole layer (the rest: the combine, the aux loss, shared experts); each
+    times the MoE layers over ``prefill_s``, a prefill's wall (one that
+    recorded the input, after the timed one, so warm)."""
+    from repro_torch.models import moe as MOE
+
+    m = cfg.moe
+    cap = MOE.capacity(cfg, x.shape[1])
+    F = torch.nn.functional
+
+    def dispatch():
+        return MOE._dispatch_group(x, (x @ p["router"]).to(torch.float32), m.top_k,
+                                   m.n_experts, cap)
+
+    buf = dispatch()[0]
+
+    def experts():
+        g = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]))
+        u = torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+        return torch.einsum("gecf,efd->gecd", g * u, p["w_down"])
+
+    t = {"dispatch": time_ms(torch, dispatch, reps=5),
+         "experts": time_ms(torch, experts, reps=5),
+         "layer": time_ms(torch, lambda: MOE.moe_forward(p, cfg, x), reps=5)}
+    t["rest"] = t["layer"] - t["dispatch"] - t["experts"]
+    print(f"serve moe layer {cfg.arch_id} [{x.shape[0]}x{x.shape[1]}] buffer "
+          f"{tuple(buf.shape)} (cap {cap}): " + ", ".join(
+              f"{k} {v:.4f} ms ({n_moe * v * 1e-3 / prefill_s:.3f} of a {prefill_s:.4f} s "
+              f"prefill over {n_moe} layers)" for k, v in t.items()))
+    return t
+
+
+def attention_layers_gate(torch, records, cfg, arch: str) -> float:
+    """Each recorded attention layer's ``(params, input, positions)``
+    through K3 (``cfg``) against the plain path on the same input (<=
+    2e-3); the largest difference.
+    A function of its own, so that no loop variable holds a view of the
+    model's parameters after it returns."""
+    from repro_torch.models import attention as A
+
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    worst = 0.0
+    with torch.no_grad():
+        for p, x, positions in records:
+            got = A.attn_forward(p, cfg, x, positions)
+            ref = A.attn_forward(p, plain_cfg, x, positions)
+            err = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, atol=2e-3, rtol=2e-3),
+                  f"{arch}: attention layer through K3 vs plain max abs diff {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def zoo_serve_phase(torch, dev) -> dict:
+    """The MoE family and the last dense configs served at full width
+    through ``serve``, each run with the counts set to 0 just before it and
+    read just after; the dropless whole-model checks; the reduced configs on
+    the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import ParamLayout, init_params, model_specs
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    batch, prompt_len, gen = ZOO_RUN
+    out = {}
+    for arch, layers in ZOO_SERVE:
+        cfg = get_config(arch, n_layers=layers, use_flash_kernel=True)
+        n_attn = sum(kind in ("attn", "attn_moe") for kind in cfg.block_pattern)
+        n_moe = sum(kind.endswith("_moe") for kind in cfg.block_pattern)
+        P = ParamLayout(model_specs(cfg)).size
+        moe_txt = (f"; {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_expert "
+                   f"{cfg.moe.d_expert} shared {cfg.moe.n_shared}, capacity factor "
+                   f"{cfg.moe.capacity_factor}" if cfg.moe else "")
+        print(f"serve: {arch} d_model {cfg.d_model} heads {cfg.n_heads} kv_heads "
+              f"{cfg.n_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} mlp {cfg.mlp_variant} "
+              f"vocab {cfg.vocab_size}{moe_txt}; layers {layers} of "
+              f"{get_config(arch).n_layers} ({n_attn} through K3, {n_moe} MoE); P {P} "
+              f"({P * 4 / 1e9:.2f} GB float32); batch {batch}, prompt {prompt_len}, {gen} "
+              f"tokens, flash kernel")
+        params = init_params(model_specs(cfg), seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        routed = []
+        with recording(MOE, "_dispatch_group", routed, lambda a, r: r[1][4]):
+            res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=0, device=dev,
+                        params=params, log=lambda line: print(f"serve: {line}", flush=True))
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        fa = res.launches["prefill"]["flash_attention"]
+        check(launches["flash_attention"] == fa == n_attn,
+              f"{arch}: flash_attention launched {launches['flash_attention']} times, "
+              f"expected {n_attn} (one per attn / attn_moe layer)")
+        check(res.launches["decode"]["flash_attention"] == 0, f"{arch}: decode launched K3")
+        check(bool(torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.logits).all()),
+              f"{arch}: non-finite logits")
+        dropped = [float(1 - keep.float().mean()) for keep in routed
+                   if keep.shape[1] == prompt_len]
+        check(len(dropped) == n_moe, f"{arch}: {len(dropped)} MoE prefill dispatches")
+        if n_moe:
+            print(f"serve: {arch} prefill at capacity factor {cfg.moe.capacity_factor} (cap "
+                  f"{MOE.capacity(cfg, prompt_len)}): share of (token, expert) assignments "
+                  f"dropped per MoE layer " + " ".join(f"{d:.4f}" for d in dropped))
+        del routed
+
+        # dropless: prefill, decode and forward route each token alike
+        cfg0 = cfg
+        if cfg.moe:
+            cfg0 = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+            print(f"serve: {arch} dropless checks at capacity_factor {cfg0.moe.capacity_factor} "
+                  f"(cap {MOE.capacity(cfg0, prompt_len)})")
+        plain_cfg = dataclasses.replace(cfg0, use_flash_kernel=False)
+        gates = {"kernel": [], "plain": [], "forced": []}
+        attn_in = []
+        res0 = res
+        if cfg0 is not cfg:
+            with recording(MOE, "_dispatch_group", gates["kernel"], lambda a, r: r[1][0]):
+                res0 = serve(cfg0, batch=batch, prompt_len=prompt_len, gen=gen, seed=0,
+                             device=dev, params=params, log=lambda line: None)
+        with torch.no_grad(), \
+                recording(MOE, "_dispatch_group", gates["plain"], lambda a, r: r[1][0]), \
+                recording(A, "attn_forward", attn_in, lambda a, r: (a[0], a[2], a[3])):
+            plain, _ = T.prefill(params, plain_cfg, res0.prompts, prompt_len + gen,
+                                 cache_dtype=torch.float32)
+        d_prefill = float((res0.prefill_logits - plain).abs().max())
+        check(torch.allclose(res0.prefill_logits, plain, atol=2e-3, rtol=2e-3),
+              f"{arch}: kernel prefill vs plain prefill max abs diff {d_prefill}")
+        del plain
+        # each GQA layer's input to the plain prefill, through K3 and through plain
+        layer_err = attention_layers_gate(torch, attn_in, cfg0, arch)
+        check(len(attn_in) == n_attn, f"{arch}: {len(attn_in)} attention layers recorded")
+        del attn_in
+        seq = torch.cat([res0.prompts, res0.ids[:, :-1]], dim=1)
+        with torch.no_grad(), recording(MOE, "_dispatch_group", gates["forced"],
+                                        lambda a, r: r[1][0]):
+            # the teacher-forced forward's last position: prefill of the
+            # whole sequence on the plain path, which slices before the head
+            forced, _ = T.prefill(params, plain_cfg, seq, seq.shape[1],
+                                  cache_dtype=torch.float32)
+        d_decode = float((res0.logits - forced).abs().max())
+        check(torch.allclose(res0.logits, forced, atol=5e-3, rtol=5e-3),
+              f"{arch}: last decode step vs teacher-forced forward max abs diff {d_decode}")
+        del forced, seq
+        pre_k = [g for g in gates["kernel"] if g.shape[1] == prompt_len]
+        dec_k = [g for g in gates["kernel"] if g.shape[1] == 1][-n_moe:] if n_moe else []
+        diff_prefill = sum(topk_sets_differ(torch, a, b) for a, b in zip(pre_k, gates["plain"]))
+        diff_decode = sum(topk_sets_differ(torch, a, b[:, -1:])
+                          for a, b in zip(dec_k, gates["forced"]))
+        del gates
+        print(f"serve: {arch} {'dropless' if cfg.moe else 'checks'}: kernel vs plain prefill "
+              f"logits {d_prefill:.3g} (tol "
+              f"2e-3), each K3 attention layer vs plain on its input {layer_err:.3g} (tol 2e-3, "
+              f"{n_attn} layers), last decode vs teacher-forced forward {d_decode:.3g} (tol "
+              f"5e-3); tokens whose top-k expert set differs: prefill kernel vs plain "
+              f"{diff_prefill} of {n_moe * batch * prompt_len}, last decode step vs forward "
+              f"{diff_decode} of {n_moe * batch}")
+        if res0 is not res:
+            del res0
+        prof = {}
+        if n_moe:
+            prof = serve_profile(torch, params, cfg, res.prompts, prompt_len + gen,
+                                 res.decode_s / (gen - 1))
+            first = []
+            with recording(MOE, "moe_forward", first, lambda a, r: (a[0], a[2])), \
+                    torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T.prefill(params, cfg, res.prompts, prompt_len + gen, cache_dtype=torch.float32)
+                torch.cuda.synchronize()
+                prof["warm_prefill_s"] = time.perf_counter() - t0
+            p, x = first[0]
+            with torch.no_grad():
+                prof["moe_parts_ms"] = moe_layer_parts(torch, p, cfg, x, prof["warm_prefill_s"],
+                                                       n_moe)
+            del first, p, x
+        print(f"serve: {arch} prefill {res.prefill_s:.4f} s  decode {res.decode_tok_s:.2f} tok/s "
+              f"({gen - 1} steps x batch {batch} in {res.decode_s:.4f} s)  peak device memory "
+              f"{peak / 2**30:.2f} GiB  P {P}  flash_attention launches prefill {fa} decode "
+              f"{res.launches['decode']['flash_attention']}")
+        out[arch] = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+                     "peak_bytes": peak, "launches": fa, "P": P, "dropped": dropped,
+                     "d_prefill": d_prefill, "d_decode": d_decode, "layer_err": layer_err,
+                     "topk_differ": (diff_prefill, diff_decode), **prof}
+        del res, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # card (kernel) vs CPU (plain version) at the reduced size, same weights
+    for arch, _ in ZOO_SERVE:
+        cfg = dataclasses.replace(get_config(arch).reduced(), use_flash_kernel=True)
+        n_attn = sum(kind in ("attn", "attn_moe") for kind in cfg.block_pattern)
+        params = init_params(model_specs(cfg), seed=0, device="cpu")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+        runs = [serve(cfg, batch=2, prompt_len=128, gen=4, device=d, prompts=prompts,
+                      params=p, log=lambda line: None)
+                for d, p in ((dev, tree_map(lambda t: t.to(dev), params)), ("cpu", params))]
+        d_pre = float((runs[0].prefill_logits.cpu() - runs[1].prefill_logits).abs().max())
+        d_last = float((runs[0].logits.cpu() - runs[1].logits).abs().max())
+        same_ids = bool(torch.equal(runs[0].ids.cpu(), runs[1].ids))
+        print(f"serve parity: reduced {arch} ({cfg.block_pattern}, d_model {cfg.d_model}) at "
+              f"prompt 128, card vs CPU: prefill logits {d_pre:.3g}, last decode logits "
+              f"{d_last:.3g} (tolerance 1e-4); ids equal {same_ids}; K3 launches "
+              f"{runs[0].launches['prefill']['flash_attention']}")
+        check(runs[0].launches["prefill"]["flash_attention"] == n_attn,
+              f"reduced {arch} on the card launched K3 "
+              f"{runs[0].launches['prefill']['flash_attention']} times, expected {n_attn}")
+        check(same_ids and d_pre <= 1e-4 and d_last <= 1e-4,
+              f"reduced {arch}: card and CPU serving differ: prefill {d_pre}, last {d_last}")
+    return out
+
+
+@contextlib.contextmanager
+def mix_against_plain(torch, record: list, chunk: int = 1 << 28):
+    """Each K2 call of a DPASGD round is followed by K2's plain version on
+    the same stack, column chunk by chunk: ``record`` gets (bit-identical,
+    max abs diff) per call.  Two local-step passes need not agree to the
+    bit on the card, so the comparison takes the stack the round built."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gossip_mix import gossip_mix_ref
+
+    orig = ops.gossip_mix
+
+    def run(blocks, weights, *, out=None):
+        res = orig(blocks, weights, out=out)
+        w = weights.to(device=blocks.device, dtype=torch.float32)
+        same, diff = True, 0.0
+        for c in range(0, blocks.shape[1], chunk):
+            got, ref = res[c:c + chunk], gossip_mix_ref(blocks[:, c:c + chunk], w)
+            same = same and bool(torch.equal(got, ref))  # -0 == +0; no NaN
+            diff = max(diff, float((got - ref).abs().max()))
+        record.append((same, diff))
+        return res
+
+    ops.gossip_mix = run
+    try:
+        yield record
+    finally:
+        ops.gossip_mix = orig
+
+
+def moe_train_phase(torch, dev) -> dict:
+    """DPASGD on qwen3-moe-30b-a3b at full width (depth cut) through
+    ``train``: one K2 launch a round, losses that carry the router's aux
+    loss, the round's profile, and one more round whose K2 mix equals its
+    plain version on the same stack bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_round import profile_round, report
+    from repro_torch.launch.train import batch_to_device, train
+    from repro_torch.models import ParamLayout, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import softmax_cross_entropy
+
+    arch, layers, silos, steps = MOE_TRAIN
+    cfg = get_config(arch, n_layers=layers)
+    P = ParamLayout(model_specs(cfg)).size
+    print(f"moe train: {arch} d_model {cfg.d_model} {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} capacity factor {cfg.moe.capacity_factor} vocab {cfg.vocab_size} "
+          f"layers {layers} (of {get_config(arch).n_layers}), P {P}; {silos} silos, ring, "
+          f"pallas, s 2, 4 x 64 tokens a silo")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = train(cfg, silos=silos, topology="ring", gossip_impl="pallas", local_steps=2,
+                batch_per_silo=4, seq_len=64, steps=steps, device=dev,
+                log=lambda line: print(f"moe train: {line}", flush=True))
+    launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
+        print(f"moe train: round {i} wall {sec:.4f} s loss {loss:.6f}")
+    check(all(math.isfinite(x) for x in res.losses), f"non-finite loss {res.losses}")
+    check(launches["gossip_mix"] == steps,
+          f"moe train: gossip_mix launched {launches['gossip_mix']} times in {steps} rounds")
+    check(res.state["params"].shape == (silos, P), f"state {tuple(res.state['params'].shape)}")
+    # silo 0's loss on its next micro-batch: cross entropy plus the aux loss
+    micro = {k: v[0, 0] for k, v in batch_to_device(res.batcher.batch(steps), dev).items()}
+    tree = ParamLayout(model_specs(cfg)).views(res.state["params"][0])
+    with torch.no_grad():
+        logits, aux = T.forward(tree, cfg, micro["tokens"], return_aux=True)
+        ce = softmax_cross_entropy(logits, micro["labels"])
+        loss = T.loss_fn(tree, cfg, micro)
+    del logits
+    print(f"moe train: silo 0 loss {float(loss):.6f} = cross entropy {float(ce):.6f} + aux "
+          f"{float(aux):.6f} (router_aux_weight {cfg.moe.router_aux_weight})")
+    check(float(aux) > 0 and abs(float(loss) - float(ce) - float(aux)) <= 1e-5,
+          f"moe train: loss {float(loss)} is not cross entropy {float(ce)} + aux {float(aux)}")
+    prof = profile_round(res, steps)
+    for line in report(prof, top=10):
+        print(f"moe train profile: {line}", flush=True)
+
+    # one more round: its mix through K2, then K2's plain version on the same stack
+    batch = batch_to_device(res.batcher.batch(steps + 1), dev)
+    step = make_train_step(res.cfg, res.fed, res.optimizer, res.plan)
+    reset_launch_counts()
+    with mix_against_plain(torch, []) as mixes:
+        res.state, _ = step(res.state, batch)
+    check(LAUNCHES["gossip_mix"] == 1 and len(mixes) == 1,
+          f"moe train: the checked round launched gossip_mix {LAUNCHES['gossip_mix']} times")
+    same, diff = mixes[0]
+    print(f"moe train: one more round, its mix through gossip_mix vs the plain version on the "
+          f"same [{len(res.plan.terms)}, {silos * P}] stack: bit-identical {same} (max abs diff "
+          f"{diff:.3g}); peak device memory {peak / 2**30:.2f} GiB over the {steps} rounds; "
+          f"gossip_mix launches {launches['gossip_mix']} in {steps} rounds")
+    check(same, f"moe train: gossip_mix and its plain version differ by {diff}")
+    out = {"launches": launches["gossip_mix"], "n_elems": silos * P, "P": P,
+           "K": len(res.plan.terms), "peak_bytes": peak, "round_s": res.step_seconds,
+           "losses": res.losses, "aux": float(aux), "idle_share": prof["idle_share"]}
+    del res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2354,6 +2809,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ctl = controller_phase(torch, dev)
     dynamic_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"zoo phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          "from the earlier phases")
+    t0 = time.perf_counter()
+    attn_zoo = flash_zoo_phase(torch, dev)
+    zoo = zoo_serve_phase(torch, dev)
+    mtr = moe_train_phase(torch, dev)
+    zoo_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -2394,15 +2858,26 @@ def main() -> int:
           f"{dyn_shape['ms']:.4f} (torch.lerp {dyn_shape['library_ms']:.4f}, bound "
           f"{dyn_shape['bound_ms']:.4f}); controller phase {ctl['wall_s']:.1f} s; dynamic phases "
           f"took {dynamic_s:.1f} s")
+    print(f"summary: flash_attention qwen3-moe prefill shape ms {attn_zoo['ms']:.4f} (plain "
+          f"{attn_zoo['plain_ms']:.4f}, scaled_dot_product_attention {attn_zoo['library_ms']:.4f}, "
+          f"bound {attn_zoo['bound_ms']:.4f} at 3xTF32); zoo serve prefill s / decode tok/s / "
+          f"peak GiB: " + "; ".join(
+              f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / "
+              f"{r['peak_bytes'] / 2**30:.2f}" for a, r in zoo.items())
+          + f"; moe train round wall s {[round(x, 4) for x in mtr['round_s']]}, peak GiB "
+          f"{mtr['peak_bytes'] / 2**30:.2f}, idle share {mtr['idle_share']}; zoo phases took "
+          f"{zoo_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
+    zoo_k3 = sum(r["launches"] for r in zoo.values())
     record = {"kernels": [{
         "name": "gossip_mix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
-        "launches": tr["launches"] + dl["gossip_mix"],
-        "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"]},
+        "launches": tr["launches"] + dl["gossip_mix"] + mtr["launches"],
+        "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
+                             "moe_train": mtr["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2440,7 +2915,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": danube["launches"],
+        "launches": danube["launches"] + zoo_k3,
+        "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3},
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],

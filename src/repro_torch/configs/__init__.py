@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config("<arch-id>", **overrides)``.
 
 Counterpart of ``repro.configs``.  Only the configurations the port can
-run are registered (the dense transformers and the xLSTM stack); the
-rest of the reference's zoo follows with their block kinds.
+run are registered (the dense transformers, the MoE and MLA models and
+the xLSTM stack); the rest of the reference's zoo (hymba, whisper,
+internvl2) follows with their block kinds.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ _MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "internlm2-1.8b": "internlm2_1_8b",
     "xlstm-350m": "xlstm_350m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "granite-20b": "granite_20b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

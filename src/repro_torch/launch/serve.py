@@ -5,13 +5,18 @@ states, on one card.
         --batch 2 --prompt-len 8192 --gen 32 --flash-kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
         --batch 4 --prompt-len 2048 --gen 129
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+        --reduced --device cpu --batch 2 --prompt-len 16 --gen 8
 
-Counterpart of ``repro.launch.serve`` for the dense family and the xLSTM
-stack, with the same flags plus ``--device`` (default ``cuda``;
+Counterpart of ``repro.launch.serve`` for every config of
+:mod:`repro_torch.configs` (the dense transformers, the MoE models, MLA
+and the xLSTM stack), with the same flags plus ``--device`` (default ``cuda``;
 ``--device cpu`` with ``--reduced`` runs the small variant on the CPU),
 ``--seed`` (weights and prompts) and ``--flash-kernel``, which sets the
 reference's ``use_flash_kernel`` (after ``--reduced``, which turns it
-off): prefill attention then runs through the K3 kernel.  The mLSTM's
+off): prefill attention then runs through the K3 kernel, one launch
+per ``attn`` / ``attn_moe`` layer (none for MLA, whose q.k and v widths
+differ; deepseek-v2-lite's layers are all MLA).  The mLSTM's
 K4 kernel runs only in the full-sequence ``forward``; prefill needs the
 final state and decode is one state update, so serving an xLSTM stack
 launches it no time, as in the reference.  Parameters, caches and

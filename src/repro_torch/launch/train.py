@@ -5,8 +5,12 @@
 
 Counterpart of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``; ``--device cpu`` with ``--reduced`` runs
-the small variant on the CPU).  ``main`` parses the flags and calls
-:func:`train`, which scripts can call at a depth the CLI has no flag for.
+the small variant on the CPU).  ``--arch`` takes any config of
+:mod:`repro_torch.configs`: the dense transformers, the MoE models
+(qwen3-moe-30b-a3b; deepseek-v2-lite-16b with MLA; their loss carries
+the router's load-balance term, as the reference's does) and xlstm-350m.
+``main`` parses the flags and calls :func:`train`, which scripts can
+call at a depth the CLI has no flag for.
 
 ``--designer matcha`` trains on a randomized schedule: homogeneous MATCHA
 over the complete silo graph (``--matcha-budget`` is its activation

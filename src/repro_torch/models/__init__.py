@@ -1,4 +1,5 @@
-from .config import ModelConfig, SSMConfig
+from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from .moe import moe_forward
 from .params import (
     ParamLayout,
     ParamSpec,
@@ -9,7 +10,9 @@ from .params import (
 from .transformer import forward, loss_fn, model_specs
 
 __all__ = [
+    "MLAConfig",
     "ModelConfig",
+    "MoEConfig",
     "ParamLayout",
     "ParamSpec",
     "SSMConfig",
@@ -19,4 +22,5 @@ __all__ = [
     "forward",
     "loss_fn",
     "model_specs",
+    "moe_forward",
 ]

@@ -1,13 +1,17 @@
-"""GQA attention (causal / sliding-window) and its serving caches;
-counterpart of ``repro.models.attention`` (``attn_specs``,
-``chunked_attention``, ``naive_attention``, ``attn_forward``, the KV
-caches and ``attn_decode``).
+"""GQA attention (causal / sliding-window), DeepSeek MLA (multi-head
+latent attention, absorbed decode) and their serving caches; counterpart
+of ``repro.models.attention`` (``attn_specs``, ``chunked_attention``,
+``naive_attention``, ``attn_forward``, the KV caches, ``attn_decode``
+and the MLA functions).
 
 Full-sequence attention runs on the chunked online-softmax path (one
 score block per ``kv_block`` keys, running max and normaliser in
 float32, masked scores set to ``MASKED``), or, when
 ``cfg.use_flash_kernel`` and the attention is causal, through the
 flash-attention kernel (K3, :func:`repro_torch.kernels.flash_attention`).
+MLA always takes the chunked path, in both packages: its q.k width
+(``qk_nope_dim + qk_rope_dim``, 192 for deepseek-v2-lite) differs from
+its v width (128), while K3 takes one head dim for q, k and v.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from repro_torch.kernels import ops as kops
 
 from .config import ModelConfig
-from .layers import apply_rope, rope_angles
+from .layers import apply_rope, rms_norm, rope_angles
 from .params import ParamSpec
 
 MASKED = -1e30  # score of a masked key (the reference's attention mask value)
@@ -33,6 +37,21 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wk": ParamSpec((D, K * hd), s),
         "wv": ParamSpec((D, K * hd), s),
         "wo": ParamSpec((H * hd, D), (H * hd) ** -0.5),
+    }
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    s = D ** -0.5
+    return {
+        "w_dkv": ParamSpec((D, m.kv_lora_rank), s),
+        "w_krope": ParamSpec((D, m.qk_rope_dim), s),
+        "kv_ln": ParamSpec((m.kv_lora_rank,), 1.0, init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H * m.qk_nope_dim), m.kv_lora_rank ** -0.5),
+        "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim), m.kv_lora_rank ** -0.5),
+        "wq": ParamSpec((D, H * (m.qk_nope_dim + m.qk_rope_dim)), s),
+        "wo": ParamSpec((H * m.v_head_dim, D), (H * m.v_head_dim) ** -0.5),
     }
 
 
@@ -182,3 +201,107 @@ def attn_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     out = chunked_attention(qg, cache["k"], cache["v"], pos_arr, cache["pos"],
                             causal=True, window=window)
     return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+
+
+def _mla_query(p, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+    """The query's no-RoPE and RoPE parts, [B, S, H, nope] and [B, S, H, rope]."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    return q[..., : m.qk_nope_dim], apply_rope(q[..., m.qk_nope_dim:], cos, sin)
+
+
+def _mla_latent(p, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+    """The cached part of a token: c_kv [B, S, R] and k_rope [B, S, rope]
+    (one RoPE key shared by every head)."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_krope"]).reshape(B, S, 1, m.qk_rope_dim), cos, sin)
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, return_latent: bool = False):
+    """Training/prefill path: the latent expanded to per-head K/V, causal
+    attention on the chunked path (never K3: see the module docstring).
+    With ``return_latent`` also returns ``(c_kv, k_rope)`` for the cache."""
+    m = cfg.mla
+    H = cfg.n_heads
+    B, S = x.shape[:2]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, cfg, x, cos, sin)
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    q_nope, q_rope = _mla_query(p, cfg, x, cos, sin)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    qg = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, m.qk_nope_dim + m.qk_rope_dim)
+    out = chunked_attention(qg, k, v, positions, positions, causal=True, window=None)
+    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    if return_latent:
+        return out, (c_kv, k_rope)
+    return out
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """Empty latent cache: ``max_len`` slots of (c_kv, k_rope), ``pos`` -1."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype, device=device),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def fill_mla_cache(cache: Dict[str, torch.Tensor], c_kv: torch.Tensor, k_rope: torch.Tensor,
+                   positions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Write prefill latents into the cache (the last ``min(S, size)``
+    positions, each at slot ``pos % size``), in place, and return it."""
+    size = cache["c_kv"].shape[1]
+    take = min(c_kv.shape[1], size)
+    pos_t = positions[-take:]
+    slots = pos_t % size
+    cache["c_kv"][:, slots] = c_kv[:, -take:].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slots] = k_rope[:, -take:].to(cache["k_rope"].dtype)
+    cache["pos"][slots] = pos_t.to(torch.int32)
+    return cache
+
+
+def mla_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor],
+               position: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed one-token decode: the cache holds only (c_kv, k_rope), and
+    the scores are taken in latent space, W_uk absorbed into the query and
+    W_uv into the output; slots with ``pos`` in ``[0, position]`` are seen.
+    x: [B, 1, D]; ``position`` a Python int (its slot is clamped to the
+    cache, as the reference's ``dynamic_update_slice`` does).  Writes the
+    token's latents in place."""
+    m = cfg.mla
+    H = cfg.n_heads
+    B = x.shape[0]
+    pos_arr = torch.arange(position, position + 1, device=x.device)
+    cos, sin = rope_angles(pos_arr, m.qk_rope_dim, cfg.rope_theta)
+    c_kv_new, k_rope_new = _mla_latent(p, cfg, x, cos, sin)
+    slot = min(max(position, 0), cache["c_kv"].shape[1] - 1)
+    cache["c_kv"][:, slot] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    cache["pos"][slot] = position
+    ckv, ckr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    q_nope, q_rope = _mla_query(p, cfg, x, cos, sin)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bshr,btr->bsht", q_lat, ckv.to(x.dtype))
+         + torch.einsum("bshn,btn->bsht", q_rope, ckr.to(x.dtype))) * scale
+    mask = (cpos >= 0) & (cpos <= position)
+    s = torch.where(mask[None, None, None, :], s.to(torch.float32), MASKED)
+    pattn = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bsht,btr->bshr", pattn, ckv.to(x.dtype))
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv).reshape(B, 1, H * m.v_head_dim)
+    return out @ p["wo"], cache

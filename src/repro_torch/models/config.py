@@ -1,11 +1,13 @@
-"""Model configuration of the dense GQA transformer and the xLSTM stack.
+"""Model configuration of the decoder-only transformers (dense GQA/MQA,
+MoE, DeepSeek MLA) and the xLSTM stack.
 
-Counterpart of ``repro.models.config.ModelConfig``, cut to the fields a
-dense causal attention + SwiGLU stack and an mLSTM/sLSTM stack read,
-sliding-window layers and the kernel switch included.  The other block
-kinds of the reference (MoE, MLA, Hymba, encoder-decoder) and tied
-embeddings are not ported yet; ``block_pattern`` accepts ``"attn"``,
-``"mlstm"`` and ``"slstm"``.
+Counterpart of ``repro.models.config.ModelConfig``, cut to the fields
+these stacks read: sliding-window layers, the kernel switch, the SwiGLU
+or GELU MLP, top-k routed and shared experts (``MoEConfig``) and
+multi-head latent attention (``MLAConfig``).  The reference's Hymba
+hybrid, encoder-decoder and vision-prefix kinds and tied embeddings are
+not ported yet; ``block_pattern`` accepts ``"attn"``, ``"attn_moe"``,
+``"mla"``, ``"mla_moe"``, ``"mlstm"`` and ``"slstm"``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,27 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-BLOCK_KINDS = ("attn", "mlstm", "slstm")
+BLOCK_KINDS = ("attn", "attn_moe", "mla", "mla_moe", "mlstm", "slstm")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int            # hidden size of each routed expert
+    n_shared: int = 0        # shared (always-on) experts
+    d_shared: int = 0        # hidden size of the shared expert MLP
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    q_lora_rank: int = 0     # 0 = no query compression (deepseek-v2-lite)
 
 
 @dataclass(frozen=True)
@@ -38,8 +60,12 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()    # len == n_layers; default "attn"
     sliding_window: Optional[int] = None   # SWA window (danube)
     global_attn_every: int = 0             # every k-th layer full attention
-    family: str = "dense"                  # the reference's family tag ("dense", "ssm")
+    family: str = "dense"                  # the reference's family tag ("dense", "moe", "ssm")
+    moe: Optional[MoEConfig] = None        # routed experts of "attn_moe" / "mla_moe" layers
+    mla: Optional[MLAConfig] = None        # latent attention of "mla" / "mla_moe" layers
     ssm: Optional[SSMConfig] = None        # xLSTM: the mLSTM up-projection factor
+    mlp_variant: str = "swiglu"            # "swiglu" | "gelu" (the dense FFN half)
+    tie_embeddings: bool = False           # the tied head is not ported: must be False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     n_silos: int = 1
@@ -50,7 +76,15 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if not self.block_pattern:
-            object.__setattr__(self, "block_pattern", ("attn",) * self.n_layers)
+            if self.moe is not None and self.mla is not None:
+                kind = "mla_moe"
+            elif self.moe is not None:
+                kind = "attn_moe"
+            elif self.mla is not None:
+                kind = "mla"
+            else:
+                kind = "attn"
+            object.__setattr__(self, "block_pattern", (kind,) * self.n_layers)
         if len(self.block_pattern) != self.n_layers:
             raise ValueError("block_pattern length must equal n_layers")
         if set(self.block_pattern) - set(BLOCK_KINDS):
@@ -59,6 +93,15 @@ class ModelConfig:
                 "are not ported yet")
         if self.n_heads % max(self.n_kv_heads, 1) != 0:
             raise ValueError("n_heads must be divisible by n_kv_heads")
+        if self.mlp_variant not in ("swiglu", "gelu"):
+            raise ValueError(f"mlp_variant must be 'swiglu' or 'gelu', got {self.mlp_variant!r}")
+        kinds = set(self.block_pattern)
+        if self.moe is None and kinds & {"attn_moe", "mla_moe"}:
+            raise ValueError("attn_moe / mla_moe layers need a MoEConfig")
+        if self.mla is None and kinds & {"mla", "mla_moe"}:
+            raise ValueError("mla / mla_moe layers need an MLAConfig")
+        if self.tie_embeddings:
+            raise NotImplementedError("tied embeddings are not ported yet")
 
     @property
     def padded_vocab_size(self) -> int:
@@ -77,12 +120,31 @@ class ModelConfig:
         """A tiny same-family variant for CPU tests (the reference's
         ``reduced()`` on the ported fields): the first ``n_layers`` kinds
         of the pattern, except that one of each kind survives when there
-        is room, as the reference keeps family diversity."""
+        is room, as the reference keeps family diversity.  Experts shrink
+        to at most 4 (top-k at most 2, one shared expert) with a capacity
+        factor of ``n_experts``, so that no token is dropped and prefill,
+        decode and forward agree exactly; MLA ranks to 64/32/16/32."""
         scale = d_model / self.d_model
         n_heads = max(2, min(self.n_heads, d_model // 64))
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
             n_kv -= 1
+        moe = None
+        if self.moe is not None:
+            n_exp = min(4, self.moe.n_experts)
+            moe = dataclasses.replace(
+                self.moe,
+                n_experts=n_exp,
+                top_k=min(2, self.moe.top_k),
+                d_expert=max(32, int(self.moe.d_expert * scale)),
+                n_shared=min(1, self.moe.n_shared),
+                d_shared=max(32, int(self.moe.d_shared * scale)) if self.moe.n_shared else 0,
+                capacity_factor=float(n_exp),
+            )
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
+                            v_head_dim=32, q_lora_rank=0)
         pattern = self.block_pattern[:n_layers]
         kinds = tuple(dict.fromkeys(self.block_pattern))
         if len(kinds) > 1 and n_layers >= len(kinds):
@@ -99,5 +161,7 @@ class ModelConfig:
             vocab_size=min(512, self.vocab_size),
             block_pattern=pattern,
             sliding_window=min(self.sliding_window, 32) if self.sliding_window else None,
+            moe=moe,
+            mla=mla,
             use_flash_kernel=False,
         )

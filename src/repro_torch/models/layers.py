@@ -1,4 +1,4 @@
-"""Elementary layers: RMSNorm, RoPE, SwiGLU, embeddings, cross-entropy
+"""Elementary layers: RMSNorm, RoPE, SwiGLU, GELU MLP, embeddings, cross-entropy
 (plain functions on tensors; counterparts of ``repro.models.layers``)."""
 
 from __future__ import annotations
@@ -43,6 +43,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor, w_down: torch.Tensor,
+             b_down: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu`` is the tanh approximation by
+    default; the exact erf form differs from it by up to about 5e-4."""
+    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Model assembly for the dense GQA transformer and the xLSTM stack: the
-parameter spec tree, ``forward`` / ``loss_fn`` for training, and
-``init_cache`` / ``prefill`` / ``decode_step`` for serving.  Counterpart
-of ``repro.models.transformer`` on its ``"attn"``, ``"mlstm"`` and
-``"slstm"`` block kinds.  A recurrent block is a residual add around
-its mixer with no FFN half, and its serving cache is its state: the
-mLSTM's float32 ``[B, H, hd, hd]`` matrix, the sLSTM's ``(c, n, h, m)``."""
+"""Model assembly for the decoder-only transformers (dense GQA/MQA, MoE,
+DeepSeek MLA) and the xLSTM stack: the parameter spec tree, ``forward`` /
+``loss_fn`` for training, and ``init_cache`` / ``prefill`` /
+``decode_step`` for serving.  Counterpart of ``repro.models.transformer``
+on its ``"attn"``, ``"attn_moe"``, ``"mla"``, ``"mla_moe"``, ``"mlstm"``
+and ``"slstm"`` block kinds.  An attention block (GQA or MLA) is followed
+by an FFN half: the routed experts for the ``*_moe`` kinds, else the
+SwiGLU or GELU MLP.  A recurrent block is a residual add around its
+mixer with no FFN half, and its serving cache is its state: the mLSTM's
+float32 ``[B, H, hd, hd]`` matrix, the sLSTM's ``(c, n, h, m)``; an MLA
+layer caches only its latents ``(c_kv, k_rope)``."""
 
 from __future__ import annotations
 
@@ -16,15 +20,23 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 
 from . import attention as A
+from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
-from .layers import embed_tokens, rms_norm, softmax_cross_entropy, swiglu
+from .layers import embed_tokens, gelu_mlp, rms_norm, softmax_cross_entropy, swiglu
 from .params import ParamSpec
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     D, F = cfg.d_model, cfg.d_ff
     s = D ** -0.5
+    if cfg.mlp_variant == "gelu":
+        return {
+            "w_up": ParamSpec((D, F), s),
+            "b_up": ParamSpec((F,), 0.0, init="zeros"),
+            "w_down": ParamSpec((F, D), F ** -0.5),
+            "b_down": ParamSpec((D,), 0.0, init="zeros"),
+        }
     return {
         "w_gate": ParamSpec((D, F), s),
         "w_up": ParamSpec((D, F), s),
@@ -40,6 +52,12 @@ def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
     if kind == "attn":
         return {"ln1": ln(), "attn": A.attn_specs(cfg), "ln2": ln(), "mlp": mlp_specs(cfg)}
+    if kind == "attn_moe":
+        return {"ln1": ln(), "attn": A.attn_specs(cfg), "ln2": ln(), "moe": MOE.moe_specs(cfg)}
+    if kind == "mla":
+        return {"ln1": ln(), "attn": A.mla_specs(cfg), "ln2": ln(), "mlp": mlp_specs(cfg)}
+    if kind == "mla_moe":
+        return {"ln1": ln(), "attn": A.mla_specs(cfg), "ln2": ln(), "moe": MOE.moe_specs(cfg)}
     if kind == "mlstm":
         return {"ln1": ln(), "mlstm": SSM.mlstm_specs(cfg)}
     if kind == "slstm":
@@ -61,42 +79,64 @@ def _window(cfg: ModelConfig, layer: int):
     return cfg.sliding_window if cfg.layer_uses_window(layer) else None
 
 
-def _mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p, cfg: ModelConfig, kind: str, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN half of an attention block: ``(x + ffn(rms_norm(x)), aux)``,
+    the routed experts' load-balance loss as aux (0 for a dense MLP)."""
     xin = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(xin, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    if kind in ("attn_moe", "mla_moe"):
+        h, aux = MOE.moe_forward(p["moe"], cfg, xin)
+        return x + h, aux
+    m = p["mlp"]
+    if cfg.mlp_variant == "gelu":
+        h = gelu_mlp(xin, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
+    else:
+        h = swiglu(xin, m["w_gate"], m["w_up"], m["w_down"])
+    return x + h, torch.zeros((), device=x.device)
 
 
 def _block_forward(p, cfg: ModelConfig, layer: int, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block: ``(x, aux)``."""
     kind = cfg.block_pattern[layer]
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mlstm":
-        return x + SSM.mlstm_forward(p["mlstm"], cfg, xin)
+        return x + SSM.mlstm_forward(p["mlstm"], cfg, xin), torch.zeros((), device=x.device)
     if kind == "slstm":
-        return x + SSM.slstm_forward(p["slstm"], cfg, xin)
-    x = x + A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
-                           window=_window(cfg, layer))
-    return _mlp(p, cfg, x)
+        return x + SSM.slstm_forward(p["slstm"], cfg, xin), torch.zeros((), device=x.device)
+    if kind in ("mla", "mla_moe"):
+        x = x + A.mla_forward(p["attn"], cfg, xin, positions)
+    else:
+        x = x + A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
+                               window=_window(cfg, layer))
+    return _ffn(p, cfg, kind, x)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  (The
-    reference also returns an auxiliary loss, which is 0 for these
-    blocks.)  With ``cfg.use_flash_kernel`` every mLSTM layer's scan is one
-    ``mlstm_scan`` call, which needs S to be a multiple of 128."""
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, return_aux: bool = False):
+    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V], or with
+    ``return_aux`` ``(logits, aux)``: the sum over the MoE layers of their
+    load-balance loss (0 without MoE layers), which the reference's
+    forward always returns beside the logits.  With
+    ``cfg.use_flash_kernel`` every GQA layer's attention is one K3 launch
+    and every mLSTM layer's scan one ``mlstm_scan`` call, which need S to
+    be a multiple of 128."""
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["layers"]):
         if cfg.remat:
-            x = checkpoint(_block_forward, p, cfg, layer, x, positions, use_reentrant=False)
+            x, aux = checkpoint(_block_forward, p, cfg, layer, x, positions, use_reentrant=False)
         else:
-            x = _block_forward(p, cfg, layer, x, positions)
+            x, aux = _block_forward(p, cfg, layer, x, positions)
+        aux_total = aux_total + aux
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return (x @ params["lm_head"])[..., : cfg.vocab_size]
+    logits = (x @ params["lm_head"])[..., : cfg.vocab_size]
+    return (logits, aux_total) if return_aux else logits
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return softmax_cross_entropy(forward(params, cfg, batch["tokens"]), batch["labels"])
+    """Token cross entropy plus the MoE load-balance loss, as the reference's."""
+    logits, aux = forward(params, cfg, batch["tokens"], return_aux=True)
+    return softmax_cross_entropy(logits, batch["labels"]) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -105,9 +145,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.T
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device: DeviceLike = "cuda") -> List[Any]:
-    """One cache per layer: a KV cache for attention (a windowed layer's
-    is a ring buffer of ``min(max_len, window)`` slots; ``dtype`` applies
-    to these), the float32 recurrent state for mLSTM and sLSTM."""
+    """One cache per layer: a KV cache for GQA attention (a windowed
+    layer's is a ring buffer of ``min(max_len, window)`` slots), the
+    latent cache for MLA (``dtype`` applies to these two), the float32
+    recurrent state for mLSTM and sLSTM."""
     dev = resolve_device(device)
     caches: List[Any] = []
     for layer, kind in enumerate(cfg.block_pattern):
@@ -115,6 +156,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
             caches.append(SSM.init_mlstm_state(cfg, batch, dev))
         elif kind == "slstm":
             caches.append(SSM.init_slstm_state(cfg, batch, dev))
+        elif kind in ("mla", "mla_moe"):
+            caches.append(A.init_mla_cache(cfg, batch, max_len, dtype, dev))
         else:
             caches.append(A.init_kv_cache(cfg, batch, max_len, _window(cfg, layer), dtype, dev))
     return caches
@@ -124,9 +167,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, List[Any]]:
     """Serving prefill: full forward, filling the serving cache.  Returns
     (last-token logits [B, V], cache ready for decode at position S).
-    Attention goes through the flash-attention kernel when
-    ``cfg.use_flash_kernel``; the recurrent blocks return their final
-    state, so the mLSTM takes its plain chunked path whatever the flag."""
+    GQA attention goes through the flash-attention kernel when
+    ``cfg.use_flash_kernel`` (one launch per ``attn`` / ``attn_moe``
+    layer; MLA stays on the chunked path); the recurrent blocks return
+    their final state, so the mLSTM takes its plain chunked path whatever
+    the flag.  The MoE layers' aux loss is dropped, as in the reference."""
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(S, device=x.device)
@@ -141,10 +186,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
             h, cache[layer] = SSM.slstm_forward(p["slstm"], cfg, xin, return_state=True)
             x = x + h
             continue
-        h, (k, v) = A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
-                                   window=_window(cfg, layer), return_kv=True)
-        A.fill_kv_cache(cache[layer], k, v, positions)
-        x = _mlp(p, cfg, x + h)
+        if kind in ("mla", "mla_moe"):
+            h, (c_kv, k_rope) = A.mla_forward(p["attn"], cfg, xin, positions,
+                                              return_latent=True)
+            A.fill_mla_cache(cache[layer], c_kv, k_rope, positions)
+        else:
+            h, (k, v) = A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
+                                       window=_window(cfg, layer), return_kv=True)
+            A.fill_kv_cache(cache[layer], k, v, positions)
+        x, _ = _ffn(p, cfg, kind, x + h)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x[:, -1] @ params["lm_head"])[:, : cfg.vocab_size], cache
 
@@ -152,8 +202,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: List[Any],
                 position: int) -> Tuple[torch.Tensor, List[Any]]:
     """One-token decode at ``position`` (a Python int): token [B] ->
-    (logits [B, V], cache).  Updates the cache in place (KV caches are
-    written, recurrent states replaced in the list) and returns it."""
+    (logits [B, V], cache).  Updates the cache in place (KV and latent
+    caches are written, recurrent states replaced in the list) and
+    returns it; the MoE layers route the one token as a group of 1."""
     x = embed_tokens(params["embed"], token[:, None])
     for layer, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
         xin = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -165,8 +216,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: List[Any],
             h, cache[layer] = SSM.slstm_decode(p["slstm"], cfg, xin, cache[layer])
             x = x + h
             continue
-        h, _ = A.attn_decode(p["attn"], cfg, xin, cache[layer], position,
-                             window=_window(cfg, layer))
-        x = _mlp(p, cfg, x + h)
+        if kind in ("mla", "mla_moe"):
+            h, _ = A.mla_decode(p["attn"], cfg, xin, cache[layer], position)
+        else:
+            h, _ = A.attn_decode(p["attn"], cfg, xin, cache[layer], position,
+                                 window=_window(cfg, layer))
+        x, _ = _ffn(p, cfg, kind, x + h)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x[:, 0] @ params["lm_head"])[:, : cfg.vocab_size], cache

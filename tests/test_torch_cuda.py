@@ -350,6 +350,55 @@ def test_serving_prefill_through_kernel_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [128, 1024])
+@pytest.mark.parametrize("K,G", [(4, 8), (1, 48), (8, 12)],
+                         ids=["qwen3-gqa", "granite-mqa", "mistral-gqa"])
+def test_flash_attention_kernel_at_moe_and_large_dense_shapes(cuda, K, G, S):
+    """hd 128 at the query groups of qwen3-moe-30b-a3b (G = 8),
+    granite-20b's MQA (one kv head, G = 48: a block's 128 query rows hold
+    under 3 positions) and mistral-large-123b (G = 12), float32."""
+    gen = torch.Generator(device=cuda).manual_seed(S + G)
+    q = torch.randn((2, S, K, G, 128), generator=gen, device=cuda)
+    k = torch.randn((2, S, K, 128), generator=gen, device=cuda)
+    v = torch.randn((2, S, K, 128), generator=gen, device=cuda)
+    got = flash_attention(q, k, v, causal=True, window=None)
+    expect = flash_attention_ref(q, k, v, causal=True, window=None)
+    torch.testing.assert_close(got, expect, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"])
+def test_moe_prefill_on_card_matches_cpu(cuda, arch):
+    """The reduced attn_moe / mla_moe prefill at S=128 with the kernel
+    switch on: the card (K3 for each attn_moe layer, none for MLA) against
+    the CPU from the same weights, and one decode step after it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_flash_kernel=True)
+    n_attn = sum(kind in ("attn", "attn_moe") for kind in cfg.block_pattern)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128)))
+    with torch.no_grad():
+        ref, ref_cache = T.prefill(params, cfg, tokens, 136, cache_dtype=torch.float32)
+        before = LAUNCHES["flash_attention"]
+        got, cache = T.prefill(tree_map(lambda t: t.to(cuda), params), cfg, tokens.to(cuda),
+                               136, cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == before + n_attn
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        tok = ref.argmax(-1)
+        ref_next, _ = T.decode_step(params, cfg, tok, ref_cache, 128)
+        got_next, _ = T.decode_step(tree_map(lambda t: t.to(cuda), params), cfg, tok.to(cuda),
+                                    cache, 128)
+        torch.testing.assert_close(got_next.cpu(), ref_next, atol=1e-4, rtol=1e-4)
+
+
 def _mlstm_inputs(gen, B, S, H, hd, forget_bias, device):
     """q, k, v at 0.5 N(0, 1); log-sigmoid gates, the forget gate biased
     by ``forget_bias`` (2: the reference's tests; 0: the model's

@@ -5,7 +5,9 @@ Two rounds with 4 silos on a ring, s=2 local steps and momentum(0.05,
 ``from_jax_params``: the reference runs its ``einsum`` lowering (one
 device, no mesh), the port its ``pallas``, ``ppermute`` and ``einsum``
 lowerings on the CPU.  Params, optimizer slots and losses agree to atol
-2e-5: the same f32 arithmetic with sums taken in a different order."""
+2e-5: the same f32 arithmetic with sums taken in a different order.  One
+round of the reduced qwen3-moe-30b-a3b (MoE layers: the loss carries the
+router's load-balance term) is held to the reference's the same way."""
 
 import dataclasses
 
@@ -119,3 +121,24 @@ def test_profile_round_reports_without_device_events():
         == "gossip_mix kernel"
     assert kernel_part("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n") == "matrix products"
     assert kernel_part("Memcpy DtoD (Device -> Device)") == "copies and fills"
+
+
+def test_moe_round_matches_reference():
+    """One round of the reduced qwen3-moe-30b-a3b, 2 silos on a ring,
+    ``pallas`` mix, from the reference's initial state."""
+    n, arch = 2, "qwen3-moe-30b-a3b"
+    cfg_j = dataclasses.replace(j_get_config(arch).reduced(), n_silos=n)
+    state_j = j_init_state(cfg_j, j_momentum(0.05, 0.9), jax.random.PRNGKey(3))
+    init_np = jax.device_get(state_j)
+    raw = JBatcher(JStream(cfg_j.vocab_size, SEQ, n_silos=n), S_LOCAL, B).batch(0)
+    step_j = jax.jit(j_make_train_step(cfg_j, JFed(local_steps=S_LOCAL, gossip_impl="einsum"),
+                                       j_momentum(0.05, 0.9), j_plan("ring", n)))
+    state_j, metrics_j = step_j(state_j, {k: jax.numpy.asarray(v) for k, v in raw.items()})
+    cfg_t = dataclasses.replace(get_config(arch).reduced(), n_silos=n)
+    step = make_train_step(cfg_t, DPASGDConfig(local_steps=S_LOCAL, gossip_impl="pallas"),
+                           momentum(0.05, 0.9), plan_for_n_silos("ring", n))
+    state, metrics = step(from_jax_params(init_np, device="cpu"), batch_to_device(raw, CPU))
+    np.testing.assert_allclose(float(metrics["loss"]), float(metrics_j["loss"]), atol=2e-5)
+    expect = from_jax_params(jax.device_get(state_j), device="cpu")
+    np.testing.assert_allclose(state["params"].numpy(), expect["params"].numpy(), atol=2e-5)
+    np.testing.assert_allclose(state["opt_state"].numpy(), expect["opt_state"].numpy(), atol=2e-5)

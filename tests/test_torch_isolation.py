@@ -66,6 +66,21 @@ def test_dynamics_and_checkpoint_load_neither_jax_nor_reference():
     assert ("src", "repro_torch", "checkpoint") in scanned
 
 
+def test_moe_and_mla_load_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.models.moe, repro_torch.models.attention\n"
+        "import repro_torch.configs as C\n"
+        "C.get_config('deepseek-v2-lite-16b')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert REPO / "src" / "repro_torch" / "models" / "moe.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_or_jax_imports(path):
     bad = []
@@ -111,9 +126,10 @@ def _controller():
                             TrainingParams(42.88)),
     lambda: _controller(),
     lambda: train(_cfg(), dynamic=True, steps=1),
+    lambda: serve(get_config("qwen3-moe-30b-a3b").reduced(), batch=1, gen=2),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
         "design_overlay", "serve", "design_schedule", "OnlineTopologyController",
-        "train_dynamic"])
+        "train_dynamic", "serve_moe"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

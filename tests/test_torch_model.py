@@ -33,7 +33,7 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
-from repro_torch.models.params import tree_leaves_with_path  # noqa: E402
+from repro_torch.models.params import _silo_count, tree_leaves_with_path  # noqa: E402
 from repro_torch.optim import momentum, sgd  # noqa: E402
 
 
@@ -155,3 +155,86 @@ def test_init_params_and_layout_views():
     row = torch.zeros(layout.size)
     layout.flatten_into(p1, row)
     assert all(torch.equal(v, a) for v, (_, a) in zip(layout.leaf_views(row), leaves))
+
+
+# ---------------------------------------------------------------------------
+# The MoE, MLA and the last dense configs, reduced: forward, loss (cross
+# entropy plus the MoE load-balance loss) and gradients at the same
+# tolerances, the aux loss alone to 1e-6.
+
+ZOO = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "granite-20b", "mistral-large-123b"]
+ZOO_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+              "vocab_size", "padded_vocab_size", "block_pattern", "sliding_window",
+              "mlp_variant", "tie_embeddings", "rope_theta", "norm_eps", "use_flash_kernel")
+
+
+def _assert_same_config(cfg_t, cfg_j):
+    for f in ZOO_FIELDS:
+        assert getattr(cfg_t, f) == getattr(cfg_j, f), f
+    for f in ("moe", "mla"):
+        got, ref = getattr(cfg_t, f), getattr(cfg_j, f)
+        assert (got is None) == (ref is None), f
+        if ref is not None:
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref), f
+
+
+@pytest.fixture(scope="module", params=ZOO)
+def zoo(request):
+    arch = request.param
+    cfg_j = j_get_config(arch).reduced()
+    cfg_t = get_config(arch).reduced()
+    params_np = jax.device_get(j_init_params(jax.random.PRNGKey(2), JT.model_specs(cfg_j)))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg_t.vocab_size, size=(2, 16)).astype(np.int32)
+    labels = rng.integers(0, cfg_t.vocab_size, size=(2, 16)).astype(np.int32)
+    batch_j = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    logits_j, aux_j = jax.jit(lambda p: JT.forward(p, cfg_j, batch_j["tokens"]))(params_np)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: JT.loss_fn(p, cfg_j, batch_j)))(params_np)
+    ref = {"logits": np.asarray(logits_j), "aux": float(aux_j), "loss": float(loss_j),
+           "grads": jax.device_get(grads_j)}
+    return arch, cfg_j, cfg_t, params_np, tokens, labels, ref
+
+
+def test_zoo_reduced_config_and_specs_match(zoo):
+    _, cfg_j, cfg_t, params_np, _, _, _ = zoo
+    _assert_same_config(cfg_t, cfg_j)
+    ref = {p: tuple(np.shape(a)) for p, a in tree_leaves_with_path(params_np)}
+    got = {p: s.shape for p, s in tree_leaves_with_path(model_specs(cfg_t))}
+    assert ref == got
+    assert ParamLayout(model_specs(cfg_t)).size == sum(int(np.prod(s)) for s in ref.values())
+    # one model's tree (leaves leading with V, D, E or F) is one silo, not a stack
+    assert _silo_count(params_np) == 1
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_full_width_config_matches(arch):
+    """The published config, and a depth cut that keeps the first kinds of
+    the pattern (deepseek's dense first layer survives), with the
+    reference's parameter count."""
+    _assert_same_config(get_config(arch), j_get_config(arch))
+    n = 2
+    full_t = get_config(arch, n_layers=n)
+    full_j = j_get_config(arch, n_layers=n, block_pattern=j_get_config(arch).block_pattern[:n])
+    _assert_same_config(full_t, full_j)
+    if arch.startswith("deepseek"):
+        assert full_t.block_pattern == ("mla", "mla_moe")
+    ref = sum(int(np.prod(s.shape)) for _, s in tree_leaves_with_path(JT.model_specs(full_j)))
+    assert ParamLayout(model_specs(full_t)).size == ref
+
+
+def test_zoo_forward_loss_and_gradients_match(zoo):
+    _, _, cfg_t, params_np, tokens, labels, ref_out = zoo
+    params = from_jax_params(params_np, device="cpu")
+    leaves = [leaf.requires_grad_() for _, leaf in tree_leaves_with_path(params)]
+    batch = {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()}
+    logits, aux = TT.forward(params, dataclasses.replace(cfg_t, remat=False), batch["tokens"],
+                             return_aux=True)
+    np.testing.assert_allclose(logits.detach().numpy(), ref_out["logits"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(aux.detach()), ref_out["aux"], rtol=1e-6, atol=1e-6)
+    assert (ref_out["aux"] > 0) == (cfg_t.moe is not None)
+    loss = TT.loss_fn(params, cfg_t, batch)  # remat: the checkpointed blocks carry (x, aux)
+    np.testing.assert_allclose(float(loss.detach()), ref_out["loss"], rtol=1e-5)
+    loss.backward()
+    ref = dict(tree_leaves_with_path(ref_out["grads"]))
+    for (path, _), leaf in zip(tree_leaves_with_path(params), leaves):
+        np.testing.assert_allclose(leaf.grad.numpy(), ref[path], atol=1e-5, err_msg=str(path))

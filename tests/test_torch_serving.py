@@ -1,7 +1,11 @@
 """The port's serving path (prefill, decode, KV caches, the serve entry
 point) against the JAX package, on JAX-initialised weights carried over
 with ``from_jax_params``, for internlm2-1.8b (no window) and
-h2o-danube-1.8b (sliding window, ring-buffer cache) reduced.
+h2o-danube-1.8b (sliding window, ring-buffer cache) reduced, and for the
+reduced MoE (qwen3-moe-30b-a3b; deepseek-v2-lite-16b, whose MLA layers
+cache their latents) and the last dense configs (granite-20b's MQA and
+GELU MLP, mistral-large-123b); the reduced MoE configs are dropless, so
+decode continues the prefill as the full forward does.
 
 Tolerances: logits and float32 caches 1e-5 (as tests/test_torch_model.py:
 float32 sums in another order); decode continuations 1e-5 against the JAX
@@ -29,7 +33,8 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import from_jax_params  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["internlm2-1.8b", "h2o-danube-1.8b"]
+ARCHS = ["internlm2-1.8b", "h2o-danube-1.8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
+         "granite-20b", "mistral-large-123b"]
 CFG_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
               "vocab_size", "padded_vocab_size", "block_pattern", "sliding_window",
               "global_attn_every", "use_flash_kernel", "rope_theta", "norm_eps")
@@ -67,7 +72,8 @@ def _assert_caches_equal(got, ref, atol):
     assert len(got) == len(ref)
     for layer, (c, r) in enumerate(zip(got, ref)):
         assert torch.equal(c["pos"], torch.from_numpy(np.array(r["pos"])).int()), layer
-        for key in ("k", "v"):
+        assert c.keys() == r.keys(), layer
+        for key in sorted(set(c) - {"pos"}):  # k, v; or an MLA layer's c_kv, k_rope
             np.testing.assert_allclose(c[key].numpy(), np.asarray(r[key]), atol=atol,
                                        rtol=atol, err_msg=f"layer {layer} {key}")
 
@@ -189,7 +195,9 @@ def test_flash_kernel_prefill_matches_jax_pallas_interpret(model):
     ["--reduced", "--device", "cpu", "--batch", "2", "--gen", "4"],
     ["--arch", "h2o-danube-1.8b", "--reduced", "--device", "cpu", "--batch", "1",
      "--prompt-len", "128", "--gen", "3", "--flash-kernel"],
-], ids=["internlm2", "danube-flash"])
+    ["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "16", "--gen", "3"],
+], ids=["internlm2", "danube-flash", "qwen3-moe"])
 def test_serve_cli_runs_in_process(argv, capsys):
     assert serve_mod.main(argv) == 0
     out = capsys.readouterr().out
