@@ -180,6 +180,32 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    finite losses equal to cross entropy plus the router's aux loss, the
    round's profile; then one more round whose mix through K2 equals, bit
    for bit, K2's plain version on the same stack.
+23. holds K3 against its plain version at hymba-1.5b's prefill shape (B=2,
+   S=T=4096, K=5, G=5, hd=64, window 1024: 125 of a block's 128 query rows
+   live) and internvl2-76b's (B=2, S=T=1280: 256 patches and a 1024-token
+   prompt, K=8, G=8, hd=128, causal), float32 at 2e-5, and times each in
+   turns with its plain version and a causal GQA
+   ``scaled_dot_product_attention`` (at hymba's also with the window as a
+   boolean mask, the same function), beside its 3xTF32 bound;
+24. serves hymba-1.5b (all 32 layers: 30 windowed, 2 global; batch 2, a
+   4096-token prompt, four windows, 32 tokens) and internvl2-76b (4 of 80
+   layers; batch 2, 256 seeded patch embeddings and a 1024-token prompt, 16
+   tokens) at full width through ``serve`` with ``use_flash_kernel``: K3
+   launches in prefill equal to the attention layers (32 and 4), none in
+   decode, finite logits, the kernel prefill against the plain prefill (<=
+   2e-3), the last decode step against a teacher-forced plain forward (<=
+   5e-3), each attention layer through K3 against its plain path and each
+   Mamba layer's chunked scan (output, final state, the head's output)
+   against the per-token loop on the layer's recorded input (<= 2e-3); the
+   scan's and the Mamba heads' share of a warm prefill by CUDA events, a
+   profile of prefill and decode; then both reduced configs on the card
+   against the CPU (<= 1e-4);
+25. trains hymba-1.5b (all 32 layers) through ``train`` on 2 silos of a
+   ring, ``gossip_impl="pallas"``, 3 rounds: one ``gossip_mix`` launch a
+   round, finite losses, peak under 70 GiB, the round's profile; then one
+   more round whose mix through K2 equals K2's plain version on the same
+   stack bit for bit; and times K2 at the round's [2, 2 P] shape in turns
+   with the grid-stride kernel, ``torch.lerp`` and its plain version.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -241,6 +267,17 @@ ZOO_SERVE = (("qwen3-moe-30b-a3b", 8), ("deepseek-v2-lite-16b", 8), ("granite-20
 ZOO_RUN = (2, 1024, 16)
 # DPASGD on the MoE model: (arch, layers kept, silos on a ring, rounds)
 MOE_TRAIN = ("qwen3-moe-30b-a3b", 1, 2, 3)
+# K3 at hymba-1.5b's prefill shape (G = 5, hd 64, its 1024-token window)
+# and internvl2-76b's (256 patches + a 1024-token prompt, G = 8, hd 128):
+# (B, S = T, K, G, hd, window)
+K3_HYBRID_VLM = {"hymba-1.5b": (2, 4096, 5, 5, 64, 1024),
+                 "internvl2-76b": (2, 1280, 8, 8, 128, None)}
+# the hybrid and the vision-prefix backbone served at full width: (arch,
+# layers kept, batch, prompt length, tokens generated); hymba's 4096-token
+# prompt is four windows, so its ring buffers wrap
+HYBRID_VLM_SERVE = (("hymba-1.5b", 32, 2, 4096, 32), ("internvl2-76b", 4, 2, 1024, 16))
+# DPASGD on hymba: (arch, layers kept, silos on a ring, rounds)
+HYMBA_TRAIN = ("hymba-1.5b", 32, 2, 3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1548,11 +1585,12 @@ def flash_kernel_phase(torch, dev) -> dict:
 
 
 def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float,
-                  focus: str = "flash_attention") -> dict:
+                  focus: str = "flash_attention", vision_embeds=None) -> dict:
     """Where a full-size prefill's and a decode step's time goes:
     ``torch.profiler`` device time by kernel against the traced and the
     untraced wall; ``focus`` names the hand-written kernel whose share is
-    printed.  Returns the decode step's kernels and device-busy seconds."""
+    printed; a VLM's prefill takes ``vision_embeds``.  Returns the decode
+    step's kernels and device-busy seconds."""
     from repro_torch.models import transformer as T
 
     def top(kernels, n=6):
@@ -1562,7 +1600,8 @@ def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: floa
     with torch.no_grad():
         state = {}
         traced, kernels = device_kernels(torch, lambda: state.update(cache=T.prefill(
-            params, cfg, prompts, max_len, cache_dtype=torch.float32)[1]))
+            params, cfg, prompts, max_len, cache_dtype=torch.float32,
+            vision_embeds=vision_embeds)[1]))
         if not kernels:
             print("serve profile: device time not measured (no device events)")
             return {}
@@ -1574,7 +1613,7 @@ def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: floa
         top(kernels)
         tok = prompts[:, -1]
         steps = 4
-        pos = prompts.shape[1]
+        pos = cfg.vision_prefix_len + prompts.shape[1]
 
         def decode():
             for i in range(steps):
@@ -2737,6 +2776,371 @@ def moe_train_phase(torch, dev) -> dict:
     return out
 
 
+def flash_hybrid_vlm_phase(torch, dev) -> dict:
+    """K3 at hymba-1.5b's prefill shape (G = 5, hd 64, window 1024) and at
+    internvl2-76b's (G = 8, hd 128, prefix plus prompt, causal) against its
+    plain version, then timed in turns with its plain version and
+    ``scaled_dot_product_attention`` (causal GQA; for the window also with
+    the window as a boolean mask, the same function), beside its bound."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for name, (B, S, K, G, hd, window) in K3_HYBRID_VLM.items():
+        q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+        k = torch.randn((B, S, K, hd), generator=gen, device=dev)
+        v = torch.randn((B, S, K, hd), generator=gen, device=dev)
+        ref = flash_attention_ref(q, k, v, causal=True, window=window)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        err = float((got - ref).abs().max())
+        check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+              f"flash_attention at the {name} prefill shape: max abs err {err}")
+        # Yardsticks only, never called by the port: one GQA
+        # scaled_dot_product_attention over [B, H, S, hd].
+        qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        pos = torch.arange(S, device=dev)
+
+        def sdpa_causal():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+        runs = {"kernel": (lambda: flash_attention(q, k, v, causal=True, window=window), 10),
+                "plain": (lambda: flash_attention_ref(q, k, v, causal=True, window=window), 3),
+                "sdpa_causal": (sdpa_causal, 5)}
+        if window is not None:
+            mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+
+            def sdpa_window():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+            same = sdpa_window().transpose(1, 2).reshape(q.shape)
+            same_txt = (f"max abs diff of the masked one to plain "
+                        f"{float((same - ref).abs().max()):.3g}")
+            del same
+            runs["sdpa_window"] = (sdpa_window, 3)
+        else:
+            same = sdpa_causal().transpose(1, 2).reshape(q.shape)
+            same_txt = f"max abs diff to plain {float((same - ref).abs().max()):.3g}"
+            del same
+        del got, ref
+        times = {n: [] for n in runs}
+        for n in list(runs) + list(runs)[::-1]:
+            fn, reps = runs[n]
+            times[n].append(time_ms(torch, fn, reps=reps, warmup=1))
+        mean = {n: sum(t) / len(t) for n, t in times.items()}
+        bound, by = attn_bound_ms(B, S, S, K, G, hd, window, 4, passes=3, rate=TF32_FLOPS)
+        bound_f32, _ = attn_bound_ms(B, S, S, K, G, hd, window, 4)
+        pairs = attn_pairs(S, S, True, window) * B * K * G
+        library = "sdpa_window" if window is not None else "sdpa_causal"
+        print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} window={window} f32 "
+              f"({name} prefill), in turns: ms {fmt_times(times['kernel'])}  plain_ms "
+              f"{fmt_times(times['plain'])}  scaled_dot_product_attention causal GQA "
+              f"{fmt_times(times['sdpa_causal'])}" + (
+                  f"  with the window as a boolean mask {fmt_times(times['sdpa_window'])}"
+                  if window is not None else "") +
+              f" ({same_txt})  bound_ms {bound:.4f} ({by}, 3xTF32 at "
+              f"{TF32_FLOPS / 1e12:.0f} TFLOP/s; {pairs} visible pairs)  float32 CUDA-core bound "
+              f"{bound_f32:.4f}  max_abs_err {err:.3g}  achieved "
+              f"{4 * hd * pairs / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of fp32-accurate "
+              f"products ({bound / mean['kernel']:.1%} of the bound)")
+        out[name] = {"ms": mean["kernel"], "plain_ms": mean["plain"],
+                     "library_ms": mean[library], "sdpa_causal_ms": mean["sdpa_causal"],
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def event_timed(torch, module, name: str, spent: list):
+    """Replace ``module.name`` by a wrapper that records a CUDA event
+    before and after each call; ``spent`` gets the (start, end) pairs."""
+    orig = getattr(module, name)
+
+    def run(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = orig(*args, **kwargs)
+        end.record()
+        spent.append((start, end))
+        return res
+
+    setattr(module, name, run)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, orig)
+
+
+def hybrid_layers_gate(torch, cfg, attn_in, mamba_in, arch: str) -> tuple:
+    """Each recorded attention input through K3 (``cfg``) against the
+    plain path, and each recorded Mamba head input through the chunked
+    scan against the per-token loop (output and final state), <= 2e-3;
+    the largest differences.  A function of its own, so that no loop
+    variable holds a view of the model's parameters after it returns."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm as SSM
+
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    attn_err = scan_err = 0.0
+    with torch.no_grad():
+        for p, x, positions, window in attn_in:
+            got = A.attn_forward(p, cfg, x, positions, window=window)
+            ref = A.attn_forward(p, plain_cfg, x, positions, window=window)
+            err = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, atol=2e-3, rtol=2e-3),
+                  f"{arch}: attention layer (window {window}) through K3 vs plain max abs "
+                  f"diff {err}")
+            attn_err = max(attn_err, err)
+        di = HY.hymba_d_inner(cfg)
+        for layer, (p, x) in enumerate(mamba_in):
+            u, z, C, dA, dBu = SSM._mamba_scan_inputs(p, x, di, cfg.ssm.d_state)
+            y, h = SSM.mamba_scan_chunked(dA, dBu, C)
+            y_ref, h_ref = SSM.mamba_scan_loop(dA, dBu, C)
+            del dA, dBu
+            out = SSM._mamba_out(p, x.dtype, y, u, z)
+            out_ref = SSM._mamba_out(p, x.dtype, y_ref, u, z)
+            errs = [float((a - b).abs().max()) for a, b in ((y, y_ref), (h, h_ref),
+                                                            (out, out_ref))]
+            check(all(torch.allclose(a, b, atol=2e-3, rtol=2e-3)
+                      for a, b in ((y, y_ref), (h, h_ref), (out, out_ref))),
+                  f"{arch}: Mamba layer {layer} chunked scan vs loop max abs diff (y, h, out) "
+                  f"{errs}")
+            scan_err = max(scan_err, *errs)
+    return attn_err, scan_err
+
+
+def hybrid_vlm_serve_phase(torch, dev) -> dict:
+    """hymba-1.5b (no depth cut) and internvl2-76b (4 of 80 layers) served
+    at full width through ``serve``, each run with the counts set to 0
+    just before it and read just after; the whole-model checks, every
+    attention layer through K3 against plain and every Mamba layer's
+    chunked scan against its loop on the layer's recorded input; the
+    scan's share of a warm prefill by CUDA events and a profile; then the
+    reduced configs on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import ParamLayout, init_params, model_specs
+    from repro_torch.models import attention as A
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    for arch, layers, batch, prompt_len, gen in HYBRID_VLM_SERVE:
+        cfg = get_config(arch, n_layers=layers, use_flash_kernel=True)
+        prefix = cfg.vision_prefix_len
+        n_attn = sum(kind in ("attn", "attn_moe", "hymba") for kind in cfg.block_pattern)
+        n_mamba = cfg.block_pattern.count("hymba")
+        P = ParamLayout(model_specs(cfg)).size
+        print(f"serve: {arch} d_model {cfg.d_model} heads {cfg.n_heads} kv_heads "
+              f"{cfg.n_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
+              f"window {cfg.sliding_window} (global every {cfg.global_attn_every}) vision prefix "
+              f"{prefix}; layers {layers} of {get_config(arch).n_layers} ({n_attn} through K3, "
+              f"{n_mamba} Mamba heads of width {HY.hymba_d_inner(cfg) if n_mamba else 0}); P {P} "
+              f"({P * 4 / 1e9:.2f} GB float32); batch {batch}, {prefix} patches + prompt "
+              f"{prompt_len}, {gen} tokens, flash kernel")
+        params = init_params(model_specs(cfg), seed=0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=0, device=dev,
+                    params=params, log=lambda line: print(f"serve: {line}", flush=True))
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        fa = res.launches["prefill"]["flash_attention"]
+        check(launches["flash_attention"] == fa == n_attn,
+              f"{arch}: flash_attention launched {launches['flash_attention']} times, "
+              f"expected {n_attn} (one per attention layer)")
+        check(res.launches["decode"]["flash_attention"] == 0, f"{arch}: decode launched K3")
+        check(bool(torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.logits).all()),
+              f"{arch}: non-finite logits")
+        embeds = res.vision_embeds
+        max_len = prefix + prompt_len + gen
+
+        # the plain prefill, recording each attention layer's and Mamba head's input
+        plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+        attn_in, mamba_in = [], []
+        orig_attn, orig_mamba = A.attn_forward, HY.mamba_forward
+
+        def attn_rec(p, c, x, positions, **kw):
+            attn_in.append((p, x, positions, kw.get("window")))
+            return orig_attn(p, c, x, positions, **kw)
+
+        def mamba_rec(p, c, x, di, **kw):
+            mamba_in.append((p, x))
+            return orig_mamba(p, c, x, di, **kw)
+
+        # the dense blocks call A.attn_forward, the hybrid block its own import
+        A.attn_forward = HY.attn_forward = attn_rec
+        HY.mamba_forward = mamba_rec
+        try:
+            with torch.no_grad():
+                plain, _ = T.prefill(params, plain_cfg, res.prompts, max_len,
+                                     cache_dtype=torch.float32, vision_embeds=embeds)
+        finally:
+            A.attn_forward = HY.attn_forward = orig_attn
+            HY.mamba_forward = orig_mamba
+        d_prefill = float((res.prefill_logits - plain).abs().max())
+        check(torch.allclose(res.prefill_logits, plain, atol=2e-3, rtol=2e-3),
+              f"{arch}: kernel prefill vs plain prefill max abs diff {d_prefill}")
+        del plain
+        check(len(attn_in) == n_attn and len(mamba_in) == n_mamba,
+              f"{arch}: recorded {len(attn_in)} attention and {len(mamba_in)} Mamba inputs")
+        t0 = time.perf_counter()
+        attn_err, scan_err = hybrid_layers_gate(torch, cfg, attn_in, mamba_in, arch)
+        gate_s = time.perf_counter() - t0
+        del attn_in, mamba_in
+        seq = torch.cat([res.prompts, res.ids[:, :-1]], dim=1)
+        with torch.no_grad():
+            # the teacher-forced forward's last position: prefill of the
+            # whole sequence on the plain path, which slices before the head
+            forced, _ = T.prefill(params, plain_cfg, seq, prefix + seq.shape[1],
+                                  cache_dtype=torch.float32, vision_embeds=embeds)
+        d_decode = float((res.logits - forced).abs().max())
+        check(torch.allclose(res.logits, forced, atol=5e-3, rtol=5e-3),
+              f"{arch}: last decode step vs teacher-forced forward max abs diff {d_decode}")
+        del forced, seq
+        print(f"serve: {arch} checks: kernel vs plain prefill logits {d_prefill:.3g} (tol 2e-3), "
+              f"each K3 attention layer vs plain on its input {attn_err:.3g} (tol 2e-3, {n_attn} "
+              f"layers), each Mamba layer's chunked scan vs the per-token loop on its input "
+              f"(y, final state, head output) {scan_err:.3g} (tol 2e-3, {n_mamba} layers; "
+              f"the gate took {gate_s:.1f} s), last decode vs teacher-forced forward "
+              f"{d_decode:.3g} (tol 5e-3)")
+
+        # a warm prefill with the scan and the Mamba heads timed by CUDA events
+        prof = {}
+        if n_mamba:
+            scans, heads = [], []
+            with torch.no_grad(), event_timed(torch, SSM, "mamba_scan_chunked", scans), \
+                    event_timed(torch, HY, "mamba_forward", heads):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                T.prefill(params, cfg, res.prompts, max_len, cache_dtype=torch.float32)
+                torch.cuda.synchronize()
+                warm = time.perf_counter() - t0
+            scan_s = sum(a.elapsed_time(b) for a, b in scans) / 1e3
+            head_s = sum(a.elapsed_time(b) for a, b in heads) / 1e3
+            Di, N = HY.hymba_d_inner(cfg), cfg.ssm.d_state
+            elems = batch * prompt_len * Di * N
+            C = SSM.mamba_chunk_len(prompt_len)
+            print(f"serve: {arch} Mamba scan (chunk {C}: {C} + {-(-prompt_len // C)} steps a "
+                  f"layer) {scan_s:.4f} s over "
+                  f"{len(scans)} layers ({scan_s / len(scans) * 1e3:.3f} ms a layer), the whole "
+                  f"Mamba heads {head_s:.4f} s, of a warm {warm:.4f} s prefill: scan share "
+                  f"{scan_s / warm:.3f}, head share {head_s / warm:.3f} (CUDA events around each "
+                  f"call); dA and dBu {elems * 4 / 1e9:.3f} GB each a layer; peak of the warm "
+                  f"prefill {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            prof.update(scan_s=scan_s, head_s=head_s, warm_prefill_s=warm,
+                        scan_share=scan_s / warm, head_share=head_s / warm)
+        prof.update(serve_profile(torch, params, cfg, res.prompts, max_len,
+                                  res.decode_s / (gen - 1), vision_embeds=embeds))
+        print(f"serve: {arch} prefill {res.prefill_s:.4f} s  decode {res.decode_tok_s:.2f} tok/s "
+              f"({gen - 1} steps x batch {batch} in {res.decode_s:.4f} s)  peak device memory "
+              f"{peak / 2**30:.2f} GiB  P {P}  flash_attention launches prefill {fa} decode "
+              f"{res.launches['decode']['flash_attention']}")
+        out[arch] = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+                     "peak_bytes": peak, "launches": fa, "P": P, "d_prefill": d_prefill,
+                     "d_decode": d_decode, "attn_err": attn_err, "scan_err": scan_err, **prof}
+        del res, params, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # card (kernel) vs CPU (plain version) at the reduced size, same weights
+    for arch, *_ in HYBRID_VLM_SERVE:
+        cfg = dataclasses.replace(get_config(arch).reduced(), use_flash_kernel=True)
+        prefix = cfg.vision_prefix_len
+        params = init_params(model_specs(cfg), seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (2, 128 - prefix))
+        embeds = rng.standard_normal((2, prefix, 1024)).astype(np.float32) if prefix else None
+        runs = [serve(cfg, batch=2, prompt_len=128 - prefix, gen=4, device=d, prompts=prompts,
+                      vision_embeds=embeds, params=p, log=lambda line: None)
+                for d, p in ((dev, tree_map(lambda t: t.to(dev), params)), ("cpu", params))]
+        d_pre = float((runs[0].prefill_logits.cpu() - runs[1].prefill_logits).abs().max())
+        d_last = float((runs[0].logits.cpu() - runs[1].logits).abs().max())
+        same_ids = bool(torch.equal(runs[0].ids.cpu(), runs[1].ids))
+        print(f"serve parity: reduced {arch} ({cfg.block_pattern}, d_model {cfg.d_model}) at "
+              f"{prefix} patches + {128 - prefix} tokens, card vs CPU: prefill logits "
+              f"{d_pre:.3g}, last decode logits {d_last:.3g} (tolerance 1e-4); ids equal "
+              f"{same_ids}; K3 launches {runs[0].launches['prefill']['flash_attention']}")
+        check(runs[0].launches["prefill"]["flash_attention"] == cfg.n_layers,
+              f"reduced {arch} on the card launched K3 "
+              f"{runs[0].launches['prefill']['flash_attention']} times")
+        check(same_ids and d_pre <= 1e-4 and d_last <= 1e-4,
+              f"reduced {arch}: card and CPU serving differ: prefill {d_pre}, last {d_last}")
+    return out
+
+
+def hymba_train_phase(torch, dev) -> dict:
+    """DPASGD on hymba-1.5b at full size through ``train``: one K2 launch a
+    round, finite losses, the peak against the prediction, the round's
+    profile, and one more round whose K2 mix equals its plain version on
+    the same stack bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_round import profile_round, report
+    from repro_torch.launch.train import batch_to_device, train
+    from repro_torch.models import ParamLayout, model_specs
+
+    arch, layers, silos, steps = HYMBA_TRAIN
+    cfg = get_config(arch, n_layers=layers)
+    P = ParamLayout(model_specs(cfg)).size
+    print(f"hymba train: {arch} d_model {cfg.d_model} layers {layers} (of "
+          f"{get_config(arch).n_layers}), P {P}; {silos} silos, ring, pallas, s 2, 4 x 64 tokens "
+          f"a silo; (K + 2) n P 4 bytes = {4 * silos * P * 4 / 1e9:.2f} GB predicted at K = 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = train(cfg, silos=silos, topology="ring", gossip_impl="pallas", local_steps=2,
+                batch_per_silo=4, seq_len=64, steps=steps, device=dev,
+                log=lambda line: print(f"hymba train: {line}", flush=True))
+    launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
+        print(f"hymba train: round {i} wall {sec:.4f} s loss {loss:.6f}")
+    check(all(math.isfinite(x) for x in res.losses), f"non-finite loss {res.losses}")
+    check(launches["gossip_mix"] == steps,
+          f"hymba train: gossip_mix launched {launches['gossip_mix']} times in {steps} rounds")
+    check(res.state["params"].shape == (silos, P), f"state {tuple(res.state['params'].shape)}")
+    check(peak < 70 * 2**30, f"hymba train: peak {peak / 2**30:.2f} GiB")
+    prof = profile_round(res, steps)
+    for line in report(prof, top=10):
+        print(f"hymba train profile: {line}", flush=True)
+
+    # one more round: its mix through K2, then K2's plain version on the same stack
+    batch = batch_to_device(res.batcher.batch(steps + 1), dev)
+    step = make_train_step(res.cfg, res.fed, res.optimizer, res.plan)
+    reset_launch_counts()
+    with mix_against_plain(torch, []) as mixes:
+        res.state, _ = step(res.state, batch)
+    check(LAUNCHES["gossip_mix"] == 1 and len(mixes) == 1,
+          f"hymba train: the checked round launched gossip_mix {LAUNCHES['gossip_mix']} times")
+    same, diff = mixes[0]
+    print(f"hymba train: one more round, its mix through gossip_mix vs the plain version on the "
+          f"same [{len(res.plan.terms)}, {silos * P}] stack: bit-identical {same} (max abs diff "
+          f"{diff:.3g}); peak device memory {peak / 2**30:.2f} GiB over the {steps} rounds; "
+          f"gossip_mix launches {launches['gossip_mix']} in {steps} rounds")
+    check(same, f"hymba train: gossip_mix and its plain version differ by {diff}")
+    out = {"launches": launches["gossip_mix"], "n_elems": silos * P, "P": P,
+           "K": len(res.plan.terms), "peak_bytes": peak, "round_s": res.step_seconds,
+           "losses": res.losses, "idle_share": prof["idle_share"]}
+    del res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2818,6 +3222,17 @@ def main() -> int:
     zoo = zoo_serve_phase(torch, dev)
     mtr = moe_train_phase(torch, dev)
     zoo_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"hybrid and vlm phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+          "allocated from the earlier phases")
+    t0 = time.perf_counter()
+    attn_hv = flash_hybrid_vlm_phase(torch, dev)
+    hv = hybrid_vlm_serve_phase(torch, dev)
+    htr = hymba_train_phase(torch, dev)
+    hymba_shape = slice_shape_phase(torch, dev, htr["K"], htr["n_elems"])
+    torch.cuda.empty_cache()
+    hv_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -2867,17 +3282,31 @@ def main() -> int:
           + f"; moe train round wall s {[round(x, 4) for x in mtr['round_s']]}, peak GiB "
           f"{mtr['peak_bytes'] / 2**30:.2f}, idle share {mtr['idle_share']}; zoo phases took "
           f"{zoo_s:.1f} s")
+    print("summary: flash_attention " + "; ".join(
+        f"{a} prefill shape ms {r['ms']:.4f} (plain {r['plain_ms']:.4f}, causal GQA "
+        f"scaled_dot_product_attention {r['sdpa_causal_ms']:.4f}, the same function "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} at 3xTF32)"
+        for a, r in attn_hv.items()) + "; serve prefill s / decode tok/s / peak GiB: " + "; ".join(
+        f"{a} {r['prefill_s']:.4f} / {r['decode_tok_s']:.2f} / {r['peak_bytes'] / 2**30:.2f}"
+        for a, r in hv.items()) + f"; hymba Mamba scan share of a warm prefill "
+        f"{hv['hymba-1.5b']['scan_share']:.3f}; hymba train round wall s "
+        f"{[round(x, 4) for x in htr['round_s']]}, peak GiB {htr['peak_bytes'] / 2**30:.2f}, "
+        f"idle share {htr['idle_share']}; gossip_mix at the hymba shape (K={htr['K']}, "
+        f"N={htr['n_elems']}) ms {hymba_shape['ms']:.4f} (torch.lerp "
+        f"{hymba_shape['library_ms']:.4f}, bound {hymba_shape['bound_ms']:.4f}); hybrid and vlm "
+        f"phases took {hv_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     zoo_k3 = sum(r["launches"] for r in zoo.values())
+    hv_k3 = sum(r["launches"] for r in hv.values())
     record = {"kernels": [{
         "name": "gossip_mix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
-        "launches": tr["launches"] + dl["gossip_mix"] + mtr["launches"],
+        "launches": tr["launches"] + dl["gossip_mix"] + mtr["launches"] + htr["launches"],
         "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
-                             "moe_train": mtr["launches"]},
+                             "moe_train": mtr["launches"], "hymba_train": htr["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2915,8 +3344,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": danube["launches"] + zoo_k3,
-        "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3},
+        "launches": danube["launches"] + zoo_k3 + hv_k3,
+        "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3,
+                             "hybrid_and_vlm_serve": hv_k3},
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],

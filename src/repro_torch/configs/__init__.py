@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>", **overrides)``.
 
 Counterpart of ``repro.configs``.  Only the configurations the port can
-run are registered (the dense transformers, the MoE and MLA models and
-the xLSTM stack); the rest of the reference's zoo (hymba, whisper,
-internvl2) follows with their block kinds.
+run are registered (the dense transformers, the MoE and MLA models, the
+xLSTM stack, the Hymba hybrid and the vision-prefix backbone); the
+reference's last config, whisper's encoder-decoder, follows with its
+block kind.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ _MODULES: Dict[str, str] = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "granite-20b": "granite_20b",
     "mistral-large-123b": "mistral_large_123b",
+    "hymba-1.5b": "hymba_1_5b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

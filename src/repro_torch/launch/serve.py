@@ -7,10 +7,13 @@ states, on one card.
         --batch 4 --prompt-len 2048 --gen 129
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
         --reduced --device cpu --batch 2 --prompt-len 16 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --batch 2 --prompt-len 4096 --gen 32 --flash-kernel
 
 Counterpart of ``repro.launch.serve`` for every config of
-:mod:`repro_torch.configs` (the dense transformers, the MoE models, MLA
-and the xLSTM stack), with the same flags plus ``--device`` (default ``cuda``;
+:mod:`repro_torch.configs` (the dense transformers, the MoE models, MLA,
+the xLSTM stack, the Hymba hybrid and the vision-prefix backbone), with
+the same flags plus ``--device`` (default ``cuda``;
 ``--device cpu`` with ``--reduced`` runs the small variant on the CPU),
 ``--seed`` (weights and prompts) and ``--flash-kernel``, which sets the
 reference's ``use_flash_kernel`` (after ``--reduced``, which turns it
@@ -19,10 +22,18 @@ per ``attn`` / ``attn_moe`` layer (none for MLA, whose q.k and v widths
 differ; deepseek-v2-lite's layers are all MLA).  The mLSTM's
 K4 kernel runs only in the full-sequence ``forward``; prefill needs the
 final state and decode is one state update, so serving an xLSTM stack
-launches it no time, as in the reference.  Parameters, caches and
-states are float32, as in the reference's launcher.  ``main`` parses the
-flags and calls :func:`serve`, which scripts call with their own weights,
-prompts or depth.
+launches it no time, as in the reference.  Hymba's attention heads take
+K3 in prefill like any GQA layer.  A VLM (internvl2-76b) is served with
+``vision_embeds``, ``[B, vision_prefix_len, 1024]`` stub patch embeddings
+(seeded normal draws by default, where the reference's launcher uses
+ones): the prefix goes ahead of the prompt, so with ``--flash-kernel``
+prefix plus prompt must be a multiple of 128, decode starts at position
+``prompt_len + vision_prefix_len``, and the default cache length holds
+the prefix too (the reference's ``prompt_len + gen`` would wrap an
+unwindowed cache past the prefix).  Parameters, caches and states are
+float32, as in the reference's launcher.  ``main`` parses the flags and
+calls :func:`serve`, which scripts call with their own weights, prompts,
+embeddings or depth.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from repro_torch.models import transformer as T
 @dataclass
 class ServeResult:
     prompts: torch.Tensor            # [B, prompt_len] int64
+    vision_embeds: Optional[torch.Tensor]  # [B, vision_prefix_len, 1024] of a VLM, else None
     ids: torch.Tensor                # [B, gen] generated ids (greedy)
     logits: torch.Tensor             # [B, V] logits of the last step
     prefill_logits: torch.Tensor     # [B, V] last-token logits of the prefill
@@ -64,37 +76,53 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           max_len: int = 0, seed: int = 0, device: DeviceLike = "cuda",
           params=None, prompts: Optional[np.ndarray] = None,
+          vision_embeds: Optional[np.ndarray] = None,
           log: Callable[[str], None] = print) -> ServeResult:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     greedily to ``gen`` tokens in all.  Weights come from ``init_params``
     with ``seed`` unless ``params`` is given; prompts from a numpy
-    generator seeded with ``seed`` unless ``prompts`` is given.  Decode
-    positions are Python ints, so no step waits for the device."""
+    generator seeded with ``seed`` unless ``prompts`` is given; a VLM's
+    ``vision_embeds`` (float32 ``[B, vision_prefix_len, 1024]``) from a
+    normal draw of the same generator after the prompts unless given.
+    Decode positions are Python ints, so no step waits for the device."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
-    max_len = max_len or (prompt_len + gen)
-    if params is None:
-        params = init_params(model_specs(cfg), seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
     if prompts is None:
-        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, prompt_len))
+        prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long).to(dev)
     B, S = tokens.shape
+    prefix = cfg.vision_prefix_len
+    if prefix and vision_embeds is None:
+        vision_embeds = rng.standard_normal((B, prefix, 1024)).astype(np.float32)
+    embeds = (None if not prefix else
+              torch.as_tensor(np.asarray(vision_embeds), dtype=torch.float32).to(dev))
+    k3_layers = set(cfg.block_pattern) & {"attn", "attn_moe", "hymba"}
+    if cfg.use_flash_kernel and k3_layers and (prefix + S) % 128:
+        raise ValueError(f"use_flash_kernel sends prefill attention through K3, which needs "
+                         f"the prefill ({prefix} prefix + {S} prompt tokens) to be a multiple "
+                         f"of 128")
+    max_len = max_len or (prefix + S + gen)
+    if params is None:
+        params = init_params(model_specs(cfg), seed=seed, device=dev)
     with torch.no_grad():
         _sync(dev)
         before = dict(LAUNCHES)
         t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, tokens, max_len, cache_dtype=torch.float32)
+        logits, cache = T.prefill(params, cfg, tokens, max_len, cache_dtype=torch.float32,
+                                  vision_embeds=embeds)
         tok = logits.argmax(-1)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         mid = dict(LAUNCHES)
-        log(f"prefill[{B}x{S}] in {prefill_s:.2f}s")
+        patches = f" + {prefix} patches" if prefix else ""
+        log(f"prefill[{B}x{S}{patches}] in {prefill_s:.2f}s")
         prefill_logits = logits
         out: List[torch.Tensor] = [tok]
         t0 = time.perf_counter()
         for i in range(gen - 1):
-            logits, cache = T.decode_step(params, cfg, tok, cache, S + i)
+            logits, cache = T.decode_step(params, cfg, tok, cache, prefix + S + i)
             tok = logits.argmax(-1)
             out.append(tok)
         _sync(dev)
@@ -108,8 +136,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
     return ServeResult(
-        prompts=tokens, ids=ids, logits=logits, prefill_logits=prefill_logits,
-        prefill_s=prefill_s, decode_s=decode_s, decode_tok_s=tok_s,
+        prompts=tokens, vision_embeds=embeds, ids=ids, logits=logits,
+        prefill_logits=prefill_logits, prefill_s=prefill_s, decode_s=decode_s, decode_tok_s=tok_s,
         launches={"prefill": {k: mid[k] - before[k] for k in before},
                   "decode": {k: after[k] - mid[k] for k in before}})
 
@@ -125,9 +153,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--flash-kernel", action="store_true",
-                    help="use_flash_kernel: attention prefill through K3 (prompt-len a "
-                         "multiple of 128); the mLSTM's K4 runs only in forward, so "
-                         "xlstm serving is unchanged by it")
+                    help="use_flash_kernel: attention prefill through K3 (a VLM's prefix "
+                         "plus prompt-len a multiple of 128); the mLSTM's K4 runs only in "
+                         "forward, so xlstm serving is unchanged by it")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:

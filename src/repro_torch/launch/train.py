@@ -6,9 +6,12 @@
 Counterpart of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``; ``--device cpu`` with ``--reduced`` runs
 the small variant on the CPU).  ``--arch`` takes any config of
-:mod:`repro_torch.configs`: the dense transformers, the MoE models
-(qwen3-moe-30b-a3b; deepseek-v2-lite-16b with MLA; their loss carries
-the router's load-balance term, as the reference's does) and xlstm-350m.
+:mod:`repro_torch.configs` but the vision-prefix one: the dense
+transformers, the MoE models (qwen3-moe-30b-a3b; deepseek-v2-lite-16b
+with MLA; their loss carries the router's load-balance term, as the
+reference's does), xlstm-350m and hymba-1.5b.  internvl2-76b is refused:
+the token stream supplies no patch embeddings, and the reference's
+``forward`` asserts on them.
 ``main`` parses the flags and calls :func:`train`, which scripts can
 call at a depth the CLI has no flag for.
 
@@ -192,6 +195,10 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     ``checkpoint`` writes the final parameters (every silo's) there in
     the reference's format."""
     dev = resolve_device(device)
+    if cfg.vision_prefix_len:
+        raise ValueError(f"{cfg.arch_id} needs vision_embeds for its {cfg.vision_prefix_len}-"
+                         "patch prefix, which the token stream does not supply; train a "
+                         "config without a vision prefix")
     if gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(gossip_impl)
     if topology not in TOPOLOGIES:

@@ -1,14 +1,17 @@
 """GQA attention (causal / sliding-window), DeepSeek MLA (multi-head
 latent attention, absorbed decode) and their serving caches; counterpart
 of ``repro.models.attention`` (``attn_specs``, ``chunked_attention``,
-``naive_attention``, ``attn_forward``, the KV caches, ``attn_decode``
-and the MLA functions).
+``banded_swa_attention``, ``naive_attention``, ``attn_forward``, the KV
+caches, ``attn_decode`` and the MLA functions).
 
-Full-sequence attention runs on the chunked online-softmax path (one
-score block per ``kv_block`` keys, running max and normaliser in
-float32, masked scores set to ``MASKED``), or, when
+Full-sequence attention runs in the reference's order of dispatch: when
 ``cfg.use_flash_kernel`` and the attention is causal, through the
-flash-attention kernel (K3, :func:`repro_torch.kernels.flash_attention`).
+flash-attention kernel (K3, :func:`repro_torch.kernels.flash_attention`);
+else, with ``cfg.banded_swa`` and a window shorter than half the
+sequence, on the banded path (each query block against only its visible
+key band); else on the chunked online-softmax path (one score block per
+``kv_block`` keys, running max and normaliser in float32, masked scores
+set to ``MASKED``).
 MLA always takes the chunked path, in both packages: its q.k width
 (``qk_nope_dim + qk_rope_dim``, 192 for deepseek-v2-lite) differs from
 its v width (128), while K3 takes one head dim for q, k and v.
@@ -116,6 +119,43 @@ def naive_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     return torch.einsum("bskgt,btkd->bskgd", p, v.to(torch.float32)).to(q.dtype)
 
 
+def math_gcd_block(S: int, prefer: int) -> int:
+    """The largest block length up to ``prefer`` that divides ``S``."""
+    b = min(prefer, S)
+    while S % b:
+        b -= 1
+    return b
+
+
+def banded_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor, *, window: int,
+                         q_block: int = 1024) -> torch.Tensor:
+    """Causal sliding-window attention that touches only the key band each
+    query block can see: O(S * window) instead of O(S^2).  q [B, S, K, G,
+    hd], k and v [B, S, K, hd], ``positions`` [S].  Each block of
+    ``q_block`` queries (a divisor of S) takes the ``q_block + window``
+    keys that end with it (clamped to the sequence), as the reference."""
+    B, S, K, G, hd = q.shape
+    if S % q_block:
+        q_block = math_gcd_block(S, q_block)
+    band = min(q_block + window, S)
+    scale = hd ** -0.5
+    out = torch.empty_like(q)
+    for qi in range(S // q_block):
+        s0 = qi * q_block
+        start = min(max(s0 + q_block - band, 0), S - band)
+        pc = positions[s0:s0 + q_block]
+        kv_pos = start + torch.arange(band, device=q.device)
+        s = torch.einsum("bskgd,btkd->bskgt", q[:, s0:s0 + q_block].float() * scale,
+                         k[:, start:start + band].float())
+        mask = (kv_pos[None, :] <= pc[:, None]) & (pc[:, None] - kv_pos[None, :] < window)
+        s = torch.where(mask[None, :, None, None, :], s, MASKED)
+        p = torch.softmax(s, dim=-1)
+        out[:, s0:s0 + q_block] = torch.einsum(
+            "bskgt,btkd->bskgd", p, v[:, start:start + band].float()).to(q.dtype)
+    return out
+
+
 def _qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor):
     """Projections and RoPE: q [B, S, K, G, hd], k and v [B, S, K, hd]."""
@@ -135,13 +175,16 @@ def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                  window: Optional[int] = None, return_kv: bool = False):
     """GQA block forward.  x: [B, S, D].  Causal attention goes through
     the flash-attention kernel when ``cfg.use_flash_kernel``, else the
-    chunked path.  With ``return_kv`` also returns the post-RoPE
-    ``(k, v)`` for the serving cache."""
+    banded path when ``cfg.banded_swa`` and ``S > 2 * window``, else the
+    chunked path.  With ``return_kv`` also returns the post-RoPE ``(k,
+    v)`` for the serving cache."""
     B, S = x.shape[:2]
     qg, k, v = _qkv(p, cfg, x, positions)
     if cfg.use_flash_kernel and causal:
         out = kops.flash_attention(qg, k, v, positions, positions,
                                    causal=causal, window=window)
+    elif cfg.banded_swa and causal and window is not None and S > 2 * window:
+        out = banded_swa_attention(qg, k, v, positions, window=window)
     else:
         out = chunked_attention(qg, k, v, positions, positions, causal=causal,
                                 window=window)

@@ -1,13 +1,16 @@
 """Model configuration of the decoder-only transformers (dense GQA/MQA,
-MoE, DeepSeek MLA) and the xLSTM stack.
+MoE, DeepSeek MLA, the vision-prefix backbone), the xLSTM stack and the
+Hymba hybrid.
 
 Counterpart of ``repro.models.config.ModelConfig``, cut to the fields
-these stacks read: sliding-window layers, the kernel switch, the SwiGLU
-or GELU MLP, top-k routed and shared experts (``MoEConfig``) and
-multi-head latent attention (``MLAConfig``).  The reference's Hymba
-hybrid, encoder-decoder and vision-prefix kinds and tied embeddings are
+these stacks read: sliding-window layers, the kernel switch, banded
+sliding-window attention, the SwiGLU or GELU MLP, top-k routed and shared
+experts (``MoEConfig``), multi-head latent attention (``MLAConfig``), the
+recurrent widths (``SSMConfig``) and the stub vision prefix
+(``vision_prefix_len``).  The reference's encoder-decoder kind
+(``EncoderConfig``), its flash-style custom VJP and tied embeddings are
 not ported yet; ``block_pattern`` accepts ``"attn"``, ``"attn_moe"``,
-``"mla"``, ``"mla_moe"``, ``"mlstm"`` and ``"slstm"``.
+``"mla"``, ``"mla_moe"``, ``"mlstm"``, ``"slstm"`` and ``"hymba"``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-BLOCK_KINDS = ("attn", "attn_moe", "mla", "mla_moe", "mlstm", "slstm")
+BLOCK_KINDS = ("attn", "attn_moe", "mla", "mla_moe", "mlstm", "slstm", "hymba")
 
 
 @dataclass(frozen=True)
@@ -58,12 +61,13 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                      # 0 -> d_model // n_heads
     block_pattern: Tuple[str, ...] = ()    # len == n_layers; default "attn"
-    sliding_window: Optional[int] = None   # SWA window (danube)
-    global_attn_every: int = 0             # every k-th layer full attention
-    family: str = "dense"                  # the reference's family tag ("dense", "moe", "ssm")
+    sliding_window: Optional[int] = None   # SWA window (danube/hymba)
+    global_attn_every: int = 0             # every k-th layer full attention (hymba)
+    family: str = "dense"                  # the reference's family tag ("dense", "moe", "ssm", ...)
     moe: Optional[MoEConfig] = None        # routed experts of "attn_moe" / "mla_moe" layers
     mla: Optional[MLAConfig] = None        # latent attention of "mla" / "mla_moe" layers
-    ssm: Optional[SSMConfig] = None        # xLSTM: the mLSTM up-projection factor
+    ssm: Optional[SSMConfig] = None        # xLSTM's up-projection; hymba's Mamba state size
+    vision_prefix_len: int = 0             # VLM: stub patch embeddings ahead of the tokens
     mlp_variant: str = "swiglu"            # "swiglu" | "gelu" (the dense FFN half)
     tie_embeddings: bool = False           # the tied head is not ported: must be False
     rope_theta: float = 10_000.0
@@ -71,6 +75,9 @@ class ModelConfig:
     n_silos: int = 1
     use_flash_kernel: bool = False         # K3 in attention prefill; K4 in the mLSTM forward
     remat: bool = True                     # recompute each block in backward
+    # banded sliding-window attention: touch only the visible key band of
+    # each query block, O(S * window) instead of O(S^2) masked work
+    banded_swa: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -123,7 +130,8 @@ class ModelConfig:
         is room, as the reference keeps family diversity.  Experts shrink
         to at most 4 (top-k at most 2, one shared expert) with a capacity
         factor of ``n_experts``, so that no token is dropped and prefill,
-        decode and forward agree exactly; MLA ranks to 64/32/16/32."""
+        decode and forward agree exactly; MLA ranks to 64/32/16/32; the
+        vision prefix to at most 8 patch embeddings."""
         scale = d_model / self.d_model
         n_heads = max(2, min(self.n_heads, d_model // 64))
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -163,5 +171,6 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 32) if self.sliding_window else None,
             moe=moe,
             mla=mla,
+            vision_prefix_len=min(8, self.vision_prefix_len),
             use_flash_kernel=False,
         )

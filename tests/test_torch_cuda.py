@@ -399,6 +399,91 @@ def test_moe_prefill_on_card_matches_cpu(cuda, arch):
         torch.testing.assert_close(got_next.cpu(), ref_next, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,hd,window", [(1, 2048, 5, 5, 64, 1024),
+                                               (2, 1280, 8, 8, 128, None)],
+                         ids=["hymba-window", "internvl2-causal"])
+def test_flash_attention_kernel_at_hybrid_and_vlm_shapes(cuda, B, S, K, G, hd, window):
+    """hymba-1.5b's query groups (G = 5: a block's 128 query rows hold 25
+    positions, 125 rows live) under its 1024-token window, and
+    internvl2-76b's (G = 8, hd 128) over a 256-patch prefix plus a
+    1024-token prompt, float32."""
+    gen = torch.Generator(device=cuda).manual_seed(S + G)
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda)
+    k = torch.randn((B, S, K, hd), generator=gen, device=cuda)
+    v = torch.randn((B, S, K, hd), generator=gen, device=cuda)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert LAUNCHES["flash_attention"] == before + 1
+    expect = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, expect, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_chunked_mamba_scan_matches_loop_at_hymba_width(cuda):
+    """One full-width hymba-1.5b Mamba head (Di 1600, state 16) on the
+    card, batch 1 x 1024 tokens: the chunked scan's output and final state
+    within 2e-3 of the per-token loop on the same inputs, and the head's
+    output within 2e-3 of the CPU's from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config("hymba-1.5b", n_layers=1)
+    di = HY.hymba_d_inner(cfg)
+    p_cpu = init_params(model_specs(cfg), seed=0, device="cpu")["layers"][0]["hymba"]["mamba"]
+    p = tree_map(lambda t: t.to(cuda), p_cpu)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 1024, cfg.d_model))
+                         .astype(np.float32))
+    with torch.no_grad():
+        u, z, C, dA, dBu = SSM._mamba_scan_inputs(p, x.to(cuda), di, 16)
+        y, h = SSM.mamba_scan_chunked(dA, dBu, C)
+        y_ref, h_ref = SSM.mamba_scan_loop(dA, dBu, C)
+        torch.testing.assert_close(y, y_ref, atol=2e-3, rtol=2e-3)
+        torch.testing.assert_close(h, h_ref, atol=2e-3, rtol=2e-3)
+        got = SSM.mamba_forward(p, cfg, x.to(cuda), di)
+        ref = SSM.mamba_forward(p_cpu, cfg, x, di)
+    torch.testing.assert_close(got.cpu(), ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "internvl2-76b"])
+def test_hybrid_and_vlm_prefill_on_card_matches_cpu(cuda, arch):
+    """The reduced hymba / internvl2 prefill with the kernel switch on (one
+    K3 launch a layer; internvl2's 8-patch prefix plus 120 tokens) and a
+    decode step after it: the card against the CPU from the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_flash_kernel=True)
+    P = cfg.vision_prefix_len
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128 - P)))
+    embeds = torch.from_numpy(rng.standard_normal((2, P, 1024)).astype(np.float32)) if P else None
+    card = tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        ref, ref_cache = T.prefill(params, cfg, tokens, 136, cache_dtype=torch.float32,
+                                   vision_embeds=embeds)
+        before = LAUNCHES["flash_attention"]
+        got, cache = T.prefill(card, cfg, tokens.to(cuda), 136, cache_dtype=torch.float32,
+                               vision_embeds=None if embeds is None else embeds.to(cuda))
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        tok = ref.argmax(-1)
+        ref_next, _ = T.decode_step(params, cfg, tok, ref_cache, 128)
+        got_next, _ = T.decode_step(card, cfg, tok.to(cuda), cache, 128)
+        assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+        torch.testing.assert_close(got_next.cpu(), ref_next, atol=1e-4, rtol=1e-4)
+
+
 def _mlstm_inputs(gen, B, S, H, hd, forget_bias, device):
     """q, k, v at 0.5 N(0, 1); log-sigmoid gates, the forget gate biased
     by ``forget_bias`` (2: the reference's tests; 0: the model's

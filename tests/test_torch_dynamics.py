@@ -453,6 +453,24 @@ def test_train_dynamic_churn_rebuilds_state(tmp_path, case):
             assert torch.equal(_leaf(final, key), torch.from_numpy(leaf)), key
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-moe-30b-a3b"])
+def test_train_dynamic_churn_on_hybrid_and_moe(arch):
+    """``--dynamic`` churn on the reduced hybrid (attention + Mamba) and MoE
+    configs: both membership swaps migrate the whole parameter tree with
+    survivors bit-identical and joiners at consensus, losses finite."""
+    lines = []
+    res = train(get_config(arch).reduced(), dynamic=True, scenario="churn", steps=6,
+                gossip_impl="pallas", seq_len=16, batch_per_silo=2, device="cpu",
+                verify_migration=True, log=lines.append)
+    out = "\n".join(lines)
+    swaps = re.findall(MEMBERSHIP, out)
+    rebuilds = re.findall(REBUILT, out)
+    assert [(a, b) for _, a, b, _, _ in swaps] == [("11", "10"), ("10", "11")], out[-2000:]
+    assert len(rebuilds) == 2 and all(s == j == "True" for s, j in rebuilds), rebuilds
+    assert all(np.isfinite(res.losses)) and len(res.losses) == 6
+    assert res.state["params"].shape == (11, ParamLayout(model_specs(res.cfg)).size)
+
+
 def test_train_dynamic_matcha_hot_swaps_to_a_randomized_schedule(tmp_path):
     res, out, _ = _run(tmp_path, designer="matcha", scenario="silodegrade", steps=30)
     assert "matcha schedule (budget sweep" in out
