@@ -205,7 +205,25 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    round, finite losses, peak under 70 GiB, the round's profile; then one
    more round whose mix through K2 equals K2's plain version on the same
    stack bit for bit; and times K2 at the round's [2, 2 P] shape in turns
-   with the grid-stride kernel, ``torch.lerp`` and its plain version.
+   with the grid-stride kernel, ``torch.lerp`` and its plain version;
+26. holds K3 against its plain version at whisper-large-v3's decoder
+   prefill shape (B=4, S=T=384, K=20, G=1, hd=64, causal: plain MHA, so a
+   block's 128 query rows are 128 positions of one head), float32 at
+   2e-5, and times it in turns with the CUDA-core kernel, its plain
+   version and a causal ``scaled_dot_product_attention``, beside its
+   3xTF32 bound;
+27. serves whisper-large-v3 at full width with no cut (32 decoder and 32
+   encoder layers; batch 4, 1500 seeded frames, a 384-token prompt, 64
+   tokens: whisper's 448-token text context) through ``serve`` with
+   ``use_flash_kernel``: 32 K3 launches in prefill (the decoder's causal
+   self-attention; the encoder and cross-attention are bidirectional and
+   stay on the chunked path), none in decode, no other kernel; each
+   decoder layer's self-attention through K3 against its plain path on
+   the layer's recorded input (<= 2e-3), the prefill against the plain
+   prefill (<= 2e-3), the last decode step against a teacher-forced
+   forward (<= 5e-3); the encoder's, the cross-attention's and K3's shares
+   of a warm prefill by CUDA events, a profile of prefill and decode; then
+   the reduced whisper on the card against the CPU (<= 1e-4, ids equal).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -278,6 +296,13 @@ K3_HYBRID_VLM = {"hymba-1.5b": (2, 4096, 5, 5, 64, 1024),
 HYBRID_VLM_SERVE = (("hymba-1.5b", 32, 2, 4096, 32), ("internvl2-76b", 4, 2, 1024, 16))
 # DPASGD on hymba: (arch, layers kept, silos on a ring, rounds)
 HYMBA_TRAIN = ("hymba-1.5b", 32, 2, 3)
+# K3 at whisper-large-v3's decoder prefill shape (B, S = T, K, G, hd): plain
+# MHA (G = 1), hd 64, causal
+K3_WHISPER = (4, 384, 20, 1, 64)
+# whisper-large-v3 served at full width, no cut (32 + 32 layers, 1500 seeded
+# frames): (batch, prompt length, tokens generated); prompt plus tokens is
+# whisper's 448-token text context (arXiv:2212.04356)
+WHISPER_SERVE = (4, 384, 64)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1585,12 +1610,13 @@ def flash_kernel_phase(torch, dev) -> dict:
 
 
 def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: float,
-                  focus: str = "flash_attention", vision_embeds=None) -> dict:
+                  focus: str = "flash_attention", vision_embeds=None, enc_frames=None) -> dict:
     """Where a full-size prefill's and a decode step's time goes:
     ``torch.profiler`` device time by kernel against the traced and the
     untraced wall; ``focus`` names the hand-written kernel whose share is
-    printed; a VLM's prefill takes ``vision_embeds``.  Returns the decode
-    step's kernels and device-busy seconds."""
+    printed; a VLM's prefill takes ``vision_embeds``, an encoder-decoder's
+    ``enc_frames``.  Returns the decode step's kernels and device-busy
+    seconds."""
     from repro_torch.models import transformer as T
 
     def top(kernels, n=6):
@@ -1601,7 +1627,7 @@ def serve_profile(torch, params, cfg, prompts, max_len: int, decode_step_s: floa
         state = {}
         traced, kernels = device_kernels(torch, lambda: state.update(cache=T.prefill(
             params, cfg, prompts, max_len, cache_dtype=torch.float32,
-            vision_embeds=vision_embeds)[1]))
+            vision_embeds=vision_embeds, enc_frames=enc_frames)[1]))
         if not kernels:
             print("serve profile: device time not measured (no device events)")
             return {}
@@ -2853,6 +2879,70 @@ def flash_hybrid_vlm_phase(torch, dev) -> dict:
     return out
 
 
+def flash_whisper_phase(torch, dev) -> dict:
+    """K3 at whisper-large-v3's decoder prefill shape (B=4, S=T=384,
+    K=20, G=1, hd=64, causal: a block's 128 query rows are 128 positions
+    of one head) against its plain version (2e-5), then timed in turns
+    with the CUDA-core kernel of the same source, its plain version and a
+    causal ``scaled_dot_product_attention`` (the same function), beside its
+    bound."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(22)
+    B, S, K, G, hd = K3_WHISPER
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev)
+    ref = flash_attention_ref(q, k, v, causal=True, window=None)
+    got = flash_attention(q, k, v, causal=True, window=None)
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"flash_attention at the whisper decoder shape: max abs err {err}")
+    simt = flash_attention_cuda(q, k, v, causal=True, window=None, simt=True)
+    simt_err = float((simt - ref).abs().max())
+    check(torch.allclose(simt, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"CUDA-core flash_attention at the whisper decoder shape: max abs err {simt_err}")
+    # Yardstick only, never called by the port: one causal MHA
+    # scaled_dot_product_attention over [B, H, S, hd].
+    qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    sdpa_err = float((sdpa().transpose(1, 2).reshape(q.shape) - ref).abs().max())
+    del got, simt, ref
+    runs = {"kernel": (lambda: flash_attention(q, k, v, causal=True, window=None), 50),
+            "simt": (lambda: flash_attention_cuda(q, k, v, causal=True, window=None,
+                                                  simt=True), 50),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True, window=None), 10),
+            "sdpa": (sdpa, 50)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, reps = runs[name]
+        times[name].append(time_ms(torch, fn, reps=reps, warmup=2))
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    bound, by = attn_bound_ms(B, S, S, K, G, hd, None, 4, passes=3, rate=TF32_FLOPS)
+    bound_f32, _ = attn_bound_ms(B, S, S, K, G, hd, None, 4)
+    pairs = attn_pairs(S, S, True, None) * B * K * G
+    print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} causal f32 (whisper "
+          f"decoder prefill), in turns: ms {fmt_times(times['kernel'])}  cuda-core entry ms "
+          f"{fmt_times(times['simt'])}  plain_ms {fmt_times(times['plain'])}  library_ms "
+          f"scaled_dot_product_attention {fmt_times(times['sdpa'])} (max abs diff to plain "
+          f"{sdpa_err:.3g})  bound_ms {bound:.6f} ({by}, 3xTF32 at {TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; {pairs} visible pairs)  float32 CUDA-core bound {bound_f32:.6f}  "
+          f"max_abs_err {err:.3g} (cuda-core {simt_err:.3g})  achieved "
+          f"{4 * hd * pairs / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of fp32-accurate "
+          f"products ({bound / mean['kernel']:.1%} of the bound)")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return {"ms": mean["kernel"], "simt_ms": mean["simt"], "plain_ms": mean["plain"],
+            "library_ms": mean["sdpa"], "bound_ms": bound, "bound_by": by,
+            "bound_f32_ms": bound_f32, "max_abs_err": err}
+
+
 @contextlib.contextmanager
 def event_timed(torch, module, name: str, spent: list):
     """Replace ``module.name`` by a wrapper that records a CUDA event
@@ -3141,6 +3231,152 @@ def hymba_train_phase(torch, dev) -> dict:
     return out
 
 
+def whisper_serve_phase(torch, dev) -> dict:
+    """whisper-large-v3 at full width and depth (32 decoder + 32 encoder
+    layers) served through ``serve`` with ``use_flash_kernel``: 1500 seeded
+    frames, batch 4, a 384-token prompt, 64 tokens, with the counts set to
+    0 just before it and read just after: one K3 launch a decoder layer in
+    prefill (the encoder and cross-attention are bidirectional and stay on
+    the chunked path), none in decode and no other kernel; every decoder
+    layer's self-attention through K3 against its plain path on the
+    layer's recorded input (<= 2e-3), the prefill against the plain
+    prefill (<= 2e-3) and the last decode step against a teacher-forced
+    forward over the whole sequence (<= 5e-3); the encoder's, the
+    cross-attention's and K3's shares of a warm prefill by CUDA events, a
+    profile of prefill and decode; then the reduced whisper on the card
+    against the CPU (<= 1e-4, ids equal)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, ops, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import ParamLayout, init_params, model_specs
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    arch = "whisper-large-v3"
+    batch, prompt_len, gen = WHISPER_SERVE
+    cfg = get_config(arch, use_flash_kernel=True)
+    frames_n = cfg.encoder.seq_len
+    max_len = prompt_len + gen
+    P = ParamLayout(model_specs(cfg)).size
+    print(f"serve: {arch} d_model {cfg.d_model} heads {cfg.n_heads} kv_heads {cfg.n_kv_heads} "
+          f"head_dim {cfg.head_dim} d_ff {cfg.d_ff} ({cfg.mlp_variant}) vocab {cfg.vocab_size}; "
+          f"{cfg.n_layers} decoder + {cfg.encoder.n_layers} encoder layers (no cut); P {P} "
+          f"({P * 4 / 1e9:.2f} GB float32); batch {batch}, {frames_n} frames, prompt "
+          f"{prompt_len}, {gen} tokens (max_len {max_len}), flash kernel")
+    params = init_params(model_specs(cfg), seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=0, device=dev,
+                params=params, log=lambda line: print(f"serve: {line}", flush=True))
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    fa = res.launches["prefill"]["flash_attention"]
+    check(launches["flash_attention"] == fa == cfg.n_layers,
+          f"{arch}: flash_attention launched {launches['flash_attention']} times, expected "
+          f"{cfg.n_layers} (one per decoder layer)")
+    check(res.launches["decode"]["flash_attention"] == 0, f"{arch}: decode launched K3")
+    others = {k: n for k, n in launches.items() if k != "flash_attention" and n}
+    check(not others, f"{arch}: serving launched other kernels {others}")
+    check(bool(torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.logits).all()),
+          f"{arch}: non-finite logits")
+    check(tuple(res.enc_frames.shape) == (batch, frames_n, 128), f"{arch}: frames "
+          f"{tuple(res.enc_frames.shape)}")
+    frames = res.enc_frames
+
+    # the plain prefill, recording each attention call's (params, input,
+    # positions): the encoder's layers come first, then the decoder's
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    records = []
+    with recording(A, "attn_forward", records, lambda args, out: (args[0], args[2], args[3])), \
+            torch.no_grad():
+        plain, _ = T.prefill(params, plain_cfg, res.prompts, max_len,
+                             cache_dtype=torch.float32, enc_frames=frames)
+    n_enc = cfg.encoder.n_layers
+    check(len(records) == n_enc + cfg.n_layers,
+          f"{arch}: recorded {len(records)} attention inputs, expected {n_enc + cfg.n_layers}")
+    dec_in = records[n_enc:]
+    del records
+    d_prefill = float((res.prefill_logits - plain).abs().max())
+    check(torch.allclose(res.prefill_logits, plain, atol=2e-3, rtol=2e-3),
+          f"{arch}: kernel prefill vs plain prefill max abs diff {d_prefill}")
+    del plain
+    attn_err = attention_layers_gate(torch, dec_in, cfg, arch)
+    del dec_in
+    seq = torch.cat([res.prompts, res.ids[:, :-1]], dim=1)
+    with torch.no_grad():  # the chunked path: 447 tokens are not a multiple of 128
+        full = T.forward(params, dataclasses.replace(plain_cfg, remat=False), seq,
+                         enc_frames=frames)[:, -1]
+    d_decode = float((res.logits - full).abs().max())
+    check(torch.allclose(res.logits, full, atol=5e-3, rtol=5e-3),
+          f"{arch}: last decode step vs teacher-forced forward max abs diff {d_decode}")
+    del full, seq
+    print(f"serve: {arch} checks: kernel vs plain prefill logits {d_prefill:.3g} (tol 2e-3), "
+          f"each decoder layer's self-attention through K3 vs plain on its input "
+          f"{attn_err:.3g} (tol 2e-3, {cfg.n_layers} layers), last decode vs teacher-forced "
+          f"forward over {prompt_len + gen - 1} tokens {d_decode:.3g} (tol 5e-3)")
+
+    # a warm prefill, the encoder, the cross-attention and K3 timed by CUDA events
+    enc_t, xattn_t, k3_t = [], [], []
+    with torch.no_grad(), event_timed(torch, T, "encode", enc_t), \
+            event_timed(torch, A, "cross_attn_forward", xattn_t), \
+            event_timed(torch, ops, "flash_attention", k3_t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(params, cfg, res.prompts, max_len, cache_dtype=torch.float32,
+                  enc_frames=frames)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    shares = {name: sum(a.elapsed_time(b) for a, b in spent) / 1e3
+              for name, spent in (("encoder", enc_t), ("cross_attention", xattn_t),
+                                  ("k3", k3_t))}
+    check(len(enc_t) == 1 and len(xattn_t) == len(k3_t) == cfg.n_layers,
+          f"{arch}: timed {len(enc_t)} encodes, {len(xattn_t)} cross-attentions, "
+          f"{len(k3_t)} K3 calls")
+    print(f"serve: {arch} warm prefill {warm:.4f} s: " + ", ".join(
+        f"{name.replace('_', '-').replace('k3', 'K3')} {t:.4f} s (share {t / warm:.3f})"
+        for name, t in shares.items()) + " (CUDA events around each call)")
+    prof = serve_profile(torch, params, cfg, res.prompts, max_len, res.decode_s / (gen - 1),
+                         enc_frames=frames)
+    print(f"serve: {arch} prefill {res.prefill_s:.4f} s  decode {res.decode_tok_s:.2f} tok/s "
+          f"({gen - 1} steps x batch {batch} in {res.decode_s:.4f} s)  peak device memory "
+          f"{peak / 2**30:.2f} GiB  P {P}  flash_attention launches prefill {fa} decode "
+          f"{res.launches['decode']['flash_attention']}")
+    out = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s, "peak_bytes": peak,
+           "launches": fa, "P": P, "d_prefill": d_prefill, "d_decode": d_decode,
+           "attn_err": attn_err, "warm_prefill_s": warm,
+           **{f"{k}_s": v for k, v in shares.items()}, **prof}
+    del res, params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # card (kernel) vs CPU (plain version) at the reduced size, same weights
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_flash_kernel=True)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 128))
+    frames = rng.standard_normal((2, cfg.encoder.seq_len, 128)).astype(np.float32)
+    runs = [serve(cfg, batch=2, prompt_len=128, gen=4, device=d, prompts=prompts,
+                  enc_frames=frames, params=p, log=lambda line: None)
+            for d, p in ((dev, tree_map(lambda t: t.to(dev), params)), ("cpu", params))]
+    d_pre = float((runs[0].prefill_logits.cpu() - runs[1].prefill_logits).abs().max())
+    d_last = float((runs[0].logits.cpu() - runs[1].logits).abs().max())
+    same_ids = bool(torch.equal(runs[0].ids.cpu(), runs[1].ids))
+    print(f"serve parity: reduced {arch} ({cfg.n_layers} + {cfg.encoder.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.encoder.seq_len} frames) at prompt 128, card vs CPU: "
+          f"prefill logits {d_pre:.3g}, last decode logits {d_last:.3g} (tolerance 1e-4); ids "
+          f"equal {same_ids}; K3 launches {runs[0].launches['prefill']['flash_attention']}")
+    check(runs[0].launches["prefill"]["flash_attention"] == cfg.n_layers,
+          f"reduced {arch} on the card launched K3 "
+          f"{runs[0].launches['prefill']['flash_attention']} times")
+    check(same_ids and d_pre <= 1e-4 and d_last <= 1e-4,
+          f"reduced {arch}: card and CPU serving differ: prefill {d_pre}, last {d_last}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3233,6 +3469,14 @@ def main() -> int:
     hymba_shape = slice_shape_phase(torch, dev, htr["K"], htr["n_elems"])
     torch.cuda.empty_cache()
     hv_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"whisper phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          "from the earlier phases")
+    t0 = time.perf_counter()
+    attn_wh = flash_whisper_phase(torch, dev)
+    wh = whisper_serve_phase(torch, dev)
+    wh_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -3295,6 +3539,14 @@ def main() -> int:
         f"N={htr['n_elems']}) ms {hymba_shape['ms']:.4f} (torch.lerp "
         f"{hymba_shape['library_ms']:.4f}, bound {hymba_shape['bound_ms']:.4f}); hybrid and vlm "
         f"phases took {hv_s:.1f} s")
+    print(f"summary: flash_attention whisper decoder prefill shape ms {attn_wh['ms']:.4f} "
+          f"(CUDA-core entry {attn_wh['simt_ms']:.4f}, plain {attn_wh['plain_ms']:.4f}, causal "
+          f"scaled_dot_product_attention {attn_wh['library_ms']:.4f}, bound "
+          f"{attn_wh['bound_ms']:.6f} at 3xTF32); whisper-large-v3 serve prefill s / decode "
+          f"tok/s / peak GiB {wh['prefill_s']:.4f} / {wh['decode_tok_s']:.2f} / "
+          f"{wh['peak_bytes'] / 2**30:.2f}, warm prefill {wh['warm_prefill_s']:.4f} s (encoder "
+          f"{wh['encoder_s']:.4f}, cross-attention {wh['cross_attention_s']:.4f}, K3 "
+          f"{wh['k3_s']:.4f}); whisper phases took {wh_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     zoo_k3 = sum(r["launches"] for r in zoo.values())
@@ -3344,9 +3596,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": danube["launches"] + zoo_k3 + hv_k3,
+        "launches": danube["launches"] + zoo_k3 + hv_k3 + wh["launches"],
         "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3,
-                             "hybrid_and_vlm_serve": hv_k3},
+                             "hybrid_and_vlm_serve": hv_k3, "encdec_serve": wh["launches"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],

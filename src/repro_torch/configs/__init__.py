@@ -1,10 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>", **overrides)``.
 
-Counterpart of ``repro.configs``.  Only the configurations the port can
-run are registered (the dense transformers, the MoE and MLA models, the
-xLSTM stack, the Hymba hybrid and the vision-prefix backbone); the
-reference's last config, whisper's encoder-decoder, follows with its
-block kind.
+Counterpart of ``repro.configs``, with all ten of its configurations:
+the dense transformers, the MoE and MLA models, the xLSTM stack, the
+Hymba hybrid, the vision-prefix backbone and whisper's encoder-decoder.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ _MODULES: Dict[str, str] = {
     "mistral-large-123b": "mistral_large_123b",
     "hymba-1.5b": "hymba_1_5b",
     "internvl2-76b": "internvl2_76b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
@@ -38,7 +37,7 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
     as the reference's override does."""
     key = arch_id.lower()
     if key not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; available: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
     cfg: ModelConfig = mod.CONFIG
     if "n_layers" in overrides and "block_pattern" not in overrides:

@@ -6,6 +6,9 @@
   :mod:`.networks_data`), the dense and sparse Karp engines and
   ``DeltaPricer`` (:mod:`.maxplus_vec`, :mod:`.maxplus_sparse`) and the
   host designers (:mod:`.topologies`);
+* numpy copies of the time simulator of Algorithm 3 (:mod:`.simulator`)
+  and the exact brute-force MCT solver (``brute_force_mct``), an oracle
+  for tiny N;
 * numpy copies of MATCHA (:mod:`.matcha`), the schedule API
   (:mod:`.schedule`: ``FixedSchedule``, ``MatchaSchedule``, the budget
   sweep) and mixing-rate pricing (:mod:`.mixing`);
@@ -58,6 +61,8 @@ from .maxplus_vec import (
     batched_cycle_time,
     batched_is_strongly_connected,
     cycle_time_dense,
+    edges_to_matrix,
+    graph_to_matrix,
     karp_from_levels,
     missing_mask,
     reachability_closure,
@@ -69,6 +74,7 @@ from .topologies import (
     SCHEDULE_KINDS,
     Overlay,
     algorithm1_mbst,
+    brute_force_mct,
     christofides_tour,
     cluster_silos,
     delta_prim,
@@ -82,6 +88,13 @@ from .topologies import (
     search_overlays_jit,
     star_overlay,
     two_opt_ring_overlay,
+)
+from .simulator import (
+    Timeline,
+    predicted_cycle_time,
+    simulate_overlay,
+    simulate_overlays_batched,
+    training_time_ms,
 )
 from .underlay import Underlay, haversine_km, link_latency_ms
 from .matcha import Matcha, greedy_edge_coloring, matcha_from_connectivity, matcha_plus_from_underlay
@@ -131,12 +144,16 @@ __all__ = [
     "batched_overlay_delay_edges", "critical_circuit_sparse", "cycle_time_engine",
     "reachable_from_sparse", "scc_labels_sparse", "timing_recursion_unique_rounds_sparse_torch",
     "MISSING", "batched_cycle_time", "batched_is_strongly_connected", "cycle_time_dense",
-    "karp_from_levels", "missing_mask", "reachability_closure", "scc_labels",
+    "edges_to_matrix", "graph_to_matrix", "karp_from_levels", "missing_mask",
+    "reachability_closure", "scc_labels",
     "EXPECTED_SIZES", "GAIA_SITES", "NETWORK_NAMES", "WORKLOADS", "make_underlay",
-    "OVERLAY_KINDS", "SCHEDULE_KINDS", "Overlay", "algorithm1_mbst", "christofides_tour",
+    "OVERLAY_KINDS", "SCHEDULE_KINDS", "Overlay", "algorithm1_mbst", "brute_force_mct",
+    "christofides_tour",
     "cluster_silos", "delta_prim", "design_overlay", "design_schedule", "evaluate_overlay", "mst_overlay", "ring_overlay",
     "search_overlays_delta", "search_overlays_hierarchical", "search_overlays_jit",
     "star_overlay", "two_opt_ring_overlay",
+    "Timeline", "predicted_cycle_time", "simulate_overlay", "simulate_overlays_batched",
+    "training_time_ms",
     "Underlay", "haversine_km", "link_latency_ms",
     "Matcha", "greedy_edge_coloring", "matcha_from_connectivity", "matcha_plus_from_underlay",
     "DEFAULT_MATCHA_BUDGETS", "FixedSchedule", "MatchaSchedule", "Schedule", "ScheduleEstimate",

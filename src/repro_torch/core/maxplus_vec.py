@@ -2,8 +2,9 @@
 host part of the reference's ``repro/core/maxplus_vec.py``.
 
 A delay digraph is a dense ``[N, N]`` matrix ``W`` with ``W[i, j] =
-d_o(i, j)`` and ``MISSING`` (``-inf``) where there is no arc; whole
-batches ``[B, N, N]`` are scored at once:
+d_o(i, j)`` and ``MISSING`` (``-inf``) where there is no arc
+(:func:`edges_to_matrix`, :func:`graph_to_matrix`); whole batches ``[B,
+N, N]`` are scored at once:
 
 * :func:`batched_cycle_time` -- Karp's maximum cycle mean per graph, one
   broadcast ``np.max`` sweep per DP level;
@@ -27,7 +28,7 @@ is exact on the original N vertices, and acyclic graphs give ``-inf``.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Hashable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,6 +58,21 @@ def missing_mask(x) -> np.ndarray:
     -inf by overflow.  Works on scalars and arrays alike.
     """
     return np.isneginf(x)
+
+
+def edges_to_matrix(delays: Mapping[Tuple[Hashable, Hashable], float],
+                    nodes: Sequence[Hashable]) -> np.ndarray:
+    """Dense ``[N, N]`` weight matrix with ``-inf`` holes from an edge dict."""
+    index = {v: k for k, v in enumerate(nodes)}
+    W = np.full((len(nodes), len(nodes)), NEG_INF, dtype=np.float64)
+    for (i, j), w in delays.items():
+        W[index[i], index[j]] = w
+    return W
+
+
+def graph_to_matrix(graph) -> Tuple[np.ndarray, Tuple[Hashable, ...]]:
+    """Convert a :class:`repro_torch.core.maxplus.DelayDigraph` to (W, nodes)."""
+    return edges_to_matrix(graph.delays, graph.nodes), tuple(graph.nodes)
 
 
 def batched_cycle_time(

@@ -12,7 +12,9 @@ The host designers are a copy of the reference's
 * ``delta_prim`` / ``algorithm1_mbst`` -- Algorithm 1 (Appendix D,
                             Prop. 3.5);
 * ``search_overlays_delta`` -- the rewire climb priced incrementally on
-                            the host (:class:`~repro_torch.core.maxplus_sparse.DeltaPricer`).
+                            the host (:class:`~repro_torch.core.maxplus_sparse.DeltaPricer`);
+* ``brute_force_mct``     -- the exact solver by enumeration, scored by the
+                            host's dense Karp engine: an oracle for tiny N.
 
 The rewire climb runs on a torch device (:func:`rewire_climb`): batched
 simulated annealing over arc-slot states, every proposal re-priced with
@@ -46,6 +48,7 @@ from ..kernels import reach_from_zero
 from .delays import (
     ConnectivityGraph,
     TrainingParams,
+    batched_overlay_delay_matrices,
     node_capacitated_sym_delay_ms,
     overlay_delay_matrix,
     symmetrized_delay_ms,
@@ -410,6 +413,103 @@ def algorithm1_mbst(gc: ConnectivityGraph, tp: TrainingParams) -> Overlay:
     return Overlay(
         name="delta_mbst", edges=tuple(cand_edges[k]), cycle_time_ms=float(taus[k])
     )
+
+
+# ---------------------------------------------------------------------------
+# Exact solver (for tests on small instances)
+
+_BF_MAX_NODES = 7      # the enumeration is exponential in the arc count
+_BF_BATCH = 4096       # candidate overlays scored per engine call
+
+
+def _best_masked_candidate(
+    gc: ConnectivityGraph,
+    tp: TrainingParams,
+    arcs: List[Edge],
+    subsets: Iterable[Tuple[int, ...]],
+    best_tau: float,
+    best_rows: Optional[List[int]],
+) -> Tuple[float, Optional[List[int]]]:
+    """Scan candidate arc-index subsets in batched engine calls.
+
+    Returns the best (cycle time, arc-index list) seen, seeded with the
+    incoming incumbent.  Non-strongly-connected candidates are skipped.
+    """
+    E = len(arcs)
+    buf: List[Tuple[int, ...]] = []
+
+    def flush() -> Tuple[float, Optional[List[int]]]:
+        nonlocal best_tau, best_rows
+        masks = np.zeros((len(buf), E), dtype=bool)
+        for k, subset in enumerate(buf):
+            masks[k, list(subset)] = True
+        W = batched_overlay_delay_matrices(gc, tp, arcs, masks)
+        strong = np.nonzero(batched_is_strongly_connected(W))[0]
+        if strong.size:
+            taus = batched_cycle_time(W[strong])
+            k = int(np.argmin(taus))
+            if taus[k] < best_tau:
+                best_tau = float(taus[k])
+                best_rows = list(buf[int(strong[k])])
+        buf.clear()
+        return best_tau, best_rows
+
+    for subset in subsets:
+        buf.append(subset)
+        if len(buf) >= _BF_BATCH:
+            best_tau, best_rows = flush()
+    if buf:
+        best_tau, best_rows = flush()
+    return best_tau, best_rows
+
+
+def brute_force_mct(
+    gc: ConnectivityGraph,
+    tp: TrainingParams,
+    *,
+    undirected: bool = False,
+    exhaustive: bool = True,
+) -> Overlay:
+    """Exact MCT solver by enumeration (exponential: tests and small N only).
+
+    Candidates are scored through the batched max-plus engine on the host,
+    thousands of overlays per call.  With ``exhaustive=True`` (default)
+    every arc count is enumerated, which a *certificate* of optimality
+    needs: minimally strong digraphs can have up to 2(N-1) arcs (e.g.
+    bidirected trees), so the heuristic cut at ``r >= N + 2`` arcs could
+    return a suboptimal overlay.  ``exhaustive=False`` re-enables that cut
+    as a cheap heuristic.
+    """
+    n = gc.num_silos
+    if n > _BF_MAX_NODES:
+        raise ValueError("brute force limited to tiny instances")
+    best_tau = math.inf
+    best_rows: Optional[List[int]] = None
+    if undirected:
+        pairs = _sym_edges(gc)
+        arcs = _bidir(pairs)  # pair p -> arc rows 2p, 2p+1
+        for r in range(n - 1, len(pairs) + 1):
+            subsets = (
+                tuple(a for p in combo for a in (2 * p, 2 * p + 1))
+                for combo in itertools.combinations(range(len(pairs)), r)
+            )
+            best_tau, best_rows = _best_masked_candidate(
+                gc, tp, arcs, subsets, best_tau, best_rows)
+        if best_rows is None:
+            raise ValueError("no strongly-connected undirected overlay")
+        return Overlay(name="bf", edges=tuple(arcs[a] for a in best_rows),
+                       cycle_time_ms=best_tau)
+    arcs = [e for e in gc.edges() if e[0] != e[1]]
+    # Prune: a strong digraph needs >= n arcs.
+    for r in range(n, len(arcs) + 1):
+        best_tau, best_rows = _best_masked_candidate(
+            gc, tp, arcs, itertools.combinations(range(len(arcs)), r),
+            best_tau, best_rows)
+        if not exhaustive and best_rows is not None and r >= n + 2:
+            break  # heuristic cut: may miss optima that need many arcs
+    if best_rows is None:
+        raise ValueError("no strongly-connected overlay")
+    return Overlay(name="bf", edges=tuple(arcs[a] for a in best_rows), cycle_time_ms=best_tau)
 
 
 def _degrees_ok(arcs: Sequence[Tuple[int, int]], n: int, delta: int) -> bool:

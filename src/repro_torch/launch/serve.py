@@ -9,10 +9,13 @@ states, on one card.
         --reduced --device cpu --batch 2 --prompt-len 16 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 2 --prompt-len 4096 --gen 32 --flash-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+        --batch 4 --prompt-len 384 --gen 64 --flash-kernel
 
 Counterpart of ``repro.launch.serve`` for every config of
 :mod:`repro_torch.configs` (the dense transformers, the MoE models, MLA,
-the xLSTM stack, the Hymba hybrid and the vision-prefix backbone), with
+the xLSTM stack, the Hymba hybrid, the vision-prefix backbone and
+whisper's encoder-decoder), with
 the same flags plus ``--device`` (default ``cuda``;
 ``--device cpu`` with ``--reduced`` runs the small variant on the CPU),
 ``--seed`` (weights and prompts) and ``--flash-kernel``, which sets the
@@ -30,7 +33,13 @@ ones): the prefix goes ahead of the prompt, so with ``--flash-kernel``
 prefix plus prompt must be a multiple of 128, decode starts at position
 ``prompt_len + vision_prefix_len``, and the default cache length holds
 the prefix too (the reference's ``prompt_len + gen`` would wrap an
-unwindowed cache past the prefix).  Parameters, caches and states are
+unwindowed cache past the prefix).  An encoder-decoder (whisper-large-v3)
+is served with ``enc_frames``, ``[B, encoder.seq_len, 128]`` stub frame
+features (seeded normal draws by default, where the reference's launcher
+uses ones): the prefill encodes them and caches each decoder layer's
+cross K/V; K3 runs only in the decoder's causal self-attention (one launch
+a decoder layer), so with ``--flash-kernel`` only the prompt must be a
+multiple of 128, not the 1500 frames.  Parameters, caches and states are
 float32, as in the reference's launcher.  ``main`` parses the flags and
 calls :func:`serve`, which scripts call with their own weights, prompts,
 embeddings or depth.
@@ -59,6 +68,7 @@ from repro_torch.models import transformer as T
 class ServeResult:
     prompts: torch.Tensor            # [B, prompt_len] int64
     vision_embeds: Optional[torch.Tensor]  # [B, vision_prefix_len, 1024] of a VLM, else None
+    enc_frames: Optional[torch.Tensor]     # [B, encoder.seq_len, 128] of an encoder-decoder
     ids: torch.Tensor                # [B, gen] generated ids (greedy)
     logits: torch.Tensor             # [B, V] logits of the last step
     prefill_logits: torch.Tensor     # [B, V] last-token logits of the prefill
@@ -77,14 +87,17 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 
           max_len: int = 0, seed: int = 0, device: DeviceLike = "cuda",
           params=None, prompts: Optional[np.ndarray] = None,
           vision_embeds: Optional[np.ndarray] = None,
+          enc_frames: Optional[np.ndarray] = None,
           log: Callable[[str], None] = print) -> ServeResult:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     greedily to ``gen`` tokens in all.  Weights come from ``init_params``
     with ``seed`` unless ``params`` is given; prompts from a numpy
     generator seeded with ``seed`` unless ``prompts`` is given; a VLM's
     ``vision_embeds`` (float32 ``[B, vision_prefix_len, 1024]``) from a
-    normal draw of the same generator after the prompts unless given.
-    Decode positions are Python ints, so no step waits for the device."""
+    normal draw of the same generator after the prompts unless given; an
+    encoder-decoder's ``enc_frames`` (float32 ``[B, encoder.seq_len,
+    128]``) likewise.  Decode positions are Python ints, so no step waits
+    for the device."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
@@ -98,6 +111,10 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 
         vision_embeds = rng.standard_normal((B, prefix, 1024)).astype(np.float32)
     embeds = (None if not prefix else
               torch.as_tensor(np.asarray(vision_embeds), dtype=torch.float32).to(dev))
+    if cfg.is_encdec and enc_frames is None:
+        enc_frames = rng.standard_normal((B, cfg.encoder.seq_len, 128)).astype(np.float32)
+    frames = (None if not cfg.is_encdec else
+              torch.as_tensor(np.asarray(enc_frames), dtype=torch.float32).to(dev))
     k3_layers = set(cfg.block_pattern) & {"attn", "attn_moe", "hymba"}
     if cfg.use_flash_kernel and k3_layers and (prefix + S) % 128:
         raise ValueError(f"use_flash_kernel sends prefill attention through K3, which needs "
@@ -111,13 +128,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 
         before = dict(LAUNCHES)
         t0 = time.perf_counter()
         logits, cache = T.prefill(params, cfg, tokens, max_len, cache_dtype=torch.float32,
-                                  vision_embeds=embeds)
+                                  vision_embeds=embeds, enc_frames=frames)
         tok = logits.argmax(-1)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         mid = dict(LAUNCHES)
-        patches = f" + {prefix} patches" if prefix else ""
-        log(f"prefill[{B}x{S}{patches}] in {prefill_s:.2f}s")
+        extra = (f" + {prefix} patches" if prefix else
+                 f" + {frames.shape[1]} frames" if frames is not None else "")
+        log(f"prefill[{B}x{S}{extra}] in {prefill_s:.2f}s")
         prefill_logits = logits
         out: List[torch.Tensor] = [tok]
         t0 = time.perf_counter()
@@ -136,7 +154,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32, gen: int = 
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
     return ServeResult(
-        prompts=tokens, vision_embeds=embeds, ids=ids, logits=logits,
+        prompts=tokens, vision_embeds=embeds, enc_frames=frames, ids=ids, logits=logits,
         prefill_logits=prefill_logits, prefill_s=prefill_s, decode_s=decode_s, decode_tok_s=tok_s,
         launches={"prefill": {k: mid[k] - before[k] for k in before},
                   "decode": {k: after[k] - mid[k] for k in before}})

@@ -6,11 +6,12 @@
 Counterpart of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``; ``--device cpu`` with ``--reduced`` runs
 the small variant on the CPU).  ``--arch`` takes any config of
-:mod:`repro_torch.configs` but the vision-prefix one: the dense
-transformers, the MoE models (qwen3-moe-30b-a3b; deepseek-v2-lite-16b
-with MLA; their loss carries the router's load-balance term, as the
-reference's does), xlstm-350m and hymba-1.5b.  internvl2-76b is refused:
-the token stream supplies no patch embeddings, and the reference's
+:mod:`repro_torch.configs` but the vision-prefix and the encoder-decoder
+ones: the dense transformers, the MoE models (qwen3-moe-30b-a3b;
+deepseek-v2-lite-16b with MLA; their loss carries the router's
+load-balance term, as the reference's does), xlstm-350m and hymba-1.5b.
+internvl2-76b and whisper-large-v3 are refused up front: the token stream
+supplies no patch embeddings and no frames, and the reference's
 ``forward`` asserts on them.
 ``main`` parses the flags and calls :func:`train`, which scripts can
 call at a depth the CLI has no flag for.
@@ -199,6 +200,9 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         raise ValueError(f"{cfg.arch_id} needs vision_embeds for its {cfg.vision_prefix_len}-"
                          "patch prefix, which the token stream does not supply; train a "
                          "config without a vision prefix")
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.arch_id} is an encoder-decoder and needs enc_frames, which "
+                         "the token stream does not supply; train a decoder-only config")
     if gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(gossip_impl)
     if topology not in TOPOLOGIES:

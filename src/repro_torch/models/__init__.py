@@ -1,4 +1,4 @@
-from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from .config import EncoderConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from .hybrid import hymba_decode, hymba_forward, init_hymba_cache
 from .moe import moe_forward
 from .params import (
@@ -12,6 +12,7 @@ from .ssm import mamba_decode, mamba_forward, mamba_scan_chunked, mamba_scan_loo
 from .transformer import forward, loss_fn, model_specs
 
 __all__ = [
+    "EncoderConfig",
     "MLAConfig",
     "ModelConfig",
     "MoEConfig",

@@ -1,8 +1,9 @@
-"""GQA attention (causal / sliding-window), DeepSeek MLA (multi-head
-latent attention, absorbed decode) and their serving caches; counterpart
-of ``repro.models.attention`` (``attn_specs``, ``chunked_attention``,
-``banded_swa_attention``, ``naive_attention``, ``attn_forward``, the KV
-caches, ``attn_decode`` and the MLA functions).
+"""GQA attention (causal / sliding-window / bidirectional), DeepSeek MLA
+(multi-head latent attention, absorbed decode), Whisper's cross-attention
+and their serving caches; counterpart of ``repro.models.attention``
+(``attn_specs``, ``chunked_attention``, ``banded_swa_attention``,
+``naive_attention``, ``attn_forward``, the KV caches, ``attn_decode``, the
+MLA functions, ``cross_attn_specs`` and ``cross_attn_forward``).
 
 Full-sequence attention runs in the reference's order of dispatch: when
 ``cfg.use_flash_kernel`` and the attention is causal, through the
@@ -14,7 +15,10 @@ key band); else on the chunked online-softmax path (one score block per
 set to ``MASKED``).
 MLA always takes the chunked path, in both packages: its q.k width
 (``qk_nope_dim + qk_rope_dim``, 192 for deepseek-v2-lite) differs from
-its v width (128), while K3 takes one head dim for q, k and v.
+its v width (128), while K3 takes one head dim for q, k and v.  So do
+bidirectional attention (Whisper's encoder) and cross-attention, which
+K3 does not compute (it masks the keys after each query), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -55,6 +59,17 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim), m.kv_lora_rank ** -0.5),
         "wq": ParamSpec((D, H * (m.qk_nope_dim + m.qk_rope_dim)), s),
         "wo": ParamSpec((H * m.v_head_dim, D), (H * m.v_head_dim) ** -0.5),
+    }
+
+
+def cross_attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    s = D ** -0.5
+    return {
+        "wq": ParamSpec((D, H * hd), s),
+        "wk": ParamSpec((D, H * hd), s),
+        "wv": ParamSpec((D, H * hd), s),
+        "wo": ParamSpec((H * hd, D), (H * hd) ** -0.5),
     }
 
 
@@ -348,3 +363,47 @@ def mla_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv).reshape(B, 1, H * m.v_head_dim)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+
+
+def cross_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+             enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of the encoder output ``enc``
+    [B, T, D]: each [B, T, H, hd], no RoPE."""
+    B, T = enc.shape[:2]
+    H, hd = cfg.n_heads, cfg.head_dim
+    return (enc @ p["wk"]).reshape(B, T, H, hd), (enc @ p["wv"]).reshape(B, T, H, hd)
+
+
+def cross_attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                       enc: torch.Tensor, *, return_kv: bool = False):
+    """Decoder queries x [B, S, D] against every position of the encoder
+    output ``enc`` [B, T, D]: bidirectional, one query head per key head,
+    no RoPE, on the chunked path.  With ``return_kv`` also returns the
+    ``(xk, xv)`` that the serving cache keeps."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    B, S = x.shape[:2]
+    T = enc.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, H, 1, hd)
+    k, v = cross_kv(p, cfg, enc)
+    out = chunked_attention(q, k, v, torch.arange(S, device=x.device),
+                            torch.arange(T, device=x.device), causal=False, window=None)
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return (out, (k, v)) if return_kv else out
+
+
+def cross_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                 xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """One decoder token x [B, 1, D] against the cached cross K/V [B, T,
+    H, hd]: a float32 softmax over all T positions, cast to x's dtype
+    before the value product (the reference's ``_cross_decode``)."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    s = torch.einsum("bshd,bthd->bsht", q.to(torch.float32) * hd ** -0.5, xk.to(torch.float32))
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bsht,bthd->bshd", w, xv).reshape(B, 1, H * hd)
+    return o @ p["wo"]

@@ -1,16 +1,19 @@
-"""Model configuration of the decoder-only transformers (dense GQA/MQA,
-MoE, DeepSeek MLA, the vision-prefix backbone), the xLSTM stack and the
-Hymba hybrid.
+"""Model configuration of the transformers (dense GQA/MQA, MoE, DeepSeek
+MLA, the vision-prefix backbone, Whisper's encoder-decoder), the xLSTM
+stack and the Hymba hybrid.
 
 Counterpart of ``repro.models.config.ModelConfig``, cut to the fields
 these stacks read: sliding-window layers, the kernel switch, banded
 sliding-window attention, the SwiGLU or GELU MLP, top-k routed and shared
 experts (``MoEConfig``), multi-head latent attention (``MLAConfig``), the
-recurrent widths (``SSMConfig``) and the stub vision prefix
-(``vision_prefix_len``).  The reference's encoder-decoder kind
-(``EncoderConfig``), its flash-style custom VJP and tied embeddings are
-not ported yet; ``block_pattern`` accepts ``"attn"``, ``"attn_moe"``,
-``"mla"``, ``"mla_moe"``, ``"mlstm"``, ``"slstm"`` and ``"hymba"``.
+recurrent widths (``SSMConfig``), the audio encoder (``EncoderConfig``)
+and the stub vision prefix (``vision_prefix_len``).  The reference's
+flash-style custom VJP and tied embeddings are not ported yet;
+``block_pattern`` accepts ``"attn"``, ``"attn_moe"``, ``"mla"``,
+``"mla_moe"``, ``"mlstm"``, ``"slstm"`` and ``"hymba"``.  In an
+encoder-decoder config (``is_encdec``) every ``"attn"`` layer of the
+pattern is built as the decoder kind ``"xattn"``: causal self-attention,
+then cross-attention over the encoder's output, then the MLP.
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder: its convolutional frontend is a stub, as in
+    the reference, so its inputs are frame features (``AUDIO_FRONTEND_DIM``
+    wide).  The encoder is always bidirectional."""
+
+    n_layers: int = 0
+    seq_len: int = 1500      # encoder frames (whisper-large-v3: 1500)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
     n_layers: int
@@ -67,6 +80,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None        # routed experts of "attn_moe" / "mla_moe" layers
     mla: Optional[MLAConfig] = None        # latent attention of "mla" / "mla_moe" layers
     ssm: Optional[SSMConfig] = None        # xLSTM's up-projection; hymba's Mamba state size
+    encoder: Optional[EncoderConfig] = None  # whisper's audio encoder (frames -> cross K/V)
     vision_prefix_len: int = 0             # VLM: stub patch embeddings ahead of the tokens
     mlp_variant: str = "swiglu"            # "swiglu" | "gelu" (the dense FFN half)
     tie_embeddings: bool = False           # the tied head is not ported: must be False
@@ -116,6 +130,10 @@ class ModelConfig:
         logits are sliced back to ``vocab_size``."""
         return ((self.vocab_size + 127) // 128) * 128
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None and self.encoder.n_layers > 0
+
     def layer_uses_window(self, layer: int) -> bool:
         if self.sliding_window is None:
             return False
@@ -131,7 +149,8 @@ class ModelConfig:
         to at most 4 (top-k at most 2, one shared expert) with a capacity
         factor of ``n_experts``, so that no token is dropped and prefill,
         decode and forward agree exactly; MLA ranks to 64/32/16/32; the
-        vision prefix to at most 8 patch embeddings."""
+        encoder to at most 2 layers and 64 frames; the vision prefix to at
+        most 8 patch embeddings."""
         scale = d_model / self.d_model
         n_heads = max(2, min(self.n_heads, d_model // 64))
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -153,6 +172,10 @@ class ModelConfig:
         if self.mla is not None:
             mla = MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
                             v_head_dim=32, q_lora_rank=0)
+        enc = None
+        if self.encoder is not None:
+            enc = dataclasses.replace(self.encoder, n_layers=min(2, self.encoder.n_layers),
+                                      seq_len=min(64, self.encoder.seq_len))
         pattern = self.block_pattern[:n_layers]
         kinds = tuple(dict.fromkeys(self.block_pattern))
         if len(kinds) > 1 and n_layers >= len(kinds):
@@ -171,6 +194,7 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 32) if self.sliding_window else None,
             moe=moe,
             mla=mla,
+            encoder=enc,
             vision_prefix_len=min(8, self.vision_prefix_len),
             use_flash_kernel=False,
         )

@@ -1,5 +1,6 @@
-"""Elementary layers: RMSNorm, RoPE, SwiGLU, GELU MLP, embeddings, cross-entropy
-(plain functions on tensors; counterparts of ``repro.models.layers``)."""
+"""Elementary layers: RMSNorm, RoPE, SwiGLU, GELU MLP, embeddings, the
+sinusoidal positions of Whisper's encoder, cross-entropy (plain functions
+on tensors; counterparts of ``repro.models.layers``)."""
 
 from __future__ import annotations
 
@@ -54,6 +55,21 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor, w_down: to
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def sinusoidal_positions(seq_len: int, dim: int,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """Float32 ``[seq_len, dim]`` table: ``sin`` of ``pos / 10000^(2i/dim)``
+    in the first half of the columns, ``cos`` in the second.  The divisor
+    is the float32 rounding of a float64 power of the float32 exponent:
+    torch's float32 ``pow`` is off by an ulp at some exponents, which the
+    angle multiplies by up to ``seq_len`` (3e-5 in the sine at 1500
+    frames), while the reference's ``jnp.power`` rounds correctly."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    base = torch.full((), 10000.0, dtype=torch.float64, device=device)
+    angle = pos / torch.pow(base, (2 * i / dim).to(torch.float64)).to(torch.float32)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -18,11 +18,24 @@ and ``prefill`` take ``vision_embeds`` ``[B, P, 1024]``: stub patch
 embeddings (the vision encoder is not modelled, as in the reference),
 projected by ``vision_proj`` and put ahead of the tokens; the prefix
 takes positions ``0..P-1`` and is dropped before the head, so decode
-continues at position ``P + S``."""
+continues at position ``P + S``.
+
+An encoder-decoder config (``cfg.is_encdec``, whisper) builds every
+``"attn"`` layer as the decoder block ``"xattn"``: causal self-attention,
+cross-attention over the encoder's output, the GELU MLP.  ``forward``,
+``loss_fn`` and ``prefill`` then take ``enc_frames`` ``[B, T, 128]``:
+stub frame features (the mel frontend is not modelled, as in the
+reference), which :func:`encode` projects by ``frontend``, adds sinusoidal
+positions to and runs through ``enc_layers`` of bidirectional attention
+(with RoPE, as the reference applies it) and the MLP.  Such a layer's
+serving cache is ``{"kv": its KV cache, "xk", "xv": the cross K/V of the
+encoder output, [B, T, H, hd]}``; :func:`init_cache` leaves the cross
+K/V None, and :func:`prefill` (or :func:`prefill_cross_cache`) fills
+them."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,9 +47,17 @@ from . import hybrid as HY
 from . import moe as MOE
 from . import ssm as SSM
 from .config import ModelConfig
-from .layers import embed_tokens, gelu_mlp, rms_norm, softmax_cross_entropy, swiglu
+from .layers import (
+    embed_tokens,
+    gelu_mlp,
+    rms_norm,
+    sinusoidal_positions,
+    softmax_cross_entropy,
+    swiglu,
+)
 from .params import ParamSpec
 
+AUDIO_FRONTEND_DIM = 128    # width of the stub frame features (the reference's mel bins)
 VISION_FRONTEND_DIM = 1024  # width of the stub patch embeddings (the reference's)
 
 
@@ -77,17 +98,31 @@ def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         return {"ln1": ln(), "slstm": SSM.slstm_specs(cfg)}
     if kind == "hymba":
         return {"ln1": ln(), "hymba": HY.hymba_specs(cfg), "ln2": ln(), "mlp": mlp_specs(cfg)}
+    if kind == "xattn":  # whisper decoder block
+        return {"ln1": ln(), "attn": A.attn_specs(cfg), "lnx": ln(),
+                "xattn": A.cross_attn_specs(cfg), "ln2": ln(), "mlp": mlp_specs(cfg)}
     raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+
+
+def _kind(cfg: ModelConfig, layer: int) -> str:
+    """The block a layer is built as: an encoder-decoder's ``"attn"``
+    layers are ``"xattn"`` decoder blocks."""
+    kind = cfg.block_pattern[layer]
+    return "xattn" if cfg.is_encdec and kind == "attn" else kind
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     D, V = cfg.d_model, cfg.padded_vocab_size
     specs = {
         "embed": ParamSpec((V, D), 1.0 / (D ** 0.5)),
-        "layers": [block_specs(cfg, k) for k in cfg.block_pattern],
+        "layers": [block_specs(cfg, _kind(cfg, i)) for i in range(cfg.n_layers)],
         "final_ln": ParamSpec((D,), 1.0, init="ones"),
         "lm_head": ParamSpec((D, V), D ** -0.5),
     }
+    if cfg.is_encdec:
+        specs["frontend"] = ParamSpec((AUDIO_FRONTEND_DIM, D), AUDIO_FRONTEND_DIM ** -0.5)
+        specs["enc_layers"] = [block_specs(cfg, "attn") for _ in range(cfg.encoder.n_layers)]
+        specs["enc_final_ln"] = ParamSpec((D,), 1.0, init="ones")
     if cfg.vision_prefix_len:
         specs["vision_proj"] = ParamSpec((VISION_FRONTEND_DIM, D), VISION_FRONTEND_DIM ** -0.5)
     return specs
@@ -113,9 +148,10 @@ def _ffn(p, cfg: ModelConfig, kind: str, x: torch.Tensor) -> Tuple[torch.Tensor,
 
 
 def _block_forward(p, cfg: ModelConfig, layer: int, x: torch.Tensor,
-                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block: ``(x, aux)``."""
-    kind = cfg.block_pattern[layer]
+                   positions: torch.Tensor, enc_out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block: ``(x, aux)``; a decoder block also attends over
+    ``enc_out``."""
+    kind = _kind(cfg, layer)
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mlstm":
         return x + SSM.mlstm_forward(p["mlstm"], cfg, xin), torch.zeros((), device=x.device)
@@ -128,7 +164,44 @@ def _block_forward(p, cfg: ModelConfig, layer: int, x: torch.Tensor,
     else:
         x = x + A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
                                window=_window(cfg, layer))
+        if kind == "xattn":
+            x = x + A.cross_attn_forward(p["xattn"], cfg, rms_norm(x, p["lnx"], cfg.norm_eps),
+                                         enc_out)
     return _ffn(p, cfg, kind, x)
+
+
+def _encoder_block(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = A.attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions,
+                       causal=False, window=None)
+    return _ffn(p, cfg, "attn", x + h)[0]
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame features ``frames`` [B, T, 128]:
+    the frontend projection plus sinusoidal positions, then every encoder
+    layer (bidirectional attention on the chunked path, whatever
+    ``cfg.use_flash_kernel``, and the MLP), then the final norm.
+    Returns [B, T, D]."""
+    x = frames @ params["frontend"]
+    T = x.shape[1]
+    x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)
+    positions = torch.arange(T, device=x.device)
+    for p in params["enc_layers"]:
+        if cfg.remat:
+            x = checkpoint(_encoder_block, p, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _encoder_block(p, cfg, x, positions)
+    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _encode_frames(params, cfg: ModelConfig, enc_frames) -> Optional[torch.Tensor]:
+    """The encoder output of an encoder-decoder config, else None."""
+    if not cfg.is_encdec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.arch_id} is an encoder-decoder: pass enc_frames "
+                         f"[B, {cfg.encoder.seq_len}, {AUDIO_FRONTEND_DIM}]")
+    return encode(params, cfg, enc_frames)
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, vision_embeds) -> torch.Tensor:
@@ -144,24 +217,27 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, vision_embeds) -> tor
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, return_aux: bool = False,
-            vision_embeds=None):
+            vision_embeds=None, enc_frames=None):
     """Full-sequence forward.  tokens [B, S] -> logits [B, S, V], or with
     ``return_aux`` ``(logits, aux)``: the sum over the MoE layers of their
     load-balance loss (0 without MoE layers), which the reference's
     forward always returns beside the logits.  A VLM needs
-    ``vision_embeds`` [B, P, 1024] (see the module docstring).  With
+    ``vision_embeds`` [B, P, 1024], an encoder-decoder ``enc_frames``
+    [B, T, 128] (see the module docstring).  With
     ``cfg.use_flash_kernel`` every GQA layer's attention (Hymba's
     included) is one K3 launch and every mLSTM layer's scan one
     ``mlstm_scan`` call, which need the sequence (prefix included) to be
     a multiple of 128."""
     x = _embed(params, cfg, tokens, vision_embeds)
+    enc_out = _encode_frames(params, cfg, enc_frames)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["layers"]):
         if cfg.remat:
-            x, aux = checkpoint(_block_forward, p, cfg, layer, x, positions, use_reentrant=False)
+            x, aux = checkpoint(_block_forward, p, cfg, layer, x, positions, enc_out,
+                                use_reentrant=False)
         else:
-            x, aux = _block_forward(p, cfg, layer, x, positions)
+            x, aux = _block_forward(p, cfg, layer, x, positions, enc_out)
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)[:, cfg.vision_prefix_len:]
     logits = (x @ params["lm_head"])[..., : cfg.vocab_size]
@@ -170,9 +246,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, return_aux: bool 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token cross entropy plus the MoE load-balance loss, as the
-    reference's; a VLM's batch carries ``"vision_embeds"``."""
+    reference's; a VLM's batch carries ``"vision_embeds"``, an
+    encoder-decoder's ``"enc_frames"``."""
     logits, aux = forward(params, cfg, batch["tokens"], return_aux=True,
-                          vision_embeds=batch.get("vision_embeds"))
+                          vision_embeds=batch.get("vision_embeds"),
+                          enc_frames=batch.get("enc_frames"))
     return softmax_cross_entropy(logits, batch["labels"]) + aux
 
 
@@ -186,11 +264,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     layer's is a ring buffer of ``min(max_len, window)`` slots), the
     latent cache for MLA (``dtype`` applies to these two), the float32
     recurrent state for mLSTM and sLSTM, and for Hymba a KV cache beside
-    the Mamba state (float32 ``h``, conv buffer in ``dtype``)."""
+    the Mamba state (float32 ``h``, conv buffer in ``dtype``); an
+    encoder-decoder's layer ``{"kv": its KV cache, "xk": None, "xv":
+    None}``, the cross K/V left for the prefill to fill."""
     dev = resolve_device(device)
     caches: List[Any] = []
-    for layer, kind in enumerate(cfg.block_pattern):
-        if kind == "mlstm":
+    for layer in range(cfg.n_layers):
+        kind = _kind(cfg, layer)
+        if kind == "xattn":
+            caches.append({"kv": A.init_kv_cache(cfg, batch, max_len, None, dtype, dev),
+                           "xk": None, "xv": None})
+        elif kind == "mlstm":
             caches.append(SSM.init_mlstm_state(cfg, batch, dev))
         elif kind == "slstm":
             caches.append(SSM.init_slstm_state(cfg, batch, dev))
@@ -204,21 +288,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
-            cache_dtype=torch.bfloat16, vision_embeds=None) -> Tuple[torch.Tensor, List[Any]]:
+            cache_dtype=torch.bfloat16, vision_embeds=None,
+            enc_frames=None) -> Tuple[torch.Tensor, List[Any]]:
     """Serving prefill: full forward, filling the serving cache.  Returns
     (last-token logits [B, V], cache ready for decode at position S, or
     P + S behind a VLM's P-patch prefix, which ``max_len`` must hold).
     GQA attention goes through the flash-attention kernel when
     ``cfg.use_flash_kernel`` (one launch per ``attn`` / ``attn_moe`` /
-    ``hymba`` layer; MLA stays on the chunked path); the recurrent blocks
-    return their final state, so the mLSTM takes its plain chunked path
-    whatever the flag.  The MoE layers' aux loss is dropped, as in the
+    ``hymba`` layer and per decoder layer of an encoder-decoder, whose
+    encoder and cross-attention, being bidirectional, stay on the chunked
+    path, as MLA does); an encoder-decoder's cross K/V are those of the
+    encoder output of ``enc_frames``, kept in the encoder output's dtype
+    (as the reference keeps them, whatever ``cache_dtype``); the
+    recurrent blocks return their final state, so the mLSTM takes its
+    plain chunked path whatever the flag.  The MoE layers' aux loss is dropped, as in the
     reference."""
     B = tokens.shape[0]
     x = _embed(params, cfg, tokens, vision_embeds)
+    enc_out = _encode_frames(params, cfg, enc_frames)
     positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, B, max_len, cache_dtype, x.device)
-    for layer, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
+    for layer, p in enumerate(params["layers"]):
+        kind = _kind(cfg, layer)
         xin = rms_norm(x, p["ln1"], cfg.norm_eps)
         if kind == "mlstm":
             h, cache[layer] = SSM.mlstm_forward(p["mlstm"], cfg, xin, return_state=True)
@@ -236,6 +327,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
             h, ((k, v), cache[layer]["ssm"]) = HY.hymba_forward(p["hymba"], cfg, xin, positions,
                                                                 layer, return_cache=True)
             A.fill_kv_cache(cache[layer]["kv"], k, v, positions)
+        elif kind == "xattn":
+            h, (k, v) = A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
+                                       window=None, return_kv=True)
+            A.fill_kv_cache(cache[layer]["kv"], k, v, positions)
+            x = x + h
+            h, (cache[layer]["xk"], cache[layer]["xv"]) = A.cross_attn_forward(
+                p["xattn"], cfg, rms_norm(x, p["lnx"], cfg.norm_eps), enc_out, return_kv=True)
         else:
             h, (k, v) = A.attn_forward(p["attn"], cfg, xin, positions, causal=True,
                                        window=_window(cfg, layer), return_kv=True)
@@ -251,9 +349,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: List[Any],
     (logits [B, V], cache).  Updates the cache in place (KV and latent
     caches are written, recurrent states replaced in the list or, for
     Hymba, in the layer's dict) and returns it; the MoE layers route the
-    one token as a group of 1."""
+    one token as a group of 1; an encoder-decoder's layers attend over
+    their cached cross K/V after the self-attention."""
     x = embed_tokens(params["embed"], token[:, None])
-    for layer, (p, kind) in enumerate(zip(params["layers"], cfg.block_pattern)):
+    for layer, p in enumerate(params["layers"]):
+        kind = _kind(cfg, layer)
         xin = rms_norm(x, p["ln1"], cfg.norm_eps)
         if kind == "mlstm":
             h, cache[layer] = SSM.mlstm_decode(p["mlstm"], cfg, xin, cache[layer])
@@ -267,9 +367,23 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: List[Any],
             h, _ = A.mla_decode(p["attn"], cfg, xin, cache[layer], position)
         elif kind == "hymba":
             h, _ = HY.hymba_decode(p["hymba"], cfg, xin, cache[layer], position, layer)
+        elif kind == "xattn":
+            c = cache[layer]
+            h, _ = A.attn_decode(p["attn"], cfg, xin, c["kv"], position, window=None)
+            x = x + h
+            h = A.cross_decode(p["xattn"], cfg, rms_norm(x, p["lnx"], cfg.norm_eps),
+                               c["xk"], c["xv"])
         else:
             h, _ = A.attn_decode(p["attn"], cfg, xin, cache[layer], position,
                                  window=_window(cfg, layer))
         x, _ = _ffn(p, cfg, kind, x + h)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x[:, 0] @ params["lm_head"])[:, : cfg.vocab_size], cache
+
+
+def prefill_cross_cache(params, cfg: ModelConfig,
+                        enc_out: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Every decoder layer's cross ``(xk, xv)`` [B, T, H, hd] of the
+    encoder output ``enc_out`` [B, T, D], for a cache from
+    :func:`init_cache`."""
+    return [A.cross_kv(p["xattn"], cfg, enc_out) for p in params["layers"]]

@@ -484,6 +484,64 @@ def test_hybrid_and_vlm_prefill_on_card_matches_cpu(cuda, arch):
         torch.testing.assert_close(got_next.cpu(), ref_next, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [128, 384])
+def test_flash_attention_kernel_at_whisper_decoder_shape(cuda, S):
+    """whisper-large-v3's decoder self-attention: plain MHA (G = 1, so a
+    block's 128 query rows are 128 positions of one head), 20 kv heads on
+    the grid, hd 64, causal, float32; batch 4 at the serving prompt (384)
+    and one block (128)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + 20)
+    q = torch.randn((4, S, 20, 1, 64), generator=gen, device=cuda)
+    k = torch.randn((4, S, 20, 64), generator=gen, device=cuda)
+    v = torch.randn((4, S, 20, 64), generator=gen, device=cuda)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, window=None)
+    assert LAUNCHES["flash_attention"] == before + 1
+    expect = flash_attention_ref(q, k, v, causal=True, window=None)
+    torch.testing.assert_close(got, expect, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_whisper_prefill_and_decode_on_card_match_cpu(cuda):
+    """The reduced whisper prefill with the kernel switch on (128 prompt
+    tokens, 64 seeded frames): one K3 launch a decoder layer and none for
+    the bidirectional encoder and cross-attention; then a decode step,
+    which launches none; the card against the CPU from the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3").reduced(), use_flash_kernel=True)
+    params = init_params(model_specs(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.encoder.seq_len, 128))
+                              .astype(np.float32))
+    card = tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        ref, ref_cache = T.prefill(params, cfg, tokens, 136, cache_dtype=torch.float32,
+                                   enc_frames=frames)
+        before = LAUNCHES["flash_attention"]
+        got, cache = T.prefill(card, cfg, tokens.to(cuda), 136, cache_dtype=torch.float32,
+                               enc_frames=frames.to(cuda))
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        for c, r in zip(cache, ref_cache):
+            for got_t, ref_t in ((c["xk"], r["xk"]), (c["xv"], r["xv"]),
+                                 (c["kv"]["k"], r["kv"]["k"]), (c["kv"]["v"], r["kv"]["v"])):
+                torch.testing.assert_close(got_t.cpu(), ref_t, atol=1e-4, rtol=1e-4)
+        tok = ref.argmax(-1)
+        ref_next, _ = T.decode_step(params, cfg, tok, ref_cache, 128)
+        got_next, _ = T.decode_step(card, cfg, tok.to(cuda), cache, 128)
+        assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+        torch.testing.assert_close(got_next.cpu(), ref_next, atol=1e-4, rtol=1e-4)
+
+
 def _mlstm_inputs(gen, B, S, H, hd, forget_bias, device):
     """q, k, v at 0.5 N(0, 1); log-sigmoid gates, the forget gate biased
     by ``forget_bias`` (2: the reference's tests; 0: the model's

@@ -81,6 +81,23 @@ def test_moe_and_mla_load_neither_jax_nor_reference():
     assert REPO / "src" / "repro_torch" / "models" / "moe.py" in PORT_FILES
 
 
+def test_whisper_and_simulator_load_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.core.simulator, repro_torch.models.transformer\n"
+        "import repro_torch.configs as C, repro_torch.core as P\n"
+        "C.get_config('whisper-large-v3').reduced()\n"
+        "P.brute_force_mct, P.simulate_overlay\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for rel in ("core/simulator.py", "configs/whisper_large_v3.py"):
+        assert REPO / "src" / "repro_torch" / rel in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_or_jax_imports(path):
     bad = []
@@ -127,9 +144,10 @@ def _controller():
     lambda: _controller(),
     lambda: train(_cfg(), dynamic=True, steps=1),
     lambda: serve(get_config("qwen3-moe-30b-a3b").reduced(), batch=1, gen=2),
+    lambda: serve(get_config("whisper-large-v3").reduced(), batch=1, gen=2),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
         "design_overlay", "serve", "design_schedule", "OnlineTopologyController",
-        "train_dynamic", "serve_moe"])
+        "train_dynamic", "serve_moe", "serve_whisper"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
