@@ -223,7 +223,24 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    prefill (<= 2e-3), the last decode step against a teacher-forced
    forward (<= 5e-3); the encoder's, the cross-attention's and K3's shares
    of a warm prefill by CUDA events, a profile of prefill and decode; then
-   the reduced whisper on the card against the CPU (<= 1e-4, ids equal).
+   the reduced whisper on the card against the CPU (<= 1e-4, ids equal);
+28. trains the zoo's way through ``repro_torch.launch.steps.build_train_step``:
+   internlm2-1.8b at full width (4 of 24 layers) on 4 silos of a ring,
+   ``gossip_impl="pallas"``, ``adamw(1e-4)``, ``flash_vjp``, 1 x 4096
+   tokens a silo, 3 rounds (the reference's AdamW configuration cut to one
+   card): finite losses, one ``gossip_mix`` launch a round and no K3 or K4
+   launch, each round's wall, the peak, a traced round's idle share, then
+   one more round whose K2 mix equals K2's plain version on the same stack
+   bit for bit; ``flash_attention_vjp`` at the layer's shape (B=1,
+   S=T=4096, K=8, G=2, hd=128, causal) against autograd through the chunked
+   path (output 2e-5, gradients 2e-4), both timed in turns; one silo's
+   local step with ``flash_vjp`` on and off (wall, peak above the state);
+   one ``adamw`` update of a 2^26 row on the card against the CPU's (at
+   most 1 ulp of each output's largest magnitude), timed beside its bound;
+29. drives the serving step functions on silo 0's trained parameters:
+   ``build_prefill_step`` with ``use_flash_kernel`` (batch 1, prompt 1024:
+   4 K3 launches) and 8 ``build_decode_step`` calls (none), the first
+   greedy token equal to ``serve``'s on the same parameters.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -303,6 +320,15 @@ K3_WHISPER = (4, 384, 20, 1, 64)
 # frames): (batch, prompt length, tokens generated); prompt plus tokens is
 # whisper's 448-token text context (arXiv:2212.04356)
 WHISPER_SERVE = (4, 384, 64)
+# the zoo's training side: the reference's AdamW configuration
+# (launch/perf_gossip.py: internlm2-1.8b, flash_vjp, adamw(1e-4), 4096-token
+# sequences, s = 1) cut to one card: (arch, layers kept, silos on a ring,
+# tokens a silo, rounds); flash_attention_vjp at its attention layers' shape
+# (B, S = T, K, G, hd); the serving step functions on silo 0's trained
+# parameters (batch, prompt length, decode steps)
+ZOO_TRAIN = ("internlm2-1.8b", 4, 4, 4096, 3)
+FLASH_VJP_SHAPE = (1, 4096, 8, 2, 128)
+STEPS_SERVE = (1, 1024, 8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3377,6 +3403,269 @@ def whisper_serve_phase(torch, dev) -> dict:
     return out
 
 
+def adamw_card_phase(torch, dev) -> dict:
+    """One ``adamw`` update on a 2^26-element row on the card against the
+    same update on the CPU from the same inputs (the difference in units of
+    the ulp of each output's largest magnitude), then timed beside the
+    bytes bound of its 7 float32 streams (read g, mu, nu, p; write mu, nu,
+    p)."""
+    from repro_torch.optim import adamw
+
+    n, step = 1 << 26, 5
+    gen = torch.Generator().manual_seed(28)
+    p = torch.randn(n, generator=gen)
+    g = torch.randn(n, generator=gen)
+    mu = torch.randn(n, generator=gen) * 1e-2
+    nu = (torch.randn(n, generator=gen) * 1e-2).square()
+    opt = adamw(1e-4)
+    host = {"mu": mu.clone(), "nu": nu.clone()}
+    hp = p.clone()
+    opt.update(g, host, hp, step)
+    card = {"mu": mu.to(dev), "nu": nu.to(dev)}
+    cp, cg = p.to(dev), g.to(dev)
+    opt.update(cg, card, cp, step)
+    ulps = {}
+    for name, got, want in (("p", cp, hp), ("mu", card["mu"], host["mu"]),
+                            ("nu", card["nu"], host["nu"])):
+        top = float(want.abs().max())
+        ulp = math.ldexp(1.0, math.frexp(top)[1] - 24)  # spacing of float32 at |top|
+        ulps[name] = float((got.cpu() - want).abs().max()) / ulp
+    ms = time_ms(torch, lambda: opt.update(cg, card, cp, step), reps=20, warmup=2)
+    bound = 7 * n * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"zoo train: adamw update of a 2^26 row on the card vs the CPU from the same inputs: "
+          f"max difference in ulps of each output's largest magnitude p {ulps['p']:.3g}, mu "
+          f"{ulps['mu']:.3g}, nu {ulps['nu']:.3g} (limit 1); {ms:.4f} ms a call against the "
+          f"bound {bound:.4f} ms (bytes: 7 float32 streams; {bound / ms:.1%})")
+    check(max(ulps.values()) <= 1.0, f"adamw: card and CPU differ by {ulps} ulps")
+    return {"ulps": ulps, "ms": ms, "bound_ms": bound}
+
+
+def zoo_train_phase(torch, dev) -> dict:
+    """The zoo's training side through ``build_train_step``: internlm2-1.8b
+    at full width (depth cut), 4 silos on a ring, ``gossip_impl="pallas"``,
+    AdamW at 1e-4, ``flash_vjp``, 1 x 4096 tokens a silo, 3 rounds (the
+    reference's AdamW configuration, launch/perf_gossip.py, cut to one
+    card): finite losses, one K2 launch a round and no K3 or K4 launch, the
+    round's peak and profile, one more round whose K2 mix equals its plain
+    version on the same stack bit for bit; ``flash_attention_vjp`` at the
+    layer's shape against autograd through the chunked path; one silo's
+    local step with ``flash_vjp`` on and off; the optimizer on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import FederatedBatcher, SyntheticLMStream
+    from repro_torch.fed import init_state
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_round import kernel_part
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import ParamLayout, model_specs
+    from repro_torch.models.attention import chunked_attention, flash_attention_vjp
+    from repro_torch.optim import adamw
+
+    arch, layers, silos, seq, rounds = ZOO_TRAIN
+    cfg = get_config(arch, n_layers=layers, n_silos=silos, flash_vjp=True)
+    P = ParamLayout(model_specs(cfg)).size
+    print(f"zoo train: {arch} d_model {cfg.d_model} GQA {cfg.n_heads}/{cfg.n_kv_heads} hd "
+          f"{cfg.head_dim} vocab {cfg.vocab_size} layers {layers} (of "
+          f"{get_config(arch).n_layers}), P {P}; {silos} silos, ring, pallas, s 1, adamw(1e-4), "
+          f"flash_vjp, 1 x {seq} tokens a silo; (K + 3) n P 4 bytes = "
+          f"{5 * silos * P * 4 / 1e9:.2f} GB at K = 2")
+    opt = adamw(1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    step = build_train_step(cfg, optimizer=opt, gossip_impl="pallas")
+    batcher = FederatedBatcher(SyntheticLMStream(cfg.vocab_size, seq, n_silos=silos), 1, 1)
+    losses, walls = [], []
+    reset_launch_counts()
+    for r in range(rounds):
+        batch = batch_to_device(batcher.batch(r), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        print(f"zoo train: round {r} wall {walls[-1]:.4f} s loss {losses[-1]:.6f}", flush=True)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"zoo train: non-finite loss {losses}")
+    check(launches["gossip_mix"] == rounds and launches["flash_attention"] == 0
+          and launches["mlstm_scan"] == 0,
+          f"zoo train: launches {launches} in {rounds} rounds")
+    check(state["step"] == rounds and set(state["opt_state"]) == {"mu", "nu"},
+          f"zoo train: step {state['step']}, slots {list(state['opt_state'])}")
+
+    # the round's profile (one more round, traced)
+    batch = batch_to_device(batcher.batch(rounds), dev)
+    holder = {}
+    wall, kernels = device_kernels(torch, lambda: holder.update(out=step(state, batch)),
+                                   lead_in=True)
+    state = holder.pop("out")[0]
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    idle = 1.0 - busy / wall if kernels else None
+    parts = {}
+    for name, (_, us) in kernels.items():
+        parts[kernel_part(name)] = parts.get(kernel_part(name), 0.0) + us / 1e6
+    print(f"zoo train profile: round wall {wall:.4f} s (traced), device busy {busy:.4f} s over "
+          f"{sum(c for c, _ in kernels.values())} kernels, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+
+    # one more round: its mix through K2, then K2's plain version on the same stack
+    batch = batch_to_device(batcher.batch(rounds + 1), dev)
+    reset_launch_counts()
+    with mix_against_plain(torch, []) as mixes:
+        state, _ = step(state, batch)
+    check(LAUNCHES["gossip_mix"] == 1 and len(mixes) == 1,
+          f"zoo train: the checked round launched gossip_mix {LAUNCHES['gossip_mix']} times")
+    same, diff = mixes[0]
+    print(f"zoo train: one more round, its mix through gossip_mix vs the plain version on the "
+          f"same [2, {silos * P}] stack: bit-identical {same} (max abs diff {diff:.3g}); peak "
+          f"device memory {peak / 2**30:.2f} GiB over the {rounds} rounds; gossip_mix launches "
+          f"{launches['gossip_mix']}, flash_attention {launches['flash_attention']}, mlstm_scan "
+          f"{launches['mlstm_scan']} in {rounds} rounds")
+    check(same, f"zoo train: gossip_mix and its plain version differ by {diff}")
+    row = {"params": state["params"][0].clone(),
+           "opt_state": {k: v[0].clone() for k, v in state["opt_state"].items()},
+           "step": state["step"]}
+    del state, batch, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # flash_attention_vjp at the layer's shape against autograd through the chunked path
+    B, S, K, G, hd = FLASH_VJP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(28)
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, K, hd), generator=gen, device=dev) for _ in range(2))
+    w = torch.randn((B, S, K, G, hd), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
+    paths = {"flash_vjp": lambda q, k, v: flash_attention_vjp(q, k, v, pos, pos, True, None, 1024),
+             "chunked": lambda q, k, v: chunked_attention(q, k, v, pos, pos, causal=True,
+                                                          window=None, kv_block=1024)}
+
+    def fwd_bwd(f):
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = f(*ts)
+        (out * w).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    res, attn_ms, attn_peak = {}, {}, {}
+    for name, f in paths.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = fwd_bwd(f)
+        attn_peak[name] = torch.cuda.max_memory_allocated() - base
+    for name in ("flash_vjp", "chunked", "chunked", "flash_vjp"):  # in turns
+        attn_ms.setdefault(name, []).append(time_ms(torch, lambda: fwd_bwd(paths[name]), reps=3))
+    out_err = float((res["flash_vjp"][0] - res["chunked"][0]).abs().max())
+    grad_err = [float((a - b).abs().max()) for a, b in zip(res["flash_vjp"][1], res["chunked"][1])]
+    ok = bool(torch.allclose(res["flash_vjp"][0], res["chunked"][0], atol=2e-5, rtol=2e-5)) and all(
+        bool(torch.allclose(a, b, atol=2e-4, rtol=2e-4))
+        for a, b in zip(res["flash_vjp"][1], res["chunked"][1]))
+    print(f"zoo train: flash_attention_vjp at (B, S=T, K, G, hd) = {FLASH_VJP_SHAPE}, causal, "
+          f"kv_block 1024, against autograd through the chunked path: output {out_err:.3g} "
+          f"(tolerance 2e-5), dq/dk/dv {grad_err[0]:.3g} / {grad_err[1]:.3g} / {grad_err[2]:.3g} "
+          f"(tolerance 2e-4); forward + backward ms flash_vjp {fmt_times(attn_ms['flash_vjp'])}, "
+          f"chunked {fmt_times(attn_ms['chunked'])} (in turns); transient peak flash_vjp "
+          f"{attn_peak['flash_vjp'] / 2**30:.3f} GiB, chunked {attn_peak['chunked'] / 2**30:.3f} GiB")
+    check(ok, f"zoo train: flash_attention_vjp differs from chunked autograd: {out_err}, {grad_err}")
+    del q, k, v, w, res
+
+    # one silo's local step with flash_vjp on and off, in turns, from the same state
+    cfg1 = dataclasses.replace(cfg, n_silos=1)
+    batch1 = {key: val[0] for key, val in batch_to_device(batcher.batch(rounds + 2), dev).items()}
+    steps1 = {on: build_train_step(dataclasses.replace(cfg1, flash_vjp=on), optimizer=opt)
+              for on in (True, False)}
+    one = {}
+    for on in (False, True, True, False):
+        work = {"params": row["params"].clone(),
+                "opt_state": {k_: v_.clone() for k_, v_ in row["opt_state"].items()},
+                "step": row["step"]}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m1 = steps1[on](work, batch1)
+        loss1 = float(m1["loss"])
+        torch.cuda.synchronize()
+        one.setdefault(on, []).append((time.perf_counter() - t0,
+                                       torch.cuda.max_memory_allocated() - base, loss1))
+        del work
+    d_loss = abs(one[True][0][2] - one[False][0][2])
+    print(f"zoo train: one silo's local step (1 x {seq} tokens, AdamW) flash_vjp on: wall "
+          + " / ".join(f"{t:.4f}" for t, _, _ in one[True]) + " s, peak above the state "
+          + " / ".join(f"{b / 2**30:.3f}" for _, b, _ in one[True]) + " GiB; off: wall "
+          + " / ".join(f"{t:.4f}" for t, _, _ in one[False]) + " s, peak above the state "
+          + " / ".join(f"{b / 2**30:.3f}" for _, b, _ in one[False])
+          + f" GiB; difference off - on {(one[False][0][1] - one[True][0][1]) / 2**30:.3f} GiB; "
+          f"loss on vs off {d_loss:.3g}")
+    check(d_loss <= 1e-4, f"zoo train: the step's loss with flash_vjp on and off differs by {d_loss}")
+    opt_card = adamw_card_phase(torch, dev)
+    out = {"launches": launches["gossip_mix"], "n_elems": silos * P, "P": P, "peak_bytes": peak,
+           "round_s": walls, "losses": losses, "idle_share": idle, "busy_s": busy,
+           "parts_s": parts, "params0": row["params"], "attn_ms": attn_ms,
+           "attn_peak": attn_peak, "attn_err": (out_err, grad_err), "one_silo": one,
+           "adamw": opt_card}
+    del row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_serve_phase(torch, dev, params0) -> dict:
+    """The serving step functions on silo 0's trained parameters from the
+    zoo training phase: ``build_prefill_step`` with ``use_flash_kernel``
+    (one K3 launch a layer), 8 ``build_decode_step`` calls (none), and the
+    first greedy token against ``serve``'s on the same parameters."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import ParamLayout, model_specs
+
+    arch, layers, _, _, _ = ZOO_TRAIN
+    batch, prompt_len, gen = STEPS_SERVE
+    cfg = get_config(arch, n_layers=layers, use_flash_kernel=True)
+    params = ParamLayout(model_specs(cfg)).views(params0)
+    prompts = np.random.default_rng(29).integers(0, cfg.vocab_size, (batch, prompt_len))
+    tokens = torch.from_numpy(prompts).to(dev)
+    prefill, decode = build_prefill_step(cfg, prompt_len + gen), build_decode_step(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    first = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    k3_prefill = LAUNCHES["flash_attention"]
+    tok = first
+    t0 = time.perf_counter()
+    for i in range(gen):
+        step_logits, cache = decode(params, {"token": tok, "cache": cache, "position": prompt_len + i})
+        tok = step_logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen=2, device=dev, params=params,
+                prompts=prompts, log=lambda line: None)
+    same = bool(torch.equal(res.ids[:, 0], first))
+    d_pre = float((res.prefill_logits - logits).abs().max())
+    print(f"steps serve: {arch} ({layers} layers, silo 0 of the zoo training) build_prefill_step "
+          f"[{batch}x{prompt_len}] {prefill_s:.4f} s, {gen} build_decode_step calls {decode_s:.4f} "
+          f"s (bfloat16 caches); flash_attention launches prefill {k3_prefill} decode "
+          f"{launches['flash_attention'] - k3_prefill}; first greedy token {first.tolist()} == "
+          f"serve's {res.ids[:, 0].tolist()}: {same} (prefill logits differ by {d_pre:.3g})")
+    check(k3_prefill == layers and launches["flash_attention"] == layers,
+          f"steps serve: flash_attention launches {launches}")
+    check(launches["gossip_mix"] == launches["mlstm_scan"] == 0, f"steps serve: {launches}")
+    check(bool(torch.isfinite(step_logits).all()), "steps serve: non-finite decode logits")
+    check(same, "steps serve: the first greedy token differs from serve's")
+    return {"launches": k3_prefill, "prefill_s": prefill_s, "decode_s": decode_s}
+
+
 def main() -> int:
     import torch
 
@@ -3477,6 +3766,16 @@ def main() -> int:
     attn_wh = flash_whisper_phase(torch, dev)
     wh = whisper_serve_phase(torch, dev)
     wh_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"zoo training phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          "from the earlier phases")
+    t0 = time.perf_counter()
+    ztr = zoo_train_phase(torch, dev)
+    sserve = steps_serve_phase(torch, dev, ztr.pop("params0"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ztr_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -3547,6 +3846,18 @@ def main() -> int:
           f"{wh['peak_bytes'] / 2**30:.2f}, warm prefill {wh['warm_prefill_s']:.4f} s (encoder "
           f"{wh['encoder_s']:.4f}, cross-attention {wh['cross_attention_s']:.4f}, K3 "
           f"{wh['k3_s']:.4f}); whisper phases took {wh_s:.1f} s")
+    one = ztr["one_silo"]
+    print(f"summary: zoo train (internlm2-1.8b, 4 layers, 4 silos, adamw, flash_vjp, 4096 tokens) "
+          f"round wall s {[round(x, 4) for x in ztr['round_s']]}, losses "
+          f"{[round(x, 4) for x in ztr['losses']]}, peak GiB {ztr['peak_bytes'] / 2**30:.2f}, idle "
+          f"share {ztr['idle_share']}; flash_attention_vjp fwd+bwd ms "
+          f"{fmt_times(ztr['attn_ms']['flash_vjp'])} (chunked autograd "
+          f"{fmt_times(ztr['attn_ms']['chunked'])}); one-silo step s on "
+          f"{[round(t, 4) for t, _, _ in one[True]]} off {[round(t, 4) for t, _, _ in one[False]]}, "
+          f"peak above the state GiB on {one[True][0][1] / 2**30:.3f} off "
+          f"{one[False][0][1] / 2**30:.3f}; adamw 2^26 ms {ztr['adamw']['ms']:.4f} (bound "
+          f"{ztr['adamw']['bound_ms']:.4f}); steps serve prefill s {sserve['prefill_s']:.4f}, "
+          f"K3 launches {sserve['launches']}; zoo training phases took {ztr_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     zoo_k3 = sum(r["launches"] for r in zoo.values())
@@ -3556,9 +3867,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
-        "launches": tr["launches"] + dl["gossip_mix"] + mtr["launches"] + htr["launches"],
+        "launches": (tr["launches"] + dl["gossip_mix"] + mtr["launches"] + htr["launches"]
+                     + ztr["launches"]),
         "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
-                             "moe_train": mtr["launches"], "hymba_train": htr["launches"]},
+                             "moe_train": mtr["launches"], "hymba_train": htr["launches"],
+                             "zoo_train": ztr["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3596,9 +3909,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": danube["launches"] + zoo_k3 + hv_k3 + wh["launches"],
+        "launches": danube["launches"] + zoo_k3 + hv_k3 + wh["launches"] + sserve["launches"],
         "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3,
-                             "hybrid_and_vlm_serve": hv_k3, "encdec_serve": wh["launches"]},
+                             "hybrid_and_vlm_serve": hv_k3, "encdec_serve": wh["launches"],
+                             "steps_serve": sserve["launches"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],

@@ -9,7 +9,9 @@ with its overlay in-neighbours through the consensus matrix A:
 Counterpart of ``repro.fed.dpasgd`` on its static path, and on the
 per-round consensus matrix of a randomized schedule (``consensus_arg``).  The state keeps
 every silo's parameters and optimizer slot as rows of flat
-``[n_silos, P]`` buffers (``[P]`` for one silo).  The reference's
+``[n_silos, P]`` buffers (``[P]`` for one silo); a slot is None
+(SGD), one buffer (momentum) or a dict of buffers (Adam's ``{"mu",
+"nu"}``).  The reference's
 ``vmap`` over silos is a loop over the rows: each silo's gradient lands
 in one flat ``[P]`` buffer through per-leaf gradient views, and the
 update rewrites the silo's rows in place.  The step updates the state's
@@ -77,7 +79,7 @@ def masked_consensus(A, active_mask) -> torch.Tensor:
 
 
 def _is_silo_stacked(x, n_silos: int) -> bool:
-    """One rule for "does this entry of the state carry the leading silo
+    """One rule for "does this buffer of the state carry the leading silo
     dimension": a ``[n_silos, P]`` buffer (``[P]`` when one silo).  Shared
     by the migration and the leaver-row slicer so they cannot drift apart;
     ``None`` (a stateless optimizer) and the int step counter are shared,
@@ -85,6 +87,26 @@ def _is_silo_stacked(x, n_silos: int) -> bool:
     if not isinstance(x, torch.Tensor):
         return False
     return x.ndim == 2 and x.shape[0] == n_silos or (n_silos == 1 and x.ndim == 1)
+
+
+def map_slots(fn: Callable, entry):
+    """``fn`` applied to each buffer of a state entry: the entry itself, or
+    each value of a dict of slots (Adam's ``{"mu", "nu"}``)."""
+    if isinstance(entry, dict):
+        return {k: fn(v) for k, v in entry.items()}
+    return fn(entry)
+
+
+def state_buffers(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The state's entries with dict slots flattened: ``{"params": ...,
+    "opt_state/mu": ..., "opt_state/nu": ..., "step": ...}``."""
+    out = {}
+    for key, entry in state.items():
+        if isinstance(entry, dict):
+            out.update({f"{key}/{k}": v for k, v in entry.items()})
+        else:
+            out[key] = entry
+    return out
 
 
 def slice_silo_row(state: Dict[str, Any], active: Sequence[int], silo: int,
@@ -103,7 +125,7 @@ def slice_silo_row(state: Dict[str, Any], active: Sequence[int], silo: int,
             return x
         return x.view(n, -1)[row]
 
-    return state_to_tree({k: pick(v) for k, v in state.items()}, layout)
+    return state_to_tree({k: map_slots(pick, v) for k, v in state.items()}, layout)
 
 
 # Columns per float64 scratch chunk of the joiners' consensus row.
@@ -135,8 +157,8 @@ def migrate_silo_state(state: Dict[str, Any], old_active: Sequence[int],
 
     ``old_active`` / ``new_active`` are the sorted silo-label tuples the
     state's rows are (was / will be) stacked by — row k holds silo
-    ``active[k]``.  On the state's device, for ``params`` and
-    ``opt_state``:
+    ``active[k]``.  On the state's device, for ``params`` and every
+    buffer of ``opt_state``:
 
     * **survivors** (labels in both sets) keep their rows *bit-identical*
       — one ``index_select`` gathers them;
@@ -176,15 +198,16 @@ def migrate_silo_state(state: Dict[str, Any], old_active: Sequence[int],
                     out[k] = avg
         return out[0] if len(new_active) == 1 else out
 
-    return {k: move(v) for k, v in state.items()}, joined, left
+    return {k: map_slots(move, v) for k, v in state.items()}, joined, left
 
 
 def local_sgd_steps(
     loss_fn: Callable,
     optimizer: Optimizer,
     params: torch.Tensor,               # flat [P] row, updated in place
-    opt_state: Optional[torch.Tensor],  # flat [P] row or None, updated in place
+    opt_state: Any,                     # None, a flat [P] row or a dict of them, in place
     microbatches: Dict[str, torch.Tensor],  # leading dim s (+ accum dim)
+    step: Optional[int] = None,         # optimizer step counter of the first local step
     *,
     layout: ParamLayout,
     accum_steps: int = 1,
@@ -195,8 +218,10 @@ def local_sgd_steps(
     With ``accum_steps > 1`` each local step's batch carries an extra
     leading accumulation dim ``[s, A, B_micro, ...]``: gradients are
     summed over the A chunks and divided by A before the single update,
-    as the reference does.  Returns the mean loss over the s steps, on the
-    device."""
+    as the reference does.  Local step m updates at optimizer step ``step
+    + m`` (the reference's per-step counter); an optimizer that reads the
+    step (a schedule, Adam) raises when ``step`` is None.  Returns the
+    mean loss over the s steps, on the device."""
     if grad is None:
         grad = torch.empty_like(params)
     grad_views = layout.leaf_views(grad)
@@ -221,7 +246,7 @@ def local_sgd_steps(
             loss = loss_fn(tree, micro)
             loss.backward()
             loss = loss.detach()
-        optimizer.update(grad, opt_state, params)
+        optimizer.update(grad, opt_state, params, None if step is None else step + m)
         losses.append(loss)
     return torch.stack(losses).mean()
 
@@ -269,15 +294,16 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
                              f"the config needs {layout.size}")
         if n_silos == 1:
             loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch,
-                                   layout=layout, accum_steps=fed.accum_steps)
+                                   state["step"], layout=layout,
+                                   accum_steps=fed.accum_steps)
         else:
             grad = torch.empty(layout.size, dtype=params.dtype, device=params.device)
             losses = []
             for i in range(n_silos):
                 losses.append(local_sgd_steps(
                     loss_fn, optimizer, params[i],
-                    None if opt_state is None else opt_state[i],
-                    {k: v[i] for k, v in batch.items()},
+                    None if opt_state is None else map_slots(lambda x: x[i], opt_state),
+                    {k: v[i] for k, v in batch.items()}, state["step"],
                     layout=layout, accum_steps=fed.accum_steps, grad=grad))
             del grad  # one silo's gradient: freed before the mix allocates its stack
             loss = torch.stack(losses).mean()
@@ -301,7 +327,8 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
 def init_state(cfg: ModelConfig, optimizer: Optimizer, *, seed: int = 0,
                device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Training state for :func:`make_train_step`: with ``cfg.n_silos > 1``
-    the float32 params and optimizer slot are ``[n_silos, P]`` buffers, one
+    the float32 params and each optimizer slot are ``[n_silos, P]`` buffers
+    (``optimizer.init`` of the stacked params), one
     independently drawn model per silo (successive draws of one
     ``torch.Generator`` seeded with ``seed``)."""
     dev = resolve_device(device)

@@ -8,6 +8,11 @@ the plain version.
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a run
 resets it with :func:`reset_launch_counts` before the path it wants to
 account for and reads it after.
+
+K3 (``flash_attention``) and K4 (``mlstm_scan``) are forward-only, as
+their Pallas counterparts are: under autograd, with an input that
+requires grad, both wrappers raise on every device instead of returning
+an output with no gradient path.
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ from .segment_max import (
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "gossip_mix": 0, "karp": 0, "mlstm_scan": 0,
                             "reach": 0, "segment_max": 0, "timing": 0}
+
+
+def _refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raise when autograd would need a backward of a forward-only kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} has no backward (its Pallas counterpart has none either): training "
+            "takes the chunked attention and scan paths, or flash_vjp for attention; call "
+            "the kernel under torch.no_grad() or on tensors that do not require grad")
 
 
 def reset_launch_counts() -> None:
@@ -148,8 +162,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     128), causal and optionally windowed, softmax in float32, output in
     q's dtype.  Counterpart of ``repro.kernels.ops.flash_attention``: like
     it, it takes ``q_pos``/``kv_pos`` and ignores them, since the
-    positions are ``0..S-1`` and ``0..T-1``."""
+    positions are ``0..S-1`` and ``0..T-1``.  Forward only: raises under
+    autograd when an input requires grad."""
     check_inputs(q, k, v, window)
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.is_cuda:
@@ -167,8 +183,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_i: torch.T
     state; output in q's dtype.  Counterpart of
     ``repro.kernels.ops.mlstm_scan``: like it, it needs ``S % chunk ==
     0``.  The CPU path is the chunked plain version at ``chunk``; the
-    kernel picks its own chunk, which changes the result only by rounding."""
+    kernel picks its own chunk, which changes the result only by rounding.
+    Forward only: raises under autograd when an input requires grad."""
     check_mlstm_inputs(q, k, v, log_i, log_f, chunk)
+    _refuse_grad("mlstm_scan", q, k, v, log_i, log_f)
     if q.device.type == "cpu":
         return mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=chunk)
     if q.is_cuda:

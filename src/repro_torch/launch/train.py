@@ -109,19 +109,21 @@ def _sync(dev: torch.device) -> None:
 
 def _verify_migration(old_state, new_state, old_active, new_active, joined):
     """(survivors bit-identical, joiners at the float64 consensus) of a
-    migration, checked on the state's device."""
-    from repro_torch.fed.dpasgd import _is_silo_stacked, consensus_row
+    migration, checked on the state's device for the params and every
+    optimizer slot."""
+    from repro_torch.fed.dpasgd import _is_silo_stacked, consensus_row, state_buffers
 
     oi = {v: k for k, v in enumerate(old_active)}
     ni = {v: k for k, v in enumerate(new_active)}
     survivors = [v for v in new_active if v in oi]
     srows = [oi[v] for v in survivors]
     ok_surv = ok_join = True
-    for key, old in old_state.items():
+    new_bufs = state_buffers(new_state)
+    for key, old in state_buffers(old_state).items():
         if not _is_silo_stacked(old, len(old_active)):
             continue
         o = old.view(len(old_active), -1)
-        w = new_state[key].view(len(new_active), -1)
+        w = new_bufs[key].view(len(new_active), -1)
         ok_surv &= all(torch.equal(o[oi[v]], w[ni[v]]) for v in survivors)
         if joined:
             avg = consensus_row(o, srows)

@@ -2,8 +2,9 @@
 (multi-head latent attention, absorbed decode), Whisper's cross-attention
 and their serving caches; counterpart of ``repro.models.attention``
 (``attn_specs``, ``chunked_attention``, ``banded_swa_attention``,
-``naive_attention``, ``attn_forward``, the KV caches, ``attn_decode``, the
-MLA functions, ``cross_attn_specs`` and ``cross_attn_forward``).
+``naive_attention``, ``flash_attention_vjp``, ``attn_forward``, the KV
+caches, ``attn_decode``, the MLA functions, ``cross_attn_specs`` and
+``cross_attn_forward``).
 
 Full-sequence attention runs in the reference's order of dispatch: when
 ``cfg.use_flash_kernel`` and the attention is causal, through the
@@ -12,7 +13,10 @@ else, with ``cfg.banded_swa`` and a window shorter than half the
 sequence, on the banded path (each query block against only its visible
 key band); else on the chunked online-softmax path (one score block per
 ``kv_block`` keys, running max and normaliser in float32, masked scores
-set to ``MASKED``).
+set to ``MASKED``), or, with ``cfg.flash_vjp``, through
+:func:`flash_attention_vjp`, the same online softmax whose backward
+recomputes the probabilities instead of storing them (training's path;
+K3 has no backward).
 MLA always takes the chunked path, in both packages: its q.k width
 (``qk_nope_dim + qk_rope_dim``, 192 for deepseek-v2-lite) differs from
 its v width (128), while K3 takes one head dim for q, k and v.  So do
@@ -73,6 +77,29 @@ def cross_attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _kv_blocks(k: torch.Tensor, v: torch.Tensor, kv_pos: torch.Tensor, kv_block: int):
+    """k, v and kv_pos padded to whole ``kv_block``s (padded keys zero, at
+    position -1, so masked), as the reference pads them."""
+    T = k.shape[1]
+    pad = -T % kv_block if T else kv_block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    return k, v, kv_pos
+
+
+def _block_scores(qf, kc, pc, q_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Masked scores [B, S, K, G, kb] of the scaled queries against one key block."""
+    s = torch.einsum("bskgd,btkd->bskgt", qf, kc)
+    mask = pc[None, :] >= 0
+    if causal:
+        mask = mask & (pc[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (q_pos[:, None] - pc[None, :] < window)
+    return torch.where(mask[None, :, None, None, :], s, MASKED)
+
+
 def chunked_attention(
     q: torch.Tensor,       # [B, S, K, G, hd] (grouped query heads)
     k: torch.Tensor,       # [B, T, K, hd]
@@ -100,14 +127,7 @@ def chunked_attention(
     for start in range(0, T, kv_block):
         kc = k[:, start:start + kv_block].to(torch.float32)
         vc = v[:, start:start + kv_block].to(torch.float32)
-        pc = kv_pos[start:start + kv_block]
-        s = torch.einsum("bskgd,btkd->bskgt", qf, kc)
-        mask = pc[None, :] >= 0  # [1, kb] valid
-        if causal:
-            mask = mask & (pc[None, :] <= q_pos[:, None])
-        if window is not None:
-            mask = mask & (q_pos[:, None] - pc[None, :] < window)
-        s = torch.where(mask[None, :, None, None, :], s, MASKED)
+        s = _block_scores(qf, kc, kv_pos[start:start + kv_block], q_pos, causal, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -116,6 +136,80 @@ def chunked_attention(
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+class _FlashAttentionVJP(torch.autograd.Function):
+    """The reference's ``flash_attention_vjp``: the chunked online softmax
+    forward, saving only its output and log-sum-exp; the backward
+    recomputes each probability block from them.  Arithmetic in float32
+    (float64 for float64 inputs, so that ``gradcheck`` can hold it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, kv_block):
+        B, S, K, G, hd = q.shape
+        dt = torch.promote_types(q.dtype, torch.float32)
+        kp, vp, pp = _kv_blocks(k, v, kv_pos, kv_block)
+        qf = q.to(dt) * hd ** -0.5
+        m = torch.full((B, S, K, G), MASKED, dtype=dt, device=q.device)
+        l = torch.zeros((B, S, K, G), dtype=dt, device=q.device)
+        acc = torch.zeros((B, S, K, G, v.shape[-1]), dtype=dt, device=q.device)
+        for start in range(0, kp.shape[1], kv_block):
+            blk = slice(start, start + kv_block)
+            s = _block_scores(qf, kp[:, blk].to(dt), pp[blk], q_pos, causal, window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bskgt,btkd->bskgd", p, vp[:, blk].to(dt))
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        out = (acc / l[..., None]).to(q.dtype)
+        lse = m + torch.log(l)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.causal, ctx.window, ctx.kv_block = causal, window, kv_block
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        kv_block = ctx.kv_block
+        T, hd = k.shape[1], q.shape[-1]
+        dt = lse.dtype
+        kp, vp, pp = _kv_blocks(k, v, kv_pos, kv_block)
+        scale = hd ** -0.5
+        qf = q.to(dt) * scale
+        do = dout.to(dt)
+        drow = torch.einsum("bskgd,bskgd->bskg", do, out.to(dt))
+        dq = torch.zeros(qf.shape, dtype=dt, device=q.device)
+        dk = torch.empty(kp.shape, dtype=dt, device=q.device)
+        dv = torch.empty(vp.shape, dtype=dt, device=q.device)
+        for start in range(0, kp.shape[1], kv_block):
+            blk = slice(start, start + kv_block)
+            kc, vc = kp[:, blk].to(dt), vp[:, blk].to(dt)
+            s = _block_scores(qf, kc, pp[blk], q_pos, ctx.causal, ctx.window)
+            p = torch.exp(s - lse[..., None])
+            dv[:, blk] = torch.einsum("bskgt,bskgd->btkd", p, do)
+            dp = torch.einsum("bskgd,btkd->bskgt", do, vc)
+            ds = p * (dp - drow[..., None])
+            dq += torch.einsum("bskgt,btkd->bskgd", ds, kc)
+            dk[:, blk] = torch.einsum("bskgt,bskgd->btkd", ds, qf)
+        return ((dq * scale).to(q.dtype), dk[:, :T].to(k.dtype), dv[:, :T].to(v.dtype),
+                None, None, None, None, None)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                        window: Optional[int], kv_block: int) -> torch.Tensor:
+    """Chunked attention with a flash-style backward: q [B, S, K, G, hd]
+    against k, v [B, T, K, hd], keys in blocks of ``kv_block`` (T padded
+    to whole blocks with masked keys).  The backward recomputes each
+    probability block from q, k and the saved log-sum-exp: O(S·kv_block)
+    transients instead of the S·T float32 probabilities that autograd
+    through :func:`chunked_attention` keeps.  Counterpart of
+    ``repro.models.attention.flash_attention_vjp``, argument for
+    argument."""
+    return _FlashAttentionVJP.apply(q, k, v, q_pos, kv_pos, causal, window, kv_block)
 
 
 def naive_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
@@ -189,10 +283,12 @@ def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool = True,
                  window: Optional[int] = None, return_kv: bool = False):
     """GQA block forward.  x: [B, S, D].  Causal attention goes through
-    the flash-attention kernel when ``cfg.use_flash_kernel``, else the
-    banded path when ``cfg.banded_swa`` and ``S > 2 * window``, else the
-    chunked path.  With ``return_kv`` also returns the post-RoPE ``(k,
-    v)`` for the serving cache."""
+    the flash-attention kernel when ``cfg.use_flash_kernel`` (forward
+    only), else the banded path when ``cfg.banded_swa`` and ``S > 2 *
+    window``; otherwise, causal or not, through :func:`flash_attention_vjp`
+    (1024-key blocks) when ``cfg.flash_vjp``, else the chunked path.  With
+    ``return_kv`` also returns the post-RoPE ``(k, v)`` for the serving
+    cache."""
     B, S = x.shape[:2]
     qg, k, v = _qkv(p, cfg, x, positions)
     if cfg.use_flash_kernel and causal:
@@ -200,6 +296,8 @@ def attn_forward(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                                    causal=causal, window=window)
     elif cfg.banded_swa and causal and window is not None and S > 2 * window:
         out = banded_swa_attention(qg, k, v, positions, window=window)
+    elif cfg.flash_vjp:
+        out = flash_attention_vjp(qg, k, v, positions, positions, causal, window, 1024)
     else:
         out = chunked_attention(qg, k, v, positions, positions, causal=causal,
                                 window=window)

@@ -6,10 +6,10 @@ Counterpart of ``repro.models.config.ModelConfig``, cut to the fields
 these stacks read: sliding-window layers, the kernel switch, banded
 sliding-window attention, the SwiGLU or GELU MLP, top-k routed and shared
 experts (``MoEConfig``), multi-head latent attention (``MLAConfig``), the
-recurrent widths (``SSMConfig``), the audio encoder (``EncoderConfig``)
-and the stub vision prefix (``vision_prefix_len``).  The reference's
-flash-style custom VJP and tied embeddings are not ported yet;
-``block_pattern`` accepts ``"attn"``, ``"attn_moe"``, ``"mla"``,
+recurrent widths (``SSMConfig``), the audio encoder (``EncoderConfig``),
+the stub vision prefix (``vision_prefix_len``) and the flash-style
+custom VJP of training attention (``flash_vjp``).  Tied embeddings are
+not ported yet; ``block_pattern`` accepts ``"attn"``, ``"attn_moe"``, ``"mla"``,
 ``"mla_moe"``, ``"mlstm"``, ``"slstm"`` and ``"hymba"``.  In an
 encoder-decoder config (``is_encdec``) every ``"attn"`` layer of the
 pattern is built as the decoder kind ``"xattn"``: causal self-attention,
@@ -92,6 +92,9 @@ class ModelConfig:
     # banded sliding-window attention: touch only the visible key band of
     # each query block, O(S * window) instead of O(S^2) masked work
     banded_swa: bool = False
+    # flash-style custom VJP: the backward recomputes each probability
+    # block from the log-sum-exp instead of storing the S x T probabilities
+    flash_vjp: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -172,7 +172,9 @@ def from_jax_params(tree, *, device: DeviceLike = "cuda"):
       ``init_state`` / ``make_train_step`` state) becomes the port's
       state: ``params`` and ``opt_state`` as flat ``[n_silos, P]``
       buffers (``[P]`` for one silo; ``opt_state`` None for a stateless
-      optimizer, whose reference state is ``()``) and ``step`` as an int.
+      optimizer, whose reference state is ``()``, and a dict of buffers
+      for a dict of parameter-shaped trees, such as AdamW's ``{"mu":
+      tree, "nu": tree}``) and ``step`` as an int.
       ``n_silos`` is the leading dimension every params leaf shares (1
       when they share none).
     """
@@ -187,6 +189,8 @@ def from_jax_params(tree, *, device: DeviceLike = "cuda"):
     def flat(sub):
         if isinstance(sub, (tuple, list)) and len(sub) == 0:
             return None
+        if isinstance(sub, Mapping) and [p for p, _ in tree_leaves_with_path(sub)] != layout.paths:
+            return {k: flat(v) for k, v in sub.items()}  # one buffer per slot
         if n == 1:
             return layout.flatten_into(sub, torch.empty(layout.size, device=dev))
         buf = torch.empty((n, layout.size), device=dev)
@@ -205,12 +209,14 @@ def state_to_tree(state, layout: ParamLayout):
     ``params`` and ``opt_state`` (flat ``[n_silos, P]`` buffers, ``[P]``
     for one silo) become trees of host numpy arrays shaped by ``layout``
     with the leading silo dimension kept (``()`` for a stateless
-    optimizer's None), and ``step`` an int32 scalar, as the reference's
-    ``init_state`` makes it."""
+    optimizer's None, a dict of such trees for a dict of slots), and
+    ``step`` an int32 scalar, as the reference's ``init_state`` makes it."""
 
     def tree(buf):
         if buf is None:
             return ()
+        if isinstance(buf, Mapping):
+            return {k: tree(v) for k, v in buf.items()}
         x = buf.detach().cpu().numpy()
         lead = x.shape[:-1]
         if x.shape[-1] != layout.size:

@@ -6,6 +6,8 @@ is installed; run it on a machine with an NVIDIA Hopper GPU with
 
 Without a card the tests skip."""
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -901,3 +903,137 @@ def test_controller_linkfail_on_card_equals_cpu(cuda):
     assert LAUNCHES["timing"] == before + 1 + len(card[0])  # one calibration each
     assert card == _linkfail_loop("cpu")
     assert len(card[0]) >= 1 and card[1] >= 2
+
+
+# the zoo's training side: flash_attention_vjp, AdamW, launch/steps.py
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window,T", [(True, None, 1024), (True, 300, 1024),
+                                             (False, None, 1000)])
+def test_flash_vjp_on_card_matches_chunked_autograd(cuda, causal, window, T):
+    """B=1, S=1024 queries, K=8, G=2, hd=128 (internlm2's attention
+    layers), 1024-key blocks (T = 1000 leaves a padded block): output 2e-5,
+    gradients 2e-4 of autograd through the chunked path."""
+    from repro_torch.models.attention import chunked_attention, flash_attention_vjp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(T + (window or 0))
+    q = torch.randn((1, 1024, 8, 2, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((1, T, 8, 128), generator=gen, device=cuda) for _ in range(2))
+    w = torch.randn(q.shape, generator=gen, device=cuda)
+    q_pos, kv_pos = torch.arange(T - 1024, T, device=cuda), torch.arange(T, device=cuda)
+    results = []
+    for f in (lambda *a: flash_attention_vjp(*a, q_pos, kv_pos, causal, window, 1024),
+              lambda *a: chunked_attention(*a, q_pos, kv_pos, causal=causal, window=window)):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = f(*ts)
+        (out * w).sum().backward()
+        results.append((out.detach(), [t.grad for t in ts]))
+    (o1, g1), (o2, g2) = results
+    torch.testing.assert_close(o1, o2, atol=2e-5, rtol=2e-5)
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def _adamw_rounds(device, state, rounds=2):
+    from repro_torch.configs import get_config
+    from repro_torch.data import FederatedBatcher, SyntheticLMStream
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import batch_to_device
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_silos=2, flash_vjp=True)
+    step = build_train_step(cfg, gossip_impl="pallas")
+    batcher = FederatedBatcher(SyntheticLMStream(cfg.vocab_size, 32, n_silos=2), 1, 2)
+    losses = []
+    for r in range(rounds):
+        state, metrics = step(state, batch_to_device(batcher.batch(r), torch.device(device)))
+        losses.append(float(metrics["loss"]))
+    return losses, state
+
+
+@pytest.mark.gpu
+def test_adamw_rounds_on_card_match_cpu(cuda):
+    """Two reduced internlm2 rounds (2 silos on a ring, AdamW at 1e-4,
+    flash_vjp, K2 mix) on the card and on the CPU from the same state:
+    loss trajectories within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import init_state
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_silos=2)
+    state = init_state(cfg, adamw(1e-4), seed=0, device="cpu")
+
+    def to(dev):
+        return {"params": state["params"].to(dev), "step": state["step"],
+                "opt_state": {k: v.to(dev) for k, v in state["opt_state"].items()}}
+
+    before = LAUNCHES["gossip_mix"]
+    card, card_state = _adamw_rounds(cuda, to(cuda))
+    assert LAUNCHES["gossip_mix"] == before + 2
+    cpu, cpu_state = _adamw_rounds("cpu", to("cpu"))
+    np.testing.assert_allclose(card, cpu, atol=1e-5)
+    assert card_state["step"] == cpu_state["step"] == 2
+    assert float((card_state["params"].cpu() - cpu_state["params"]).abs().max()) <= 2 * 1e-4 * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "xlstm-350m", "internvl2-76b",
+                                  "internlm2-1.8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
+                                  "granite-20b", "mistral-large-123b", "whisper-large-v3",
+                                  "hymba-1.5b"])
+def test_reduced_train_step_on_card(cuda, arch):
+    """One ``build_train_step`` round (two local AdamW steps, flash_vjp) of
+    each reduced arch on the card: finite, and the loss on the round's
+    first batch falls; no kernel launches but K2's (one silo: none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import init_state
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import ParamLayout, model_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), flash_vjp=True)
+    opt = adamw(3e-3)
+    state = init_state(cfg, opt, seed=1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2, 16), generator=gen, device=cuda)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn((2, 2, cfg.encoder.seq_len, 128), generator=gen,
+                                          device=cuda)
+    if cfg.vision_prefix_len:
+        batch["vision_embeds"] = torch.randn((2, 2, cfg.vision_prefix_len, 1024), generator=gen,
+                                             device=cuda)
+    first = {k: v[0] for k, v in batch.items()}
+    layout = ParamLayout(model_specs(cfg))
+    with torch.no_grad():
+        l0 = float(T.loss_fn(layout.views(state["params"]), cfg, first))
+    before = dict(LAUNCHES)
+    state, metrics = build_train_step(cfg, optimizer=opt, local_steps=2)(state, batch)
+    with torch.no_grad():
+        l1 = float(T.loss_fn(layout.views(state["params"]), cfg, first))
+    assert LAUNCHES == before
+    assert np.isfinite(float(metrics["loss"])) and l1 < l0
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_gradients_on_card(cuda):
+    """K3 and K4 have no backward: on CUDA tensors that require grad the
+    wrappers raise before launching; under ``no_grad`` they launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 128, 2, 2, 32), generator=gen, device=cuda)
+    k, v = (torch.randn((1, 128, 2, 32), generator=gen, device=cuda) for _ in range(2))
+    gates = [torch.randn((1, 128, 2), generator=gen, device=cuda) for _ in range(2)]
+    for name, call, args in (("flash_attention", flash_attention, (q, k, v)),
+                             ("mlstm_scan", mlstm_scan, (q[:, :, :, 0].contiguous(), k, v, *gates))):
+        before = LAUNCHES[name]
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(*[a.clone().requires_grad_(i == 0) for i, a in enumerate(args)])
+        assert LAUNCHES[name] == before
+        with torch.no_grad():
+            call(*[a.clone().requires_grad_() for a in args])
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1

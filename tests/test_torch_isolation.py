@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX
-package, no file of it (or chip_smoke.py) imports either, its entry
+"""The port stands alone: importing it (the step functions and the
+optimizers included) loads neither JAX nor the JAX package, no file of
+it (or chip_smoke.py) imports either, its entry
 points refuse to fall back to the CPU, and chip_smoke.py fails without
 a GPU."""
 
@@ -96,6 +97,21 @@ def test_whisper_and_simulator_load_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for rel in ("core/simulator.py", "configs/whisper_large_v3.py"):
         assert REPO / "src" / "repro_torch" / rel in PORT_FILES
+
+
+def test_steps_and_optim_load_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.launch.steps, repro_torch.optim\n"
+        "from repro_torch.optim import adamw, inverse_sqrt_decay\n"
+        "adamw(inverse_sqrt_decay(1e-4, 10))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert REPO / "src" / "repro_torch" / "launch" / "steps.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
