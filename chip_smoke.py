@@ -2414,6 +2414,162 @@ def controller_phase(torch, dev) -> dict:
     return {"wall_s": time.perf_counter() - t0}
 
 
+TRACED_STEPS = 30  # the traced phase's rounds: Gaia link failure, the detector trips at round 22
+TRACE_INTERVAL = 5  # rounds between the traced run's ``round`` records
+
+
+def check_trace_records(torch, records, problems, n_redesigns: int) -> dict:
+    """The traced phase's checks on one flight-recorder trace: valid, the
+    card's metadata, a regression and the re-designs blamed on Gaia sites,
+    epochs 0 and 1, ``round`` records at their cadence, the span totals and
+    the counters.  Returns the records by kind."""
+    from repro_torch.core import GAIA_SITES
+
+    names = [name for name, _ in GAIA_SITES]
+    check(not problems, f"trace problems: {problems}")
+    by_kind = {}
+    for rec in records:
+        by_kind.setdefault(rec["kind"], []).append(rec)
+    meta = records[0]["meta"]
+    check(meta["device_kind"] == torch.cuda.get_device_name(0)
+          and meta["torch_version"] == torch.__version__ and meta["silo_names"] == names,
+          f"run_start metadata {meta}")
+    check(len(by_kind.get("regression", [])) >= 1, "the trace holds no regression record")
+    rds = by_kind.get("redesign", [])
+    check(len(rds) == n_redesigns and all(
+        r["bottleneck_names"] and set(r["bottleneck_names"]) <= set(names) for r in rds),
+        f"re-design records {rds}")
+    epochs = [r["index"] for r in by_kind.get("epoch", [])]
+    check(epochs[:2] == [0, 1], f"epoch records {epochs}")
+    steps = [r["step"] for r in by_kind.get("round", [])]
+    check(steps == list(range(0, TRACED_STEPS, TRACE_INTERVAL)), f"round records at {steps}")
+    end = records[-1]
+    check(end["kind"] == "run_end", f"last record {end['kind']}")
+    span_s = end["spans"]
+    check({"controller.redesign", "train.step", "designer.search_jit"} <= set(span_s)
+          and span_s["train.step"]["count"] == TRACED_STEPS, f"span totals {sorted(span_s)}")
+    h2d = end["metrics"]["train.h2d_bytes"]
+    check(h2d == TRACED_STEPS * 11 * 2 * 2 * 4 * 64 * 4, f"train.h2d_bytes {h2d}")
+    check(end["summary"]["recompiles"] == 1 + n_redesigns,
+          f"recompiles {end['summary']['recompiles']}, re-designs {n_redesigns}")
+    return by_kind
+
+
+def traced_dynamic_phase(torch, dev) -> dict:
+    """``train(..., dynamic=True)`` under a Gaia link failure at
+    h2o-danube-1.8b's full width (1 of 24 layers, 11 silos, pallas), in
+    turns untraced, traced, traced, untraced: every run's losses,
+    re-designs, final state and K1/K2 launches must be the first run's
+    bits, K2 one a round, K1 as the code predicts; each trace must pass
+    :func:`check_trace_records`."""
+    import os
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.dynamics import ControllerConfig
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.obs import events
+
+    cfg = get_config("h2o-danube-1.8b", n_layers=1)
+    order = (False, True, True, False)
+    print(f"traced dynamic train: {cfg.arch_id} layers {cfg.n_layers} (of 24), Gaia linkfail, "
+          f"pallas, {TRACED_STEPS} rounds a run, in turns untraced, traced, traced, untraced "
+          f"(metrics interval {TRACE_INTERVAL})")
+    kw = dict(dynamic=True, underlay="gaia", scenario="linkfail", gossip_impl="pallas",
+              designer="auto", local_steps=2, batch_per_silo=4, seq_len=64, steps=TRACED_STEPS,
+              device=dev)
+    rewire_steps = ControllerConfig().rewire_steps
+    first = None
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, traced in enumerate(order):
+            path = os.path.join(tmp, f"trace{k}.jsonl")
+            what = f"run {k} ({'traced' if traced else 'untraced'})"
+            lines = []
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train(cfg, trace_out=path if traced else None, metrics_interval=TRACE_INTERVAL,
+                        log=lines.append, **kw)
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            for line in lines:
+                if "re-design" in line or "summary" in line:
+                    print(f"traced dynamic train {what}: {line}")
+            rds = res.controller.redesigns
+            run = dict(traced=traced, losses=res.losses, round_s=res.step_seconds,
+                       launches=launches, redesigns=[redesign_record(rd) for rd in rds],
+                       wall_s=wall)
+            if first is None:
+                first = dict(run, state={key: res.state[key].cpu()
+                                         for key in ("params", "opt_state")})
+                check(all(map(math.isfinite, run["losses"])) and run["redesigns"],
+                      f"{what}: losses {run['losses']}, re-designs {run['redesigns']}")
+                check(launches["gossip_mix"] == TRACED_STEPS,
+                      f"{what}: gossip_mix launched {launches['gossip_mix']} times in "
+                      f"{TRACED_STEPS} rounds")
+                want = {key: sum(redesign_launches(rd, rewire_steps, 11)[key] for rd in rds)
+                        for key in ("karp", "reach")}
+                want["timing"] = 1 + sum(redesign_launches(rd, rewire_steps, 11)["timing"]
+                                         for rd in rds)
+                got = {key: launches[key] for key in want}
+                check(got == want, f"{what} launched K1 {got}, the code predicts {want}")
+            else:
+                check(run["losses"] == first["losses"], f"{what}: losses differ from run 0's")
+                check(run["redesigns"] == first["redesigns"], f"{what}: re-designs differ")
+                check(launches == first["launches"],
+                      f"{what}: launches {launches} against run 0's {first['launches']}")
+                same = {key: torch.equal(res.state[key].cpu(), first["state"][key])
+                        for key in ("params", "opt_state")}
+                check(all(same.values()), f"{what}: final state differs from run 0's: {same}")
+            if traced:
+                records, problems = events.validate_trace(path)
+                by_kind = check_trace_records(torch, records, problems, len(rds))
+                span_s = records[-1]["spans"]
+                run.update(trace_bytes=os.path.getsize(path), records=len(records),
+                           spans=span_s, step_span_s=span_s["train.step"]["total_s"])
+                engine = {name[len("engine."):]: round(v["total_s"], 6)
+                          for name, v in span_s.items() if name.startswith("engine.")}
+                designers = ", ".join(f"{name} {v['total_s']:.4f}" for name, v in span_s.items()
+                                      if name.startswith("designer."))
+                kinds = ", ".join(f"{kind} {len(v)}" for kind, v in sorted(by_kind.items()))
+                print(f"traced dynamic train {what}: trace {run['trace_bytes']} bytes, "
+                      f"{len(records)} records ({kinds}); "
+                      f"span totals s: train.step {run['step_span_s']:.4f} over {TRACED_STEPS}, "
+                      f"controller.redesign {span_s['controller.redesign']['total_s']:.4f}, "
+                      f"controller.calibrate {span_s['controller.calibrate']['total_s']:.4f}, "
+                      f"{designers}, engine {engine}; train.step {run['step_span_s']:.4f} s "
+                      f"against the round walls' {sum(run['round_s']):.4f} s (share "
+                      f"{run['step_span_s'] / sum(run['round_s']):.4f}, gap "
+                      f"{sum(run['round_s']) - run['step_span_s']:.4f} s)")
+            runs.append(run)
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def walls(xs):
+        return f"median {statistics.median(xs):.4f} range {min(xs):.4f}..{max(xs):.4f}"
+
+    print("traced dynamic train: round walls s " + "; ".join(
+        f"run {k} ({'traced' if r['traced'] else 'untraced'}) {walls(r['round_s'])}"
+        for k, r in enumerate(runs)))
+    traced_med = statistics.median(x for r in runs if r["traced"] for x in r["round_s"])
+    plain_med = statistics.median(x for r in runs if not r["traced"] for x in r["round_s"])
+    print(f"traced dynamic train: median round wall traced {traced_med:.4f} s, untraced "
+          f"{plain_med:.4f} s ({traced_med / plain_med - 1:+.4f}); losses, re-designs "
+          f"({len(first['redesigns'])}), final state and launches {first['launches']} the same "
+          f"bits in all {len(runs)} runs; train() walls s {[round(r['wall_s'], 1) for r in runs]}")
+    traced_runs = [r for r in runs if r["traced"]]
+    out = {"launches": first["launches"], "traced_median_s": traced_med,
+           "plain_median_s": plain_med, "trace_bytes": traced_runs[-1]["trace_bytes"],
+           "records": traced_runs[-1]["records"],
+           "step_span_s": [r["step_span_s"] for r in traced_runs],
+           "round_sum_s": [sum(r["round_s"]) for r in traced_runs]}
+    del runs, first
+    return out
+
+
 def flash_zoo_phase(torch, dev) -> dict:
     """K3 at hd 128 with the query groups of the MoE family and the last
     dense configs, against its plain version; then timed at
@@ -3737,6 +3893,11 @@ def main() -> int:
     dyn_shape = slice_shape_phase(torch, dev, dyn["K"], dyn["n_elems"])
     torch.cuda.empty_cache()
     ctl = controller_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    tdyn = traced_dynamic_phase(torch, dev)
+    traced_s = time.perf_counter() - t1
     dynamic_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3814,8 +3975,13 @@ def main() -> int:
           f"{[round(x, 4) for x in dyn['redesign_s']]}; peak GiB {dyn['peak_bytes'] / 2**30:.2f}; "
           f"gossip_mix at the dynamic shape (K={dyn['K']}, N={dyn['n_elems']}) ms "
           f"{dyn_shape['ms']:.4f} (torch.lerp {dyn_shape['library_ms']:.4f}, bound "
-          f"{dyn_shape['bound_ms']:.4f}); controller phase {ctl['wall_s']:.1f} s; dynamic phases "
-          f"took {dynamic_s:.1f} s")
+          f"{dyn_shape['bound_ms']:.4f}); controller phase {ctl['wall_s']:.1f} s; traced "
+          f"linkfail median round wall s {tdyn['traced_median_s']:.4f} (untraced "
+          f"{tdyn['plain_median_s']:.4f}), trace {tdyn['trace_bytes']} bytes in "
+          f"{tdyn['records']} records, train.step spans s "
+          f"{[round(x, 4) for x in tdyn['step_span_s']]} of round walls "
+          f"{[round(x, 4) for x in tdyn['round_sum_s']]}; traced phase took {traced_s:.1f} s; "
+          f"dynamic phases took {dynamic_s:.1f} s")
     print(f"summary: flash_attention qwen3-moe prefill shape ms {attn_zoo['ms']:.4f} (plain "
           f"{attn_zoo['plain_ms']:.4f}, scaled_dot_product_attention {attn_zoo['library_ms']:.4f}, "
           f"bound {attn_zoo['bound_ms']:.4f} at 3xTF32); zoo serve prefill s / decode tok/s / "
@@ -3860,6 +4026,7 @@ def main() -> int:
           f"K3 launches {sserve['launches']}; zoo training phases took {ztr_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
+    tl = tdyn["launches"]
     zoo_k3 = sum(r["launches"] for r in zoo.values())
     hv_k3 = sum(r["launches"] for r in hv.values())
     record = {"kernels": [{
@@ -3867,9 +4034,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
-        "launches": (tr["launches"] + dl["gossip_mix"] + mtr["launches"] + htr["launches"]
-                     + ztr["launches"]),
+        "launches": (tr["launches"] + dl["gossip_mix"] + tl["gossip_mix"] + mtr["launches"]
+                     + htr["launches"] + ztr["launches"]),
         "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
+                             "traced_dynamic_train": tl["gossip_mix"],
                              "moe_train": mtr["launches"], "hymba_train": htr["launches"],
                              "zoo_train": ztr["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
@@ -3883,8 +4051,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": design["launches"] + dl["karp"],
-        "launches_by_path": {"design": design["launches"], "dynamic_train": dl["karp"]},
+        "launches": design["launches"] + dl["karp"] + tl["karp"],
+        "launches_by_path": {"design": design["launches"], "dynamic_train": dl["karp"],
+                             "traced_dynamic_train": tl["karp"]},
         "max_abs_err": climb["max_abs_err"],
         "ms": climb["ms"],
         "plain_ms": climb["plain_ms"],
@@ -3896,8 +4065,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": matcha["launches"] + dl["timing"],
-        "launches_by_path": {"matcha_design": matcha["launches"], "dynamic_train": dl["timing"]},
+        "launches": matcha["launches"] + dl["timing"] + tl["timing"],
+        "launches_by_path": {"matcha_design": matcha["launches"], "dynamic_train": dl["timing"],
+                             "traced_dynamic_train": tl["timing"]},
         "max_abs_err": timing["ebone_design"]["max_abs_err"],
         "ms": timing["ebone_design"]["ms"],
         "plain_ms": timing["ebone_design"]["plain_ms"],

@@ -10,7 +10,8 @@ Layout mirrors the reference so each module has an obvious
 counterpart: ``core`` (plans' host math), ``kernels`` (hand-written
 Hopper kernels and their plain PyTorch versions), ``fed`` (gossip
 lowerings, DPASGD), ``models`` (the dense GQA transformer), ``configs``,
-``optim``, ``data`` and ``launch`` (the training entry point).
+``optim``, ``data``, ``obs`` (spans, metrics and the flight recorder)
+and ``launch`` (the training entry point).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that explicit request they raise

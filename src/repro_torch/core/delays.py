@@ -21,6 +21,7 @@ from typing import Dict, Hashable, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.spans import span_fn
 from .maxplus import DelayDigraph
 from .maxplus_vec import MISSING
 
@@ -182,6 +183,7 @@ def overlay_delay_matrix(
     return batched_overlay_delay_matrices(gc, tp, arcs, masks)[0]
 
 
+@span_fn("engine.price_matrices")
 def batched_overlay_delay_matrices(
     gc: ConnectivityGraph,
     tp: TrainingParams,

@@ -45,6 +45,7 @@ import torch
 
 from ..kernels import karp_cycle_time, select_segment_max_impl, timing_recursion
 from ..kernels.segment_max import karp_cycle_time_ref, karp_from_step
+from ..obs.spans import span_fn
 from .maxplus_vec import MISSING, karp_from_levels, missing_mask
 
 Arc = Tuple[int, int]
@@ -117,6 +118,7 @@ def _dst_segments(eb: EdgeBatch) -> _Segments:
     return _segments_by(keys)
 
 
+@span_fn("engine.karp_sparse")
 def batched_cycle_time_sparse(
     eb: EdgeBatch,
     *,
@@ -699,6 +701,7 @@ class DeltaPricer:
         return pot2
 
 
+@span_fn("engine.price_edges")
 def batched_overlay_delay_edges(gc, tp, arcs: Sequence[Arc], masks) -> EdgeBatch:
     """Eq. 3 delay *edge lists* for a batch of candidate overlays.
 

@@ -32,6 +32,8 @@ from typing import Hashable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.spans import span_fn
+
 
 # The "absent arc" sentinel of every engine in the port.
 MISSING = float("-inf")
@@ -75,6 +77,7 @@ def graph_to_matrix(graph) -> Tuple[np.ndarray, Tuple[Hashable, ...]]:
     return edges_to_matrix(graph.delays, graph.nodes), tuple(graph.nodes)
 
 
+@span_fn("engine.karp_dense")
 def batched_cycle_time(
     weights: np.ndarray,
     *,
@@ -380,6 +383,7 @@ def timing_recursion_piecewise(
     return out[0]
 
 
+@span_fn("engine.timing_piecewise")
 def batched_timing_recursion_piecewise(
     Ws: np.ndarray,
     epoch_starts_ms: np.ndarray,

@@ -49,6 +49,7 @@ import numpy as np
 
 import torch
 
+from ..obs.spans import span_fn
 from .consensus import local_degree_matrix, metropolis_matrix, ring_matrix
 from .schedule import Schedule, _unique_rows
 
@@ -107,6 +108,7 @@ def mixing_matrix(
     raise ValueError(f"unknown weight rule {rule!r}; one of {WEIGHT_RULES}")
 
 
+@span_fn("engine.mixing_matrices")
 def batched_mixing_matrices(
     num_nodes: int,
     src: np.ndarray,
@@ -163,6 +165,7 @@ def batched_mixing_matrices(
 # Batched contraction factor / spectral gap
 
 
+@span_fn("engine.mixing_rho")
 def batched_rho(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
     """``[B]`` contraction factors ρ = ‖W − (1/n)·11ᵀ‖₂ of a matrix stack.
 
@@ -185,6 +188,7 @@ def batched_rho(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
     return s[..., 0]
 
 
+@span_fn("engine.mixing_gap")
 def batched_spectral_gap(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
     """``[B]`` spectral gaps ``1 − ρ`` (see :func:`batched_rho`); the
     batched twin of :func:`repro_torch.core.consensus.spectral_gap`."""
@@ -255,6 +259,7 @@ def overlay_mixing_matrix(
     return local_degree_matrix(n, edges)
 
 
+@span_fn("engine.overlay_rho")
 def overlay_rho(
     overlay, num_nodes: int, *, silos: Optional[Sequence[Node]] = None
 ) -> float:
@@ -263,6 +268,7 @@ def overlay_rho(
     return float(batched_rho(W[None])[0])
 
 
+@span_fn("engine.overlay_rho_batch")
 def overlay_rho_batch(
     overlays: Sequence, num_nodes: int, *, silos: Optional[Sequence[Node]] = None
 ) -> np.ndarray:
@@ -283,6 +289,7 @@ def overlay_rho_batch(
     return batched_rho(W)
 
 
+@span_fn("engine.matcha_expected_gram")
 def matcha_expected_gram(
     schedule,
     gc,
@@ -329,6 +336,7 @@ def contraction_from_gram(G: np.ndarray) -> float:
     return float(math.sqrt(max(lam, 0.0)))
 
 
+@span_fn("engine.schedule_rho")
 def schedule_rho(
     schedule: Schedule,
     gc,

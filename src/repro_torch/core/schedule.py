@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs.spans import span_fn
 from .delays import ConnectivityGraph, TrainingParams
 from .matcha import Matcha, greedy_edge_coloring
 from .maxplus_sparse import (
@@ -529,6 +530,7 @@ def _sweep_inputs(
     return _recursion_inputs(gc, tp, arcs, flat[first][:, mids], inv, C, rounds)
 
 
+@span_fn("engine.schedule_cycle_times")
 def average_cycle_times_batched(
     schedules: Sequence[MatchaSchedule],
     gc: ConnectivityGraph,

@@ -45,6 +45,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import reach_from_zero
+from ..obs.spans import span_fn
 from .delays import (
     ConnectivityGraph,
     TrainingParams,
@@ -659,6 +660,7 @@ def _strong_arcs(n: int, arcs: Iterable[Tuple[int, int]]) -> bool:
     return full(adj) and full(radj)
 
 
+@span_fn("designer.search_delta")
 def search_overlays_delta(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -1329,6 +1331,7 @@ def _best_climbed(b_src, b_dst, b_act, tau, allowed) -> List[List[Tuple[int, int
     return [[(int(i), int(j)) for (i, j) in zip(s[keep], d[keep])]]
 
 
+@span_fn("designer.search_jit")
 def search_overlays_jit(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -1471,6 +1474,7 @@ def _pack_universes(
     return (latA, bwA, alA, compA, upA, dnA, asrcA, adstA, aactA), subs
 
 
+@span_fn("designer.search_hierarchical")
 def search_overlays_hierarchical(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -1589,6 +1593,7 @@ def search_overlays_hierarchical(
 # Registry
 
 
+@span_fn("designer.design_overlay")
 def design_overlay(
     kind: str,
     gc: ConnectivityGraph,

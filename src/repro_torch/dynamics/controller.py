@@ -42,9 +42,11 @@ Monte-Carlo pricing of a schedule and the calibration of the expected
 round-time profile run the Eq. 4 recursion on ``device`` (one launch of
 K1's timing entry per call on the card).
 
-The reference's tracing (``span_fn``, ``obs_metrics``, the flight
-recorder and its ``recorder`` / ``silo_names`` arguments) is not ported:
-the port has no observability layer yet.
+Every decision is traced as in the reference: ``controller.calibrate``
+and ``controller.redesign`` spans (:mod:`repro_torch.obs.spans`), the
+``controller.*`` metrics, and — with a ``recorder`` — ``regression``,
+``membership``, ``swap`` and ``redesign`` flight-recorder records whose
+payloads are host floats and ints.
 """
 
 from __future__ import annotations
@@ -85,6 +87,9 @@ from ..core.topologies import Overlay, design_overlay, search_overlays_jit
 from ..device import DeviceLike, resolve_device
 from ..fed.gossip import GossipPlan, MembershipSlot, PlanSlot, ScheduleSlot
 from ..fed.topology_runtime import plan_from_overlay
+from ..obs import metrics as obs_metrics
+from ..obs.events import FlightRecorder
+from ..obs.spans import span_fn
 from .events import active_subgraph
 
 Arc = Tuple[int, int]
@@ -485,6 +490,8 @@ class OnlineTopologyController:
         schedule: Optional[Schedule] = None,
         membership_slot: Optional[MembershipSlot] = None,
         membership_provider: Optional[Callable[[], Sequence[int]]] = None,
+        recorder: Optional[FlightRecorder] = None,
+        silo_names: Optional[Sequence[str]] = None,
         device: DeviceLike = "cuda",
     ):
         """``overlay`` is the initial (or fallback) fixed overlay; pass
@@ -507,6 +514,13 @@ class OnlineTopologyController:
         *before* the plan/schedule slots are resized onto it, so the
         training loop always observes membership first and can rebuild
         its state before its step.
+
+        ``recorder`` (a :class:`repro_torch.obs.events.FlightRecorder`)
+        makes every decision externally auditable: a ``regression`` record
+        when the strike detector trips, a ``redesign`` record per actuation
+        (with the critical circuit, by silo name when ``silo_names`` maps
+        labels to sites), ``membership`` and ``swap`` records as the slots
+        move.  ``None`` (the default) emits nothing.
 
         ``device`` is where the rewire climb, the MATCHA sweeps and
         pricing, and the calibration's Eq. 4 recursion run (default
@@ -559,12 +573,15 @@ class OnlineTopologyController:
         self._rounds_since_swap = 0
         self._last_redesign = -config.cooldown_rounds
         self.redesigns: List[Redesign] = []
+        self.recorder = recorder
+        self._silo_names = list(silo_names) if silo_names is not None else None
         # Last observed deviation (the rolling window and its drift
         # against the calibrated profile), for callers that report it.
         self.last_measured_ms: Optional[float] = None
         self.last_drift: Optional[float] = None
         self._calibrate()
 
+    @span_fn("controller.calibrate")
     def _calibrate(self) -> None:
         """Expected rolling round-time profile of the active *schedule* on
         the current estimate, from the Eq. 4 recursion itself (on
@@ -654,6 +671,16 @@ class OnlineTopologyController:
             return None
         if self._round - self._last_redesign < self.config.cooldown_rounds:
             return None
+        if self.recorder is not None:
+            self.recorder.emit(
+                "regression",
+                round_idx=self._round,
+                measured_ms=measured,
+                expected_window_ms=self.expected_window_ms,
+                drift=self.last_drift,
+                strikes=self._strikes,
+            )
+        obs_metrics.counter("controller.regressions").inc()
         return self._redesign(measured)
 
     def _sparse_bottleneck(self, edges) -> Tuple[int, ...]:
@@ -671,6 +698,16 @@ class OnlineTopologyController:
         )
         return tuple(self.gc.silos[c] for c in circ)
 
+    def _names(self, labels: Sequence[int]) -> List[str]:
+        """Silo labels -> site names, where the launch-time mapping has
+        one (labels index the full universe, so it survives churn)."""
+        names = self._silo_names
+        return [
+            names[s] if names is not None and 0 <= s < len(names) else str(s)
+            for s in labels
+        ]
+
+    @span_fn("controller.redesign")
     def _redesign(
         self, measured: float, membership: Optional[Tuple[int, ...]] = None
     ) -> Redesign:
@@ -696,6 +733,22 @@ class OnlineTopologyController:
                     label=(
                         f"round{self._round}: {len(old_active)} -> "
                         f"{len(membership)} silos"
+                    ),
+                )
+            if self.recorder is not None:
+                self.recorder.emit(
+                    "membership",
+                    step=self._round,
+                    version=(
+                        self.membership_slot.version
+                        if self.membership_slot is not None
+                        else -1
+                    ),
+                    n_before=len(old_active),
+                    n_after=len(membership),
+                    left=self._names(sorted(set(old_active) - set(membership))),
+                    joined=self._names(
+                        sorted(set(membership) - set(old_active))
                     ),
                 )
         else:
@@ -800,6 +853,14 @@ class OnlineTopologyController:
                     label=label,
                     silos=tuple(self.gc.silos) if resize else None,
                 )
+                if self.recorder is not None:
+                    self.recorder.emit(
+                        "swap",
+                        slot="schedule",
+                        version=self.schedule_slot.version,
+                        label=label,
+                        resized=resize,
+                    )
                 if plan is None:
                     plan = self.schedule_slot.plan
             else:
@@ -829,12 +890,28 @@ class OnlineTopologyController:
                 )
             elif plan.n_silos == self.plan_slot.plan.n_silos:
                 self.plan_slot.swap(plan, label=label)
+                if self.recorder is not None:
+                    self.recorder.emit(
+                        "swap",
+                        slot="plan",
+                        version=self.plan_slot.version,
+                        label=label,
+                        resized=False,
+                    )
             elif membership is not None and self.membership_slot is not None:
                 # Elastic membership: the MembershipSlot swap above (this
                 # actuation's, not a mere slot existing) told the training
                 # loop to rebuild its state; the resized plan rides the
                 # same actuation.
                 self.plan_slot.swap(plan, label=label, allow_resize=True)
+                if self.recorder is not None:
+                    self.recorder.emit(
+                        "swap",
+                        slot="plan",
+                        version=self.plan_slot.version,
+                        label=label,
+                        resized=True,
+                    )
             else:
                 # Churn changed the silo count but without a
                 # MembershipSlot the state is sized at launch and cannot
@@ -877,4 +954,33 @@ class OnlineTopologyController:
             objective=self.config.objective,
         )
         self.redesigns.append(redesign)
+        obs_metrics.counter("controller.redesigns").inc()
+        obs_metrics.histogram("controller.redesign_s").observe(elapsed)
+        if elapsed > 0:
+            obs_metrics.gauge("controller.candidates_per_s").set(
+                scored / elapsed
+            )
+        obs_metrics.gauge("controller.predicted_tau_ms").set(predicted)
+        obs_metrics.histogram("controller.drift").observe(drift)
+        if self.recorder is not None:
+            self.recorder.emit(
+                "redesign",
+                round_idx=self._round,
+                winner="fixed" if best is not None else "randomized",
+                name=name,
+                predicted_tau_ms=predicted,
+                measured_ms=measured,
+                expected_window_ms=expected,
+                drift=drift,
+                n_candidates=scored,
+                elapsed_s=elapsed,
+                bottleneck=list(bottleneck),
+                bottleneck_names=self._names(bottleneck),
+                membership=list(membership) if membership else None,
+                # (tau, rho) co-design audit: extra fields, so traces
+                # from tau-only runs stay schema-valid (NaN -> None:
+                # JSON has no NaN and readers shouldn't need one).
+                rho=rho if rho == rho else None,
+                objective=self.config.objective,
+            )
         return redesign

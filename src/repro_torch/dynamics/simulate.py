@@ -26,11 +26,10 @@ Three entry points, all host numpy:
 
 :func:`schedule_epoch_estimates` prices a schedule per epoch; a randomized
 schedule's Monte-Carlo recursion runs on ``device`` (one launch of K1's
-timing entry per epoch on the card).
-
-The reference's flight recorder (``DynamicTimeline.attach_recorder`` and
-its ``epoch`` records) is not ported: it belongs to the observability
-layer, which the port does not have yet.
+timing entry per epoch on the card).  :meth:`DynamicTimeline.attach_recorder`
+makes the timeline write an ``epoch`` flight-recorder record
+(:mod:`repro_torch.obs.events`) whenever its round front enters a new
+network epoch.
 """
 
 from __future__ import annotations
@@ -223,6 +222,8 @@ class DynamicTimeline:
         self._Weff: Optional[np.ndarray] = None
         self._schedule: Optional[Schedule] = None
         self._sched_cache: dict = {}
+        self.recorder = None  # optional flight recorder (attach_recorder)
+        self._epoch_emitted = -1
 
     @property
     def now_ms(self) -> float:
@@ -282,6 +283,26 @@ class DynamicTimeline:
             self._sched_cache[key] = W
         return W
 
+    def attach_recorder(self, recorder) -> None:
+        """Emit an ``epoch`` trace record (index, start time, active set)
+        whenever the plant's round front crosses into a new network
+        epoch, starting with the epoch it is in right now."""
+        self.recorder = recorder
+        self._emit_epochs_through(
+            int(_epoch_of(self.starts, np.array([self.now_ms]))[0])
+        )
+
+    def _emit_epochs_through(self, ei: int) -> None:
+        for k in range(self._epoch_emitted + 1, ei + 1):
+            ep = self.epochs[k]
+            self.recorder.emit(
+                "epoch",
+                index=k,
+                t_start_ms=ep.t_start_ms,  # a host float by construction
+                active=list(ep.active),
+            )
+        self._epoch_emitted = max(self._epoch_emitted, ei)
+
     def current_epoch(self) -> NetworkEpoch:
         """Epoch containing the current round front — what a measurement
         service would report if probed right now."""
@@ -320,4 +341,8 @@ class DynamicTimeline:
         finish = float(self.t.max())
         duration = finish - self.round_finish_ms[-1]
         self.round_finish_ms.append(finish)
+        if self.recorder is not None:
+            self._emit_epochs_through(
+                int(_epoch_of(self.starts, np.array([finish]))[0])
+            )
         return duration

@@ -44,6 +44,7 @@ import torch
 from repro_torch.core.birkhoff import birkhoff_decomposition
 from repro_torch.core.consensus import local_degree_matrix
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import metrics as obs_metrics
 
 GOSSIP_IMPLS = ("einsum", "ppermute", "pallas", "none")
 
@@ -90,7 +91,11 @@ class PlanSlot:
     whenever ``slot.version`` moves; a controller calls :meth:`swap`
     between rounds.  ``on_swap`` callbacks fire synchronously inside
     :meth:`swap`; ``history`` keeps the (version, label) audit trail.
+    Every swap moves the ``slot.{kind}_swaps`` counter and the
+    ``slot.{kind}_version`` gauge of :mod:`repro_torch.obs.metrics`.
     """
+
+    _slot_kind = "plan"  # metric namespace; subclasses override
 
     def __init__(self, plan: GossipPlan):
         self._plan = plan
@@ -118,6 +123,8 @@ class PlanSlot:
         self._plan = plan
         self.version += 1
         self.history.append((self.version, label))
+        obs_metrics.counter(f"slot.{self._slot_kind}_swaps").inc()
+        obs_metrics.gauge(f"slot.{self._slot_kind}_version").set(self.version)
         for cb in self._callbacks:
             cb(plan, self.version)
         return self.version
@@ -145,6 +152,8 @@ class ScheduleSlot(PlanSlot):
     :class:`~repro_torch.core.schedule.FixedSchedule` the slot degenerates
     to a :class:`PlanSlot` whose plan never varies.
     """
+
+    _slot_kind = "schedule"
 
     def __init__(self, schedule, n_silos: int, silos: Optional[Sequence] = None,
                  max_cached_plans: int = 512):
@@ -238,6 +247,8 @@ class MembershipSlot:
     ``swap`` with an unchanged active set is a no-op (version does not
     move); ``history`` keeps the (version, label) audit trail and
     ``on_swap`` callbacks fire synchronously with ``(active, version)``.
+    A swap moves the ``slot.membership_swaps`` counter and the
+    ``slot.membership_version`` / ``slot.membership_active`` gauges.
     """
 
     def __init__(self, active: Sequence[int], n_universe: int):
@@ -286,6 +297,9 @@ class MembershipSlot:
         self._active = act
         self.version += 1
         self.history.append((self.version, label))
+        obs_metrics.counter("slot.membership_swaps").inc()
+        obs_metrics.gauge("slot.membership_version").set(self.version)
+        obs_metrics.gauge("slot.membership_active").set(len(act))
         for cb in self._callbacks:
             cb(act, self.version)
         return self.version

@@ -43,10 +43,24 @@ survivors' float64 consensus average — and rebuilds the step:
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --dynamic --underlay gaia --scenario churn --gossip-impl pallas --steps 25
 
+``--trace-out t.jsonl`` writes a flight-recorder trace
+(:mod:`repro_torch.obs`) in the reference's schema: the run's metadata,
+the timeline's ``epoch`` records, the controller's ``regression``,
+``membership``, ``swap`` and ``redesign`` records, a ``round`` record
+every ``--metrics-interval`` rounds and a ``run_end`` summary with the
+metrics and span totals; ``scripts/obs_report.py`` renders, checks and
+diffs it:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+        --dynamic --scenario linkfail --trace-out t.jsonl --metrics-interval 5
+    python scripts/obs_report.py --check t.jsonl
+
 The step is eager, so a plan swap costs one :func:`make_train_step` call
-and nothing is re-traced; the reference's recompile accounting
-(``TraceCounter``) has nothing to count here and is not ported, nor are
-its ``--trace-out`` / ``--metrics-interval`` (the observability layer).
+and nothing is re-traced.  The trace's ``recompiles`` (and the
+``train.recompiles`` gauge) count the train-step builds instead: the
+first :func:`make_train_step` and one for each rebuild on a plan or
+membership swap — the eager counterpart of the reference's
+``TraceCounter`` count.
 """
 
 from __future__ import annotations
@@ -69,6 +83,9 @@ from repro_torch.fed import (DPASGDConfig, ScheduleSlot, init_state, make_train_
                              plan_for_n_silos)
 from repro_torch.fed.gossip import GOSSIP_IMPLS, GossipPlan
 from repro_torch.models import ModelConfig
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import spans as obs_spans
+from repro_torch.obs.events import FlightRecorder, run_metadata
 from repro_torch.optim import Optimizer, momentum
 
 TOPOLOGIES = ("ring", "star", "chain", "none", "mst", "ring_2opt", "delta_mbst")
@@ -165,6 +182,7 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
           scenario: str = "linkfail", p_churn: float = 0.15, objective: str = "tau",
           checkpoint: str = "", churn_checkpoint: str = "", verify_migration: bool = False,
           on_migration: Optional[Callable[[Dict[str, Any]], None]] = None,
+          trace_out: Optional[str] = "", metrics_interval: int = 10,
           log: Callable[[str], None] = print) -> TrainResult:
     """Train ``cfg`` with DPASGD for ``steps`` rounds and print the
     reference's ``step k loss ...`` lines.  Each round's time is taken
@@ -196,7 +214,26 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     and kept in ``TrainResult.rounds``.
 
     ``checkpoint`` writes the final parameters (every silo's) there in
-    the reference's format."""
+    the reference's format.
+
+    ``trace_out`` writes a flight-recorder trace there, as the
+    reference's ``--trace-out`` does: spans are enabled for the run (and
+    the span table and metrics registry cleared first, so the trace
+    describes this run alone); the recorder takes
+    :func:`~repro_torch.obs.events.run_metadata` with the underlay,
+    scenario, designer, objective and steps, and Gaia's or AWS-NA's site
+    names; the timeline and the controller write their records into it.
+    Each round's step call runs inside a ``train.step`` span (the loss
+    read after it stays outside, so on the card the span ends when the
+    round's kernels are queued), ``train.h2d_bytes`` counts the host
+    batches moved to ``device``, and every ``metrics_interval`` rounds
+    (0: never) a ``round`` record is written and ``train.round_ms``
+    observes the round's simulated duration.  ``run_end`` carries
+    ``steps``, ``recompiles`` (the train-step builds: the first
+    :func:`make_train_step` and one per rebuild on a plan or membership
+    swap) and ``wall_s``.  Tracing reads host values only and changes no
+    result: the losses, re-designs, launches and state are those of the
+    untraced run."""
     dev = resolve_device(device)
     if cfg.vision_prefix_len:
         raise ValueError(f"{cfg.arch_id} needs vision_embeds for its {cfg.vision_prefix_len}-"
@@ -213,12 +250,36 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         raise KeyError(designer)
     if scenario not in SCENARIOS:
         raise KeyError(scenario)
-    net = None
+    net = silo_names = None
     if dynamic:
         from repro_torch.core import make_underlay
+        from repro_torch.core.networks_data import AWS_NA_SITES, GAIA_SITES
 
         net = make_underlay(underlay)
         silos = net.num_silos
+        # site names for bottleneck attribution in a trace: the paper's
+        # measured networks carry city labels, synthetic ones do not
+        sites = {"gaia": GAIA_SITES, "aws_na": AWS_NA_SITES}.get(net.name)
+        if sites is not None:
+            silo_names = [name for name, _ in sites]
+    recorder = None
+    spans_were_on = obs_spans.enabled()
+    if trace_out:
+        obs_spans.reset()
+        obs_metrics.reset()
+        obs_spans.enable()
+        recorder = FlightRecorder(
+            trace_out,
+            meta=run_metadata({
+                "underlay": underlay if dynamic else None,
+                "scenario": scenario if dynamic else None,
+                "designer": designer,
+                "objective": objective,
+                "steps": steps,
+            }),
+            silo_names=silo_names,
+        )
+        log(f"[train] trace path={trace_out}")
     n = silos
     cfg = dataclasses.replace(cfg, n_silos=n)
     opt = momentum(lr, 0.9)
@@ -260,6 +321,8 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             log(f"dynamic: {underlay} N={n}, {kind} overlay, predicted tau={tau0:.1f} ms")
         timeline = DynamicTimeline(_scenario(scenario, net, Tc, tau0, steps, overlay.edges,
                                              scenario_seed, p_churn), tp)
+        if recorder is not None:
+            timeline.attach_recorder(recorder)
 
         def provider():
             epoch = timeline.current_epoch()
@@ -282,7 +345,8 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         controller = OnlineTopologyController(
             gc0, tp, overlay, schedule=schedule, config=cfg_ctl,
             connectivity_provider=provider, membership_slot=mem_slot,
-            membership_provider=timeline.current_active, device=dev, **slot_kw)
+            membership_provider=timeline.current_active, recorder=recorder,
+            silo_names=silo_names, device=dev, **slot_kw)
     else:
         if designer in MEASURED_DESIGNERS:
             log(f"[train] designer-ignored --designer {designer} needs --dynamic "
@@ -304,6 +368,7 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
                 log(f"topology {topology} needs network measurements; using {kind}")
             plan = plan_for_n_silos(kind, n) if n > 1 else None
     step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode)
+    builds = 1  # train-step builds: the eager counterpart of re-traces
     state = init_state(cfg, opt, seed=seed, device=dev)
     # The data stream spans the full silo universe: under elastic
     # membership each silo label keeps its own (non-iid) distribution
@@ -328,7 +393,11 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             # simulated *first*, so the consensus mask below (and the
             # controller after the step) see the epoch the round spans
             duration = timeline.step()
-        batch = batch_to_device(batcher.batch(i, silos=active if dynamic else None), dev)
+        raw = batcher.batch(i, silos=active if dynamic else None)
+        if recorder is not None:
+            obs_metrics.counter("train.h2d_bytes").inc(sum(v.nbytes for v in raw.values()))
+        batch = batch_to_device(raw, dev)
+        step_args = ()
         if sched_mode:
             round_plan = sched_slot.plan_for_round(i)  # this round's sampled topology
             A = round_plan.matrix
@@ -343,12 +412,15 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
                 if n_act < len(active):
                     log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
                         f"(mid-round churn)")
-                state, metrics = step_fn(state, batch, A, torch.tensor(flags))
+                step_args = (A, torch.tensor(flags))
             else:
-                state, metrics = step_fn(state, batch, A)
+                step_args = (A,)
         else:
             round_plan = plan
-            state, metrics = step_fn(state, batch)
+        # the span ends when the step returns (on the card: when its
+        # kernels are queued); the loss read below waits for them
+        with obs_spans.span("train.step"):
+            state, metrics = step_fn(state, batch, *step_args)
         del batch
         loss = float(metrics["loss"])
         result.step_seconds.append(time.perf_counter() - t_step)
@@ -379,11 +451,13 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
                 step_fn = make_train_step(cfg, fed, opt,
                                           slot.plan if slot is not None else None,
                                           consensus_arg=sched_mode)
+                builds += 1
                 built_version = slot.version if slot is not None else 0
                 built_mem_version = mem_slot.version
             if slot is not None and slot.version != built_version:
                 # hot-swap: rebuild the train step on the new plan
                 step_fn = make_train_step(cfg, fed, opt, slot.plan)
+                builds += 1
                 built_version = slot.version
             # sched_slot swaps need no rebuild: the consensus matrix is a
             # step input and matrix_for_round follows the new schedule
@@ -394,6 +468,20 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             result.rounds.append(rec)
             log(f"round {i} wall {result.step_seconds[-1]:.4f} s K {rec['K']} n {rec['n']}"
                 + peak)
+        if recorder is not None and metrics_interval and i % metrics_interval == 0:
+            recorder.emit(
+                "round",
+                step=i,
+                duration_ms=duration if dynamic else None,
+                predicted_window_ms=(controller.expected_window_ms
+                                     if controller is not None else None),
+                measured_window_ms=(controller.last_measured_ms
+                                    if controller is not None else None),
+                drift=controller.last_drift if controller is not None else None,
+            )
+            if dynamic:
+                obs_metrics.histogram("train.round_ms").observe(duration)
+            obs_metrics.gauge("train.recompiles").set(builds)
         if i % max(1, steps // 10) == 0 or i == steps - 1:
             log(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)")
     if dynamic:
@@ -414,6 +502,12 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         save_checkpoint(checkpoint, tree["params"], step=steps)
         del tree
         log(f"checkpoint -> {checkpoint} ({time.perf_counter() - t_ck:.1f} s)")
+    if recorder is not None:
+        obs_metrics.gauge("train.recompiles").set(builds)
+        recorder.close(steps=steps, recompiles=builds, wall_s=time.time() - t0)
+        log(f"[train] trace-written path={trace_out} spans={len(obs_spans.summary())}")
+        if not spans_were_on:
+            obs_spans.disable()
     result.cfg, result.state, result.active = cfg, state, active
     return result
 
@@ -499,6 +593,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--verify-migration", action="store_true",
                     help="after each membership rebuild, check on the card that survivors "
                          "are bit-identical and joiners sit at the consensus average")
+    ap.add_argument("--trace-out", default="",
+                    help="write a JSONL flight-recorder trace here (turns "
+                         "on spans + metrics; render/validate it with "
+                         "scripts/obs_report.py)")
+    ap.add_argument("--metrics-interval", type=int, default=10,
+                    help="steps between 'round' trace records (0 disables "
+                         "per-round records; decision records are always "
+                         "written when --trace-out is set)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
@@ -512,7 +614,8 @@ def main(argv: Optional[List[str]] = None) -> int:
           dynamic=args.dynamic, underlay=args.underlay, workload=args.workload,
           scenario=args.scenario, p_churn=args.p_churn, objective=args.objective,
           checkpoint=args.checkpoint, churn_checkpoint=args.churn_checkpoint,
-          verify_migration=args.verify_migration,
+          verify_migration=args.verify_migration, trace_out=args.trace_out,
+          metrics_interval=args.metrics_interval,
           log=lambda line: print(line, flush=True))
     return 0
 

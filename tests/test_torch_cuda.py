@@ -1037,3 +1037,25 @@ def test_kernels_refuse_gradients_on_card(cuda):
             call(*[a.clone().requires_grad_() for a in args])
         torch.cuda.synchronize()
         assert LAUNCHES[name] == before + 1
+
+
+@pytest.mark.gpu
+def test_trace_payloads_refuse_cuda_tensors(cuda, tmp_path):
+    """A CUDA tensor in a flight-recorder payload raises instead of
+    synchronising inside ``emit``; its host copy serialises, and the run
+    metadata names the card once CUDA is initialised."""
+    from repro_torch.obs import events
+
+    t = torch.arange(3, device=cuda)
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        events._jsonable(t)
+    path = tmp_path / "t.jsonl"
+    rec = events.FlightRecorder(str(path))
+    assert rec.silo_names is None
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        rec.emit("epoch", index=0, t_start_ms=0.0, active=t)
+    rec.emit("epoch", index=0, t_start_ms=0.0, active=t.cpu())
+    rec.close()
+    records, problems = events.validate_trace(str(path))
+    assert problems == [] and records[1]["active"] == [0, 1, 2]
+    assert events.run_metadata()["device_kind"] == torch.cuda.get_device_name()

@@ -276,9 +276,11 @@ def redesign_fields(rd):
             rd.membership, num(rd.rho), rd.objective)
 
 
-def controller_loop(pkg, case):
+def controller_loop(pkg, case, recorder=None, silo_names=None):
     """The reference tests' closed loops, with the rewire climb off:
-    ``(redesign records, slot versions, audit notes, rounds done)``."""
+    ``(redesign records, slot versions, audit notes, rounds done)``.
+    ``recorder`` (the package's flight recorder) is attached to the
+    timeline and the controller, with ``silo_names``."""
     C, D, S = pkg["core"], pkg["dyn"], pkg["slots"]
     u, gc, tp, Tc = _gaia(pkg)
     ring = C.design_overlay("ring", gc, tp, **pkg["kw"])
@@ -318,6 +320,8 @@ def controller_loop(pkg, case):
                        matcha_budgets=(0.3, 0.5), matcha_rounds=60, matcha_seeds=(0,),
                        mixing_rounds=60)
     tl = D.DynamicTimeline(sc, tp)
+    if recorder is not None:
+        tl.attach_recorder(recorder)
     tl.set_overlay(ring.edges)
 
     def provider():
@@ -327,7 +331,8 @@ def controller_loop(pkg, case):
     if mem is not None:
         kw["membership_provider"] = tl.current_active
     ctl = D.OnlineTopologyController(gc, tp, ring, config=D.ControllerConfig(**cfg),
-                                     connectivity_provider=provider, **kw)
+                                     connectivity_provider=provider, recorder=recorder,
+                                     silo_names=silo_names, **kw)
     k = 0
     while (tl.now_ms < deadline) if rounds is None else (k < rounds):
         rd = ctl.observe_round(tl.step())

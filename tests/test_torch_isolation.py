@@ -114,6 +114,22 @@ def test_steps_and_optim_load_neither_jax_nor_reference():
     assert REPO / "src" / "repro_torch" / "launch" / "steps.py" in PORT_FILES
 
 
+def test_obs_loads_neither_jax_nor_reference_nor_torch():
+    code = (
+        "import sys, repro_torch.obs\n"
+        "from repro_torch.obs import events, log, metrics, report, spans\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'torch'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("__init__", "spans", "metrics", "events", "log", "report"):
+        assert REPO / "src" / "repro_torch" / "obs" / f"{name}.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_or_jax_imports(path):
     bad = []
