@@ -116,20 +116,20 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    CUDA-core kernel of the same source against plain, profiles the device
    kernels of one call and reports its scratch, and times the three in
    turns beside the 3xTF32 bound and the float32 CUDA-core bound;
-16. drives the full-sequence forward of xlstm-350m at full size (24
-   layers, random weights from seed 0, batch 4, 2048 tokens,
-   ``use_flash_kernel``): one ``mlstm_scan`` launch per mLSTM layer (20),
-   finite logits, K4's device time summed over the 20 launches (a second
-   forward under ``torch.profiler``, by kernel name, each seen exactly 20
-   times); each mLSTM layer through the kernel within 2e-3 of its
+16. drives the full-sequence forward of xlstm-350m at full width (12 of
+   24 layers: 10 mLSTM, 2 sLSTM; random weights from seed 0, batch 4, 2048
+   tokens, ``use_flash_kernel``): one ``mlstm_scan`` launch per mLSTM layer
+   (10), finite logits, K4's device time summed over the 10 launches (a
+   second forward under ``torch.profiler``, by kernel name, each seen
+   exactly 10 times); each mLSTM layer through the kernel within 2e-3 of its
    plain path on the same input; the logits against the plain forward
    within 2e-3 or three times the difference between two plain forwards
    that differ only in chunk length (the sLSTM layers amplify rounding
    along the sequence), whichever is larger;
-17. serves xlstm-350m at full size through ``serve`` (batch 4, prompt
-   2048, 129 tokens): no ``mlstm_scan`` launch in prefill or decode (they
-   carry the state, as the reference's do), the last decode step against a
-   teacher-forced forward through the kernel (20 launches) within 5e-3 or
+17. serves the same xlstm-350m (12 of 24 layers) through ``serve`` (batch
+   4, prompt 2048, 129 tokens): no ``mlstm_scan`` launch in prefill or
+   decode (they carry the state, as the reference's do), the last decode
+   step against a teacher-forced forward through the kernel (10 launches) within 5e-3 or
    three times the rounding floor of such forwards, whichever is larger, the
    sLSTM loop's share and a profile of prefill and decode; then the
    reduced xlstm on the card against the CPU from the same weights (the
@@ -187,11 +187,11 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    turns with its plain version and a causal GQA
    ``scaled_dot_product_attention`` (at hymba's also with the window as a
    boolean mask, the same function), beside its 3xTF32 bound;
-24. serves hymba-1.5b (all 32 layers: 30 windowed, 2 global; batch 2, a
-   4096-token prompt, four windows, 32 tokens) and internvl2-76b (4 of 80
+24. serves hymba-1.5b (16 of 32 layers; batch 2, a 4096-token prompt,
+   four windows, 32 tokens) and internvl2-76b (4 of 80
    layers; batch 2, 256 seeded patch embeddings and a 1024-token prompt, 16
    tokens) at full width through ``serve`` with ``use_flash_kernel``: K3
-   launches in prefill equal to the attention layers (32 and 4), none in
+   launches in prefill equal to the attention layers (16 and 4), none in
    decode, finite logits, the kernel prefill against the plain prefill (<=
    2e-3), the last decode step against a teacher-forced plain forward (<=
    5e-3), each attention layer through K3 against its plain path and each
@@ -200,7 +200,7 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    scan's and the Mamba heads' share of a warm prefill by CUDA events, a
    profile of prefill and decode; then both reduced configs on the card
    against the CPU (<= 1e-4);
-25. trains hymba-1.5b (all 32 layers) through ``train`` on 2 silos of a
+25. trains hymba-1.5b (16 of 32 layers) through ``train`` on 2 silos of a
    ring, ``gossip_impl="pallas"``, 3 rounds: one ``gossip_mix`` launch a
    round, finite losses, peak under 70 GiB, the round's profile; then one
    more round whose mix through K2 equals K2's plain version on the same
@@ -240,7 +240,24 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 29. drives the serving step functions on silo 0's trained parameters:
    ``build_prefill_step`` with ``use_flash_kernel`` (batch 1, prompt 1024:
    4 K3 launches) and 8 ``build_decode_step`` calls (none), the first
-   greedy token equal to ``serve``'s on the same parameters.
+   greedy token equal to ``serve``'s on the same parameters;
+30. trains with one silo per process: phase 3's configuration (internlm2-1.8b,
+   4 of 24 layers, 4 silos on a ring, ``pallas``, 3 rounds) as 4 ranks
+   spawned on the one card over ``gloo``, every transfer staged through
+   pinned host memory (NCCL refuses two ranks on one device): one K2 launch
+   per rank a round, each rank's bytes received a round equal to its plan's
+   distinct in-neighbours times P * 4, finite losses equal on every rank,
+   the final rows within 1e-5 of the same configuration in one process
+   (phase 3's rows, saved raw); one more round whose K2 call equals its
+   plain version on the rank's stack bit for bit, and whose mixed row
+   equals, bit for bit, row r of the stacked ``gossip_fused`` of the
+   pre-mix rows (the sources' rows received once more, every other row
+   NaN); every rank's round walls, peak, staged bytes and the staging's
+   share of its rounds; then K2 timed at the per-rank shape (K = 2, N = P);
+31. the same for phase 18's configuration (h2o-danube-1.8b, 1 of 24 layers,
+   Gaia churn, 25 rounds; phase 18's rows) as 11 ranks: silo 5's rank idle
+   between its leave and its rejoin (no launch, no byte), the migrations
+   11 -> 10 -> 11, the controller's K1 launches on rank 0 only.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -255,10 +272,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -285,8 +304,11 @@ K4_SWEEP = {"B": (1, 2), "S": (128, 256, 1024), "H": (1, 4), "hd": (32, 64, 128,
             "chunk": (64, 128), "forget_bias": (2.0, 0.0)}
 MLSTM_TOL = {"float32": (2e-4, 2e-3), "bfloat16": (2e-2, 2e-2)}
 K4_MAIN = (4, 2048, 4, 512)
-# xlstm-350m at full size: the forward (batch, tokens: the xLSTM paper's
-# training context) and a serving run (batch, prompt length, tokens)
+# xlstm-350m at full width, depth cut to the first 12 of its 24 blocks (10
+# mLSTM, 2 sLSTM) to keep the script inside its time limit: the layers kept,
+# the forward (batch, tokens: the xLSTM paper's training context) and a
+# serving run (batch, prompt length, tokens)
+XLSTM_LAYERS = 12
 XLSTM_FORWARD = (4, 2048)
 XLSTM_SERVE = (4, 2048, 129)
 # K3 at hd 128 with the query groups (K, G) of qwen3-moe-30b-a3b, granite-20b
@@ -310,9 +332,9 @@ K3_HYBRID_VLM = {"hymba-1.5b": (2, 4096, 5, 5, 64, 1024),
 # the hybrid and the vision-prefix backbone served at full width: (arch,
 # layers kept, batch, prompt length, tokens generated); hymba's 4096-token
 # prompt is four windows, so its ring buffers wrap
-HYBRID_VLM_SERVE = (("hymba-1.5b", 32, 2, 4096, 32), ("internvl2-76b", 4, 2, 1024, 16))
+HYBRID_VLM_SERVE = (("hymba-1.5b", 16, 2, 4096, 32), ("internvl2-76b", 4, 2, 1024, 16))
 # DPASGD on hymba: (arch, layers kept, silos on a ring, rounds)
-HYMBA_TRAIN = ("hymba-1.5b", 32, 2, 3)
+HYMBA_TRAIN = ("hymba-1.5b", 16, 2, 3)
 # K3 at whisper-large-v3's decoder prefill shape (B, S = T, K, G, hd): plain
 # MHA (G = 1), hd 64, causal
 K3_WHISPER = (4, 384, 20, 1, 64)
@@ -329,6 +351,13 @@ WHISPER_SERVE = (4, 384, 64)
 ZOO_TRAIN = ("internlm2-1.8b", 4, 4, 4096, 3)
 FLASH_VJP_SHAPE = (1, 4096, 8, 2, 128)
 STEPS_SERVE = (1, 1024, 8)
+# one silo per process on the card: the train phase's configuration (arch,
+# layers kept, ranks on a ring, rounds) and the dynamic phase's (arch, layers
+# kept, rounds; Gaia's 11 silos under churn), and the columns of a chunk of
+# the check of the mixed rows against the stacked mix
+DIST_TRAIN = ("internlm2-1.8b", 4, 4, 3)
+DIST_DYNAMIC = ("h2o-danube-1.8b", 1, 25)
+DIST_CHUNK = 1 << 22
 
 
 def check(cond: bool, msg: str) -> None:
@@ -485,7 +514,15 @@ def parity_phase(torch, dev) -> None:
     check(diff <= 2e-5 and dloss <= 2e-5, f"card and CPU rounds differ: params {diff}, loss {dloss}")
 
 
-def train_phase(torch, dev) -> dict:
+def save_rows(params, path: str) -> None:
+    """A run's final ``[n, P]`` float32 rows, raw, row after row: what the
+    distributed phase of the same configuration holds its ranks' rows to."""
+    with open(path, "wb") as f:
+        for row in params:
+            row.cpu().numpy().tofile(f)
+
+
+def train_phase(torch, dev, ref_path: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.fed import make_train_step
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
@@ -504,6 +541,7 @@ def train_phase(torch, dev) -> dict:
     launches = dict(LAUNCHES)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    save_rows(res.state["params"], ref_path)  # before the next round moves them
     for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
         print(f"train: round {i} wall {sec:.4f} s loss {loss:.6f}")
     print(f"train: peak device memory {peak / 2**30:.2f} GiB; "
@@ -1938,7 +1976,8 @@ def rounding_floor(torch, params, cfg, tokens, ref, last_only=False) -> float:
 
 
 def xlstm_forward_phase(torch, dev) -> dict:
-    """The full-sequence forward of xlstm-350m at full size through K4:
+    """The full-sequence forward of xlstm-350m at full width (12 of 24
+    layers) through K4:
     one launch per mLSTM layer; each mLSTM layer through the kernel
     against its plain path on the same input (<= 2e-3); the logits against
     the plain forward, within three times the rounding floor of two plain
@@ -1953,7 +1992,7 @@ def xlstm_forward_phase(torch, dev) -> dict:
     from repro_torch.models import transformer as T
 
     B, S = XLSTM_FORWARD
-    cfg = get_config("xlstm-350m", use_flash_kernel=True, remat=False)
+    cfg = get_config("xlstm-350m", n_layers=XLSTM_LAYERS, use_flash_kernel=True, remat=False)
     n_mlstm = cfg.block_pattern.count("mlstm")
     print(f"forward: {cfg.arch_id} d_model {cfg.d_model} heads {cfg.n_heads} mLSTM head_dim "
           f"{cfg.ssm.expand * cfg.d_model // cfg.n_heads} vocab {cfg.vocab_size} layers "
@@ -2026,7 +2065,7 @@ def xlstm_forward_phase(torch, dev) -> dict:
 
 
 def xlstm_serve_phase(torch, dev) -> dict:
-    """xlstm-350m served at full size through ``serve``: the mLSTM kernel
+    """xlstm-350m (12 of 24 layers) served through ``serve``: the mLSTM kernel
     runs no time in prefill and decode (they carry the state, as in the
     reference); the last decode step against a teacher-forced forward
     through the kernel; the sLSTM loop's share; then the reduced model on
@@ -2042,8 +2081,8 @@ def xlstm_serve_phase(torch, dev) -> dict:
     from repro_torch.models.params import tree_map
 
     batch, prompt_len, gen = XLSTM_SERVE
-    cfg = get_config("xlstm-350m", use_flash_kernel=True)
-    print(f"serve: {cfg.arch_id} layers {cfg.n_layers}; batch {batch}, prompt {prompt_len}, "
+    cfg = get_config("xlstm-350m", n_layers=XLSTM_LAYERS, use_flash_kernel=True)
+    print(f"serve: {cfg.arch_id} layers {cfg.n_layers} (of 24); batch {batch}, prompt {prompt_len}, "
           f"{gen} tokens, float32 states, use_flash_kernel")
     params = init_params(model_specs(cfg), seed=0, device=dev)
     torch.cuda.synchronize()
@@ -2174,7 +2213,7 @@ def redesign_launches(rd, rewire_steps: int, n_silos: int) -> dict:
     return {"karp": climb, "reach": climb, "timing": 1}
 
 
-def dynamic_train_phase(torch, dev) -> dict:
+def dynamic_train_phase(torch, dev, ref_path: str) -> dict:
     """``train(..., dynamic=True)`` on Gaia churn at h2o-danube-1.8b's full
     width (1 of 24 layers, 11 -> 10 -> 11 silos, 25 rounds, pallas): each
     migration on the card equal to the same migration on the CPU, survivors
@@ -2255,6 +2294,7 @@ def dynamic_train_phase(torch, dev) -> dict:
                 print(f"dynamic train: leaver silo {v} checkpoint ({os.path.getsize(path) / 1e9:.3f}"
                       f" GB) re-read by load_checkpoint == its pre-migration row (params and "
                       f"momentum, step {m['step']})")
+    save_rows(res.state["params"], ref_path)
     for i, (rec, sec, loss) in enumerate(zip(res.rounds, res.step_seconds, res.losses)):
         print(f"dynamic train: round {i} wall {sec:.4f} s K {rec['K']} n {rec['n']} peak "
               f"{rec['peak_bytes'] / 2**30:.2f} GiB loss {loss:.6f}")
@@ -3186,7 +3226,7 @@ def hybrid_layers_gate(torch, cfg, attn_in, mamba_in, arch: str) -> tuple:
 
 
 def hybrid_vlm_serve_phase(torch, dev) -> dict:
-    """hymba-1.5b (no depth cut) and internvl2-76b (4 of 80 layers) served
+    """hymba-1.5b (16 of 32 layers) and internvl2-76b (4 of 80 layers) served
     at full width through ``serve``, each run with the counts set to 0
     just before it and read just after; the whole-model checks, every
     attention layer through K3 against plain and every Mamba layer's
@@ -3353,7 +3393,7 @@ def hybrid_vlm_serve_phase(torch, dev) -> dict:
 
 
 def hymba_train_phase(torch, dev) -> dict:
-    """DPASGD on hymba-1.5b at full size through ``train``: one K2 launch a
+    """DPASGD on hymba-1.5b (16 of 32 layers) through ``train``: one K2 launch a
     round, finite losses, the peak against the prediction, the round's
     profile, and one more round whose K2 mix equals its plain version on
     the same stack bit for bit."""
@@ -3822,6 +3862,184 @@ def steps_serve_phase(torch, dev, params0) -> dict:
     return {"launches": k3_prefill, "prefill_s": prefill_s, "decode_s": decode_s}
 
 
+def dist_config(kind: str):
+    """The configuration of a distributed phase: ``static`` is the train
+    phase's (internlm2-1.8b, 4 of 24 layers, 4 silos on a ring, s = 2, 4 x 64
+    tokens a silo, pallas, 3 rounds) and ``dynamic`` the dynamic phase's
+    (h2o-danube-1.8b, 1 of 24 layers, Gaia's 11 silos under churn, 25
+    rounds), as ``(cfg, train keyword arguments, ranks)``."""
+    from repro_torch.configs import get_config
+
+    if kind == "static":
+        arch, layers, ranks, rounds = DIST_TRAIN
+        return get_config(arch, n_layers=layers), dict(
+            silos=ranks, topology="ring", gossip_impl="pallas", local_steps=2,
+            batch_per_silo=4, seq_len=64, steps=rounds), ranks
+    arch, layers, rounds = DIST_DYNAMIC
+    return get_config(arch, n_layers=layers), dict(
+        dynamic=True, underlay="gaia", scenario="churn", gossip_impl="pallas", designer="auto",
+        local_steps=2, batch_per_silo=4, seq_len=64, steps=rounds), 11
+
+
+def dist_rank(rank: int, world: int, init: str, kind: str, ref_path: str) -> dict:
+    """One rank of a distributed phase, on ``cuda:0`` over ``gloo`` staged
+    through pinned host memory: it trains its silo through ``train``, with
+    the launch counts set to 0 just before and read just after, and holds
+    its final row to that row of the same configuration's single-process
+    run, saved raw at ``ref_path`` (1e-5).  One more round follows, whose
+    K2 call is held to K2's plain version on the rank's stack, and whose
+    mixed row is held bit for bit to row r of the stacked ``gossip_fused``
+    of the pre-mix rows (its sources' received once more)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed import gossip as gossip_mod
+    from repro_torch.fed import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import init_silo_mesh
+    from repro_torch.launch.train import batch_to_device, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    def say(line: str) -> None:  # one write a line: the ranks share stdout
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+    cfg, kw, _ = dist_config(kind)
+    rec = {"rank": rank}
+    mesh = init_silo_mesh(rank, world, init, backend="gloo", device=dev, log=say)
+    migrations = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, device=dev, mesh=mesh, log=say, on_migration=migrations.append, **kw)
+    torch.cuda.synchronize(dev)
+    rec.update(launches=dict(LAUNCHES), wall_s=time.perf_counter() - t0, rounds=res.rounds,
+               losses=res.losses, round_s=res.step_seconds, active=res.active,
+               peak_bytes=torch.cuda.max_memory_allocated(dev), staged_bytes=mesh.staged_bytes,
+               staging_s=mesh.staging_s, recv_bytes=mesh.recv_bytes,
+               migrations=[(m["left"], m["joined"], m["wall_s"]) for m in migrations])
+    P = res.state["params"].numel()
+    ref = np.fromfile(ref_path, dtype=np.float32, count=P, offset=rank * P * 4)
+    rec["final_err"] = max(float((res.state["params"][lo:lo + DIST_CHUNK].cpu()
+                                  - torch.from_numpy(ref[lo:lo + DIST_CHUNK])).abs().max())
+                           for lo in range(0, P, DIST_CHUNK))
+    del ref
+    # one more round: K2's call held to its plain version, the pre-mix row kept
+    premix, record = {}, []
+    fused = gossip_mod.gossip_fused_rank
+
+    def keep(row, plan, mesh_, *, out=None):
+        premix.update(row=row.clone(), plan=plan)
+        return fused(row, plan, mesh_, out=out)
+
+    gossip_mod.gossip_fused_rank = keep
+    try:
+        with mix_against_plain(torch, record, chunk=1 << 24):
+            step = make_train_step(res.cfg, res.fed, res.optimizer, res.plan, mesh=mesh)
+            raw = res.batcher.batch(kw["steps"], silos=(rank,))
+            state, _ = step(res.state, batch_to_device({k: v[0] for k, v in raw.items()}, dev))
+    finally:
+        gossip_mod.gossip_fused_rank = fused
+    rec["k2_vs_plain"] = record
+    del res
+    # the mixed row against row r of the stacked gossip_fused of the pre-mix
+    # rows, a chunk of columns at a time: the sources' pre-mix rows received
+    # once more, this rank's own, every other row NaN (row r reads none)
+    plan, pos, n = premix["plan"], mesh.position, len(mesh.active)
+    same = True
+    for lo in range(0, P, DIST_CHUNK):
+        hi = min(lo + DIST_CHUNK, P)
+        w = torch.full((n, hi - lo), float("nan"), device=dev)
+        w[pos] = premix["row"][lo:hi]
+        mesh.exchange([(mesh.active[d], premix["row"][lo:hi])
+                       for d in gossip_mod.out_neighbours(plan, pos)],
+                      [(mesh.active[s], w[s]) for s in gossip_mod.in_neighbours(plan, pos)])
+        stacked = gossip_mod.gossip_fused(w, plan)
+        same = same and bool(torch.equal(stacked[pos], state["params"][lo:hi]))
+    rec["stacked_equal"] = same
+    return rec
+
+
+def dist_phase(torch, kind: str, ref_path: str, ref_round_s) -> dict:
+    """A distributed phase: the ranks of ``kind``'s configuration spawned on
+    ``cuda:0`` (:func:`dist_rank`), each rank's round walls, peak, staged
+    bytes and the staging's share of its rounds printed, and the checks:
+    one K2 launch per active rank a round, K2 bit-identical to plain on a
+    rank's stack, the mixed rows bit-identical to the stacked
+    ``gossip_fused``, the final rows within 1e-5 of one process's, finite
+    losses equal on every rank, each round's received bytes equal to the
+    plan's distinct in-neighbours times P * 4, and K1 on rank 0 only."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import ParamLayout, model_specs
+
+    name = f"dist {kind} train"
+    cfg, kw, world = dist_config(kind)
+    P = ParamLayout(model_specs(cfg)).size
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{name}: {cfg.arch_id} d_model {cfg.d_model} vocab {cfg.vocab_size} layers "
+          f"{cfg.n_layers}, P {P}; {world} ranks on cuda:0 over gloo, staged through pinned "
+          f"host memory, pallas, {kw['steps']} rounds"
+          + (", Gaia churn" if kw.get("dynamic") else ", ring")
+          + f"; (K + 3) P 4 bytes a rank = {5 * P * 4 / 1e9:.2f} GB at K = 2; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated by this process")
+    t0 = time.perf_counter()
+    ranks = spawn(dist_rank, world, kind, ref_path)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        act = [rec for rec in r["rounds"] if rec["active"]]
+        walls = [rec["wall_s"] for rec in act]
+        share = sum(rec["staging_s"] for rec in act) / max(sum(walls), 1e-9)
+        print(f"{name}: rank {r['rank']} round walls {[round(x, 4) for x in r['round_s']]} s "
+              f"(active {len(act)} of {len(r['rounds'])}); peak {r['peak_bytes'] / 2**30:.2f} "
+              f"GiB; staged {r['staged_bytes'] / 1e9:.3f} GB in {r['staging_s']:.3f} s, "
+              f"{share:.3f} of its active round walls; received "
+              f"{[rec['recv_bytes'] for rec in act][:3]} bytes a round; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+        check(all(math.isfinite(x) for x in r["losses"]), f"rank {r['rank']} losses {r['losses']}")
+        check(r["losses"] == r0["losses"], f"rank {r['rank']}'s losses differ from rank 0's")
+        check(r["launches"]["gossip_mix"] == len(act),
+              f"rank {r['rank']}: gossip_mix launched {r['launches']['gossip_mix']} times in "
+              f"{len(act)} active rounds")
+        for i, rec in enumerate(r["rounds"]):
+            check(rec["recv_bytes"] == rec["rows_in"] * P * 4 and (rec["rows_in"] > 0) ==
+                  rec["active"], f"rank {r['rank']} round {i}: received {rec['recv_bytes']} "
+                                 f"bytes, its plan sends {rec['rows_in']} rows of {P * 4}")
+        check(len(r["k2_vs_plain"]) == 1 and r["k2_vs_plain"][0][0],
+              f"rank {r['rank']}: K2 vs plain on its stack {r['k2_vs_plain']}")
+        if r["rank"]:
+            k1 = {k: r["launches"][k] for k in ("segment_max", "karp", "reach", "timing")}
+            check(not any(k1.values()), f"rank {r['rank']} launched K1 {k1}")
+    n_rounds = [rec["n"] for rec in r0["rounds"]]
+    k2 = sum(r["launches"]["gossip_mix"] for r in ranks)
+    check(k2 == sum(n_rounds), f"gossip_mix launched {k2} times over the ranks, the rounds "
+                               f"had {sum(n_rounds)} active silos")
+    final_err = max(r["final_err"] for r in ranks)
+    check(final_err <= 1e-5, f"final rows {final_err} from the single-process run")
+    check(all(r["stacked_equal"] for r in ranks),
+          "a rank's mixed row differs from its row of the stacked gossip_fused")
+    print(f"{name}: K2 bit-identical to its plain version on every rank's stack; every mixed "
+          f"row == row r of the stacked gossip_fused of the pre-mix rows; final rows "
+          f"within {final_err:.3g} of the single-process run (limit 1e-05; its round walls "
+          f"{[round(x, 4) for x in ref_round_s]} s); gossip_mix launches {k2} over {len(n_rounds)} "
+          f"rounds of {n_rounds[0]}..{min(n_rounds)} silos; rank 0 K1 launches "
+          f"{ {k: r0['launches'][k] for k in ('karp', 'reach', 'timing')} }; spawn and run "
+          f"{wall:.1f} s")
+    if kw.get("dynamic"):
+        moves = [(len(left), len(joined)) for left, joined, _ in r0["migrations"]]
+        check([m[:2] for m in r0["migrations"]] == [((5,), ()), ((), (5,))],
+              f"migrations {r0['migrations']}")
+        print(f"{name}: migrations {[(m[0], m[1], round(m[2], 4)) for m in r0['migrations']]} "
+              f"(left, joined, wall s on rank 0) {moves}")
+    return {"launches": k2, "karp": r0["launches"]["karp"], "timing": r0["launches"]["timing"],
+            "P": P, "round_s": {r["rank"]: r["round_s"] for r in ranks},
+            "peak_bytes": max(r["peak_bytes"] for r in ranks), "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3854,11 +4072,23 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
 
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_rows_")
+    ref_static, ref_dynamic = (os.path.join(ref_dir, f"{k}.f32") for k in ("static", "dynamic"))
+    try:
+        return run_phases(torch, dev, ref_static, ref_dynamic)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+
+
+def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
+    """Every phase after the build and the nvidia-smi line, in order; the
+    two distributed phases hold their ranks to the rows that phases 3 and
+    18 saved at ``ref_static`` and ``ref_dynamic``."""
     kern = kernel_phase(torch, dev)
     seg = segmax_kernel_phase(torch, dev)
     karp = karp_kernel_phase(torch, dev)
     parity_phase(torch, dev)
-    tr = train_phase(torch, dev)
+    tr = train_phase(torch, dev, ref_static)
     torch.cuda.empty_cache()
     main_shape = slice_shape_phase(torch, dev, tr["K"], tr["n_elems"])
     t0 = time.perf_counter()
@@ -3888,7 +4118,7 @@ def main() -> int:
     print(f"dynamic phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
           "from the earlier phases")
     t0 = time.perf_counter()
-    dyn = dynamic_train_phase(torch, dev)
+    dyn = dynamic_train_phase(torch, dev, ref_dynamic)
     torch.cuda.empty_cache()
     dyn_shape = slice_shape_phase(torch, dev, dyn["K"], dyn["n_elems"])
     torch.cuda.empty_cache()
@@ -3937,6 +4167,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ztr_s = time.perf_counter() - t0
+    print(f"distributed phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          "from the earlier phases")
+    t0 = time.perf_counter()
+    dtr = dist_phase(torch, "static", ref_static, tr["round_s"])
+    rank_shape = slice_shape_phase(torch, dev, 2, dtr["P"])
+    ddyn = dist_phase(torch, "dynamic", ref_dynamic, dyn["round_s"])
+    dist_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -4024,6 +4261,12 @@ def main() -> int:
           f"{one[False][0][1] / 2**30:.3f}; adamw 2^26 ms {ztr['adamw']['ms']:.4f} (bound "
           f"{ztr['adamw']['bound_ms']:.4f}); steps serve prefill s {sserve['prefill_s']:.4f}, "
           f"K3 launches {sserve['launches']}; zoo training phases took {ztr_s:.1f} s")
+    print(f"summary: one silo per process over staged gloo on one card: static round walls s "
+          f"{ {r: [round(x, 4) for x in v] for r, v in dtr['round_s'].items()} }, peak GiB "
+          f"{dtr['peak_bytes'] / 2**30:.2f}; gossip_mix at the per-rank shape (K=2, "
+          f"N={dtr['P']}) ms {rank_shape['ms']:.4f} (torch.lerp {rank_shape['library_ms']:.4f}, "
+          f"bound {rank_shape['bound_ms']:.4f}); dynamic peak GiB "
+          f"{ddyn['peak_bytes'] / 2**30:.2f}; distributed phases took {dist_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     tl = tdyn["launches"]
@@ -4035,11 +4278,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
         "launches": (tr["launches"] + dl["gossip_mix"] + tl["gossip_mix"] + mtr["launches"]
-                     + htr["launches"] + ztr["launches"]),
+                     + htr["launches"] + ztr["launches"] + dtr["launches"] + ddyn["launches"]),
         "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
                              "traced_dynamic_train": tl["gossip_mix"],
                              "moe_train": mtr["launches"], "hymba_train": htr["launches"],
-                             "zoo_train": ztr["launches"]},
+                             "zoo_train": ztr["launches"], "distributed_train": dtr["launches"],
+                             "distributed_dynamic_train": ddyn["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4051,9 +4295,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": design["launches"] + dl["karp"] + tl["karp"],
+        "launches": design["launches"] + dl["karp"] + tl["karp"] + ddyn["karp"],
         "launches_by_path": {"design": design["launches"], "dynamic_train": dl["karp"],
-                             "traced_dynamic_train": tl["karp"]},
+                             "traced_dynamic_train": tl["karp"],
+                             "distributed_dynamic_train": ddyn["karp"]},
         "max_abs_err": climb["max_abs_err"],
         "ms": climb["ms"],
         "plain_ms": climb["plain_ms"],
@@ -4065,9 +4310,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_max.cu",
         "replaces": "src/repro/kernels/segment_max.py:82",
-        "launches": matcha["launches"] + dl["timing"] + tl["timing"],
+        "launches": matcha["launches"] + dl["timing"] + tl["timing"] + ddyn["timing"],
         "launches_by_path": {"matcha_design": matcha["launches"], "dynamic_train": dl["timing"],
-                             "traced_dynamic_train": tl["timing"]},
+                             "traced_dynamic_train": tl["timing"],
+                             "distributed_dynamic_train": ddyn["timing"]},
         "max_abs_err": timing["ebone_design"]["max_abs_err"],
         "ms": timing["ebone_design"]["ms"],
         "plain_ms": timing["ebone_design"]["plain_ms"],

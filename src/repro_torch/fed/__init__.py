@@ -1,4 +1,5 @@
-"""Federated runtime: DPASGD training over gossip plans, on one card.
+"""Federated runtime: DPASGD training over gossip plans, on one card or
+with one silo per process.
 
 * :class:`~repro_torch.fed.gossip.GossipPlan` / :class:`~repro_torch.fed.gossip.PlanSlot`
   — a consensus matrix decomposed into Birkhoff transfers, and its
@@ -21,6 +22,10 @@
 * :func:`~repro_torch.fed.dpasgd.migrate_silo_state`,
   :func:`~repro_torch.fed.dpasgd.slice_silo_row` — re-stacking the state
   over a new active set, and one silo's row as a checkpoint tree;
+* :func:`~repro_torch.fed.gossip.mix_rank`,
+  :func:`~repro_torch.fed.dpasgd.migrate_rank_state` — one silo per
+  process (:mod:`repro_torch.launch.mesh`): a rank's row mixed over
+  ``torch.distributed``, and the migration across ranks;
 * :func:`~repro_torch.fed.topology_runtime.plan_from_overlay` (a designed
   overlay) and :func:`~repro_torch.fed.topology_runtime.plan_for_n_silos`.
 """
@@ -31,6 +36,7 @@ from .dpasgd import (
     local_sgd_steps,
     make_train_step,
     masked_consensus,
+    migrate_rank_state,
     migrate_silo_state,
     slice_silo_row,
 )
@@ -43,6 +49,7 @@ from .gossip import (
     gossip_einsum,
     gossip_fused,
     gossip_permute,
+    mix_rank,
 )
 from .topology_runtime import plan_for_n_silos, plan_from_overlay
 
@@ -52,6 +59,7 @@ __all__ = [
     "local_sgd_steps",
     "make_train_step",
     "masked_consensus",
+    "migrate_rank_state",
     "migrate_silo_state",
     "slice_silo_row",
     "GossipPlan",
@@ -62,6 +70,7 @@ __all__ = [
     "gossip_einsum",
     "gossip_fused",
     "gossip_permute",
+    "mix_rank",
     "plan_for_n_silos",
     "plan_from_overlay",
 ]

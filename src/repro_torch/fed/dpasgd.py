@@ -22,6 +22,13 @@ Under elastic membership (``--dynamic`` churn) :func:`migrate_silo_state`
 re-stacks the rows from one active silo set to another on the state's
 device, and :func:`slice_silo_row` takes one silo's row out in the tree
 shape a checkpoint holds.
+
+With one silo per process (``mesh=``, a
+:class:`repro_torch.launch.mesh.SiloMesh`) the state is the rank's own
+``[P]`` row and slot: :func:`init_state` draws the silo's row as the
+stacked state would, :func:`make_train_step` trains the row and mixes it
+over the process group (:func:`repro_torch.fed.gossip.mix_rank`), and
+:func:`migrate_rank_state` is :func:`migrate_silo_state` across ranks.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamLayout, init_params_, state_to_tree
 from repro_torch.optim import Optimizer
-from .gossip import GOSSIP_IMPLS, GossipPlan, gossip_einsum, mix
+from .gossip import GOSSIP_IMPLS, GossipPlan, gossip_einsum, gossip_einsum_rank, mix, mix_rank
 
 
 @dataclass(frozen=True)
@@ -201,6 +208,55 @@ def migrate_silo_state(state: Dict[str, Any], old_active: Sequence[int],
     return {k: map_slots(move, v) for k, v in state.items()}, joined, left
 
 
+def migrate_rank_state(state: Optional[Dict[str, Any]], mesh, old_active: Sequence[int],
+                       new_active: Sequence[int], *, size: int, optimizer: Optimizer,
+                       step: int) -> Tuple[Optional[Dict[str, Any]], Tuple[int, ...],
+                                           Tuple[int, ...]]:
+    """:func:`migrate_silo_state` with one silo per rank of ``mesh``.
+
+    Every rank of the world calls it with the same sets (``state`` is None
+    on an idle rank).  A survivor keeps its buffers untouched; a leaver's
+    rank returns None (checkpoint its row first) and goes idle; each
+    survivor sends its params and every optimizer slot, in chunks of
+    ``_CONSENSUS_CHUNK`` columns, to each joiner, which accumulates them in
+    float64 in survivor order and then divides (the bits of
+    :func:`consensus_row`) into fresh ``[size]`` buffers shaped by
+    ``optimizer.init``, at step counter ``step``.  Sets ``mesh.active`` to
+    ``new_active``.  Returns ``(state, joined, left)``."""
+    old_active, new_active = tuple(old_active), tuple(new_active)
+    survivors = [v for v in new_active if v in old_active]
+    if not survivors:
+        raise ValueError(f"no surviving silos between {old_active} and {new_active}: "
+                         "cannot migrate state")
+    joined = tuple(v for v in new_active if v not in old_active)
+    left = tuple(v for v in old_active if v not in new_active)
+    me = mesh.rank
+    if me in joined:
+        params = torch.empty(size, device=mesh.device)
+        state = {"params": params, "opt_state": optimizer.init(params), "step": step}
+    if joined and (me in joined or me in survivors):
+        scratch = None
+        for key, buf in state_buffers(state).items():
+            if not isinstance(buf, torch.Tensor):
+                continue  # the step counter, a stateless optimizer's None
+            for lo in range(0, size, _CONSENSUS_CHUNK):
+                hi = min(lo + _CONSENSUS_CHUNK, size)
+                if me in survivors:
+                    mesh.exchange([(j, buf[lo:hi]) for j in joined], [])
+                    continue
+                if scratch is None:
+                    scratch = torch.empty((len(survivors), min(_CONSENSUS_CHUNK, size)),
+                                          dtype=buf.dtype, device=buf.device)
+                rows = scratch[:, :hi - lo]
+                mesh.exchange([], [(v, rows[k]) for k, v in enumerate(survivors)])
+                acc = rows[0].double()
+                for k in range(1, len(survivors)):
+                    acc += rows[k].double()
+                buf[lo:hi] = acc.div_(len(survivors))
+    mesh.set_active(new_active)
+    return (state if me in new_active else None), joined, left
+
+
 def local_sgd_steps(
     loss_fn: Callable,
     optimizer: Optimizer,
@@ -252,7 +308,8 @@ def local_sgd_steps(
 
 
 def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
-                    plan: Optional[GossipPlan], *, consensus_arg: bool = False) -> Callable:
+                    plan: Optional[GossipPlan], *, consensus_arg: bool = False,
+                    mesh=None) -> Callable:
     """Build the DPASGD train step ``step_fn(state, batch) -> (state,
     {"loss"})``.
 
@@ -269,7 +326,17 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
     (:class:`~repro_torch.fed.gossip.ScheduleSlot`), whose topology
     changes every round.  ``plan`` is ignored then.  ``active_mask``
     (``[n]`` 0/1) renormalizes the matrix over the active silos
-    (:func:`masked_consensus`)."""
+    (:func:`masked_consensus`).
+
+    With ``mesh`` (one silo per process; ``cfg.n_silos`` is the count of
+    active silos, ``mesh.active``) the state is this rank's ``[P]`` row and
+    slot and the batch its ``[s, B, S]`` microbatches: the step trains the
+    row with :func:`local_sgd_steps`, gathers the silos' losses in silo
+    order and takes their ``torch.stack(...).mean()`` as the stacked step
+    does, and mixes the row with :func:`~repro_torch.fed.gossip.mix_rank`
+    (a ``consensus_arg`` matrix's row with
+    :func:`~repro_torch.fed.gossip.gossip_einsum_rank`).  Every active rank
+    calls it each round."""
     if fed.gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(fed.gossip_impl)
     n_silos = cfg.n_silos
@@ -286,6 +353,35 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
         raise ValueError(f"plan spans {plan.n_silos} silos, config has {n_silos}")
     loss_fn = make_loss_fn(cfg)
     layout = ParamLayout(T.model_specs(cfg))
+    if mesh is not None:
+        if n_silos != len(mesh.active) or mesh.position is None:
+            raise ValueError(f"rank {mesh.rank} trains one of the {len(mesh.active)} active "
+                             f"silos {mesh.active}; the config has {n_silos}")
+
+        def rank_step_fn(state, batch, consensus=None, active_mask=None):
+            params, opt_state = state["params"], state["opt_state"]
+            if params.shape != (layout.size,):
+                raise ValueError(f"rank state holds {tuple(params.shape)} params, the "
+                                 f"config needs [{layout.size}]")
+            loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch, state["step"],
+                                   layout=layout, accum_steps=fed.accum_steps)
+            if n_silos > 1:
+                loss = mesh.gather_scalars(loss).to(loss.device).mean()
+                with torch.no_grad():
+                    if consensus_arg and fed.gossip_impl != "none":
+                        if consensus is None:
+                            raise ValueError("consensus_arg=True: pass the round's consensus "
+                                             "matrix")
+                        A = torch.as_tensor(consensus)
+                        if active_mask is not None:
+                            A = masked_consensus(A, active_mask)
+                        params = gossip_einsum_rank(params, A, mesh)
+                    else:
+                        params = mix_rank(params, plan, fed.gossip_impl, mesh, out=params)
+            step = state["step"] + fed.local_steps
+            return {"params": params, "opt_state": opt_state, "step": step}, {"loss": loss}
+
+        return rank_step_fn
 
     def step_fn(state, batch, consensus=None, active_mask=None):
         params, opt_state = state["params"], state["opt_state"]
@@ -325,18 +421,27 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
 
 
 def init_state(cfg: ModelConfig, optimizer: Optimizer, *, seed: int = 0,
-               device: DeviceLike = "cuda") -> Dict[str, Any]:
+               device: DeviceLike = "cuda", mesh=None) -> Dict[str, Any]:
     """Training state for :func:`make_train_step`: with ``cfg.n_silos > 1``
     the float32 params and each optimizer slot are ``[n_silos, P]`` buffers
     (``optimizer.init`` of the stacked params), one
     independently drawn model per silo (successive draws of one
-    ``torch.Generator`` seeded with ``seed``)."""
+    ``torch.Generator`` seeded with ``seed``).
+
+    With ``mesh`` the state is the rank's silo's ``[P]`` row, equal to that
+    row of the stacked state: rows 0 .. silo are drawn in order into one
+    scratch row and the last is kept."""
     dev = resolve_device(device)
     specs = T.model_specs(cfg)
     layout = ParamLayout(specs)
     n = cfg.n_silos
-    params = torch.empty((n, layout.size) if n > 1 else (layout.size,), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is not None:
+        params = torch.empty(layout.size, device=dev)
+        for _ in range(mesh.rank + 1):
+            init_params_(params, layout, specs, gen)
+        return {"params": params, "opt_state": optimizer.init(params), "step": 0}
+    params = torch.empty((n, layout.size) if n > 1 else (layout.size,), device=dev)
     for row in (params if n > 1 else params[None]):
         init_params_(row, layout, specs, gen)
     return {"params": params, "opt_state": optimizer.init(params), "step": 0}

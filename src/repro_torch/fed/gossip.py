@@ -29,8 +29,21 @@ Elastic membership (silo churn under ``--dynamic``): a
 training loop re-stacks the ``[n, P]`` state over the new set
 (:func:`repro_torch.fed.dpasgd.migrate_silo_state`) and rebuilds its step.
 
-The one-process-per-silo lowering (``torch.distributed`` point-to-point,
-one silo per card) needs a multi-card machine and is a later slice.
+One silo per process (:mod:`repro_torch.launch.mesh`): each rank holds
+one silo's ``[P]`` row, and the same four lowerings run over
+``torch.distributed`` (:func:`mix_rank`), the counterparts of the
+reference's ``gossip_shard_map`` and ``_pallas_mix_tree``:
+
+* ``ppermute`` — the rank receives its in-neighbours' rows with one
+  ``batch_isend_irecv`` (one transfer per distinct source, however many
+  terms name it) and sums ``coeff * row`` over the plan's terms in
+  float32, in term order: row r of :func:`gossip_permute`, bit for bit;
+* ``pallas``   — the received rows fill a ``[K, P]`` stack and ONE
+  ``gossip_mix`` launch combines them: row r of :func:`gossip_fused`, bit
+  for bit (the kernel is elementwise);
+* ``einsum``   — an all-gather of the rows, then row r of A times them
+  (XLA's lowering of the reference's sharded einsum);
+* ``none``     — no mixing.
 """
 
 from __future__ import annotations
@@ -167,6 +180,11 @@ class ScheduleSlot(PlanSlot):
     @property
     def schedule(self):
         return self._schedule
+
+    @property
+    def silos(self) -> Optional[Tuple]:
+        """The label -> position order (None: labels are positions)."""
+        return self._silos
 
     def swap_schedule(self, schedule, label: str = "",
                       silos: Optional[Sequence] = None) -> int:
@@ -366,6 +384,102 @@ def mix(w: torch.Tensor, plan: Optional[GossipPlan], impl: str, *,
     if impl == "pallas":
         return gossip_fused(w, plan, out=out)
     raise KeyError(impl)
+
+
+def in_neighbours(plan: GossipPlan, pos: int) -> Tuple[int, ...]:
+    """The distinct positions whose rows position ``pos`` receives (itself
+    left out): one transfer each under ``ppermute`` and ``pallas``."""
+    return tuple(sorted({perm[pos] for _, perm in plan.terms} - {pos}))
+
+
+def out_neighbours(plan: GossipPlan, pos: int) -> Tuple[int, ...]:
+    """The distinct positions that receive position ``pos``'s row."""
+    return tuple(sorted({d for _, perm in plan.terms for d, s in enumerate(perm)
+                         if s == pos and d != pos}))
+
+
+def _transfer_rows(row: torch.Tensor, plan: GossipPlan, mesh, into) -> dict:
+    """Send this rank's flat row to its out-neighbours and receive each
+    in-neighbour's row once, into ``into(source position)``; returns
+    ``{source position: received row}``."""
+    pos = mesh.position
+    recv = {s: into(s) for s in in_neighbours(plan, pos)}
+    mesh.exchange([(mesh.active[d], row) for d in out_neighbours(plan, pos)],
+                  [(mesh.active[s], t) for s, t in recv.items()])
+    return recv
+
+
+def gossip_permute_rank(row: torch.Tensor, plan: GossipPlan, mesh) -> torch.Tensor:
+    """This rank's row of :func:`gossip_permute`: the in-neighbours' rows
+    received over ``mesh``, ``coeff * row`` summed in float32 in term
+    order and cast back."""
+    flat = row.reshape(-1)
+    pos = mesh.position
+    recv = _transfer_rows(flat, plan, mesh, lambda s: torch.empty_like(flat))
+    acc = None
+    for coeff, perm in plan.terms:
+        src = flat if perm[pos] == pos else recv[perm[pos]]
+        contrib = coeff * src.to(torch.float32)
+        acc = contrib if acc is None else acc + contrib
+    return acc.to(row.dtype).view(row.shape)
+
+
+def gossip_fused_rank(row: torch.Tensor, plan: GossipPlan, mesh, *,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This rank's row of :func:`gossip_fused`: a ``[K, P]`` stack whose row
+    k is term k's source (received over ``mesh`` straight into the first
+    row that names it), combined by ONE ``gossip_mix`` call.  ``out`` may
+    be ``row`` itself: the transfers finish before the mix."""
+    flat = row.reshape(-1)
+    pos = mesh.position
+    srcs = [perm[pos] for _, perm in plan.terms]
+    stack = torch.empty((len(srcs), flat.numel()), dtype=row.dtype, device=row.device)
+    first = {s: k for k, s in reversed(list(enumerate(srcs)))}
+    recv = _transfer_rows(flat, plan, mesh, lambda s: stack[first[s]])
+    for k, s in enumerate(srcs):
+        if s == pos:
+            stack[k].copy_(flat)
+        elif first[s] != k:
+            stack[k].copy_(recv[s])
+    weights = torch.tensor([c for c, _ in plan.terms], dtype=torch.float32)
+    dst = None if out is None else out.view(-1)
+    return kops.gossip_mix(stack, weights, out=dst).view(row.shape)
+
+
+def gossip_einsum_rank(row: torch.Tensor, A, mesh) -> torch.Tensor:
+    """This rank's row of :func:`gossip_einsum`: the active rows gathered
+    over ``mesh``, then row r of A times them."""
+    a = torch.as_tensor(np.asarray(A))[mesh.position].to(dtype=row.dtype, device=row.device)
+    rows = mesh.all_gather_rows(row)
+    return torch.einsum("j,jp->p", a, rows).view(row.shape)
+
+
+def mix_rank(row: torch.Tensor, plan: Optional[GossipPlan], impl: str, mesh, *,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One gossip round of this rank's row over ``mesh`` with lowering
+    ``impl`` (see module doc); ``out`` is used by ``pallas`` only.  Entered
+    by every active rank."""
+    if impl == "none":
+        return row
+    if plan.n_silos != len(mesh.active):
+        raise ValueError(f"plan spans {plan.n_silos} silos, {len(mesh.active)} are active")
+    if impl == "einsum":
+        return gossip_einsum_rank(row, plan.matrix, mesh)
+    if impl == "ppermute":
+        return gossip_permute_rank(row, plan, mesh)
+    if impl == "pallas":
+        return gossip_fused_rank(row, plan, mesh, out=out)
+    raise KeyError(impl)
+
+
+def recv_bytes_per_round(plan: Optional[GossipPlan], impl: str, pos: int,
+                         param_bytes: int) -> int:
+    """Bytes position ``pos`` receives in one round of :func:`mix_rank`."""
+    if impl == "none" or plan is None:
+        return 0
+    if impl == "einsum":
+        return (plan.n_silos - 1) * param_bytes
+    return len(in_neighbours(plan, pos)) * param_bytes
 
 
 def collective_bytes_per_round(plan: GossipPlan, param_bytes: int) -> int:

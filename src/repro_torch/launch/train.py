@@ -1,4 +1,5 @@
-"""Training launcher: DPASGD over a designed topology, on one card.
+"""Training launcher: DPASGD over a designed topology, on one card or
+with one silo per process.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --silos 4 --topology ring --gossip-impl pallas --steps 30
@@ -55,6 +56,19 @@ diffs it:
         --dynamic --scenario linkfail --trace-out t.jsonl --metrics-interval 5
     python scripts/obs_report.py --check t.jsonl
 
+One silo per process: under ``torchrun`` (``WORLD_SIZE`` set; ``--silos``,
+or the underlay's silo count under ``--dynamic``, equal to the world
+size) each rank trains its silo's row on ``cuda:LOCAL_RANK`` and gossips
+over ``torch.distributed`` (:mod:`repro_torch.launch.mesh`;
+``--dist-backend`` ``nccl``, the default on CUDA, or ``gloo``, the default
+on the CPU, which stages a card's buffers through pinned host memory).
+Rank 0 prints the run's lines, keeps the simulated timeline, the
+controller and the trace, and broadcasts the round's active mask, each
+plan or schedule swap and each membership move:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch internlm2-1.8b \\
+        --silos 4 --topology ring --gossip-impl pallas --steps 30
+
 The step is eager, so a plan swap costs one :func:`make_train_step` call
 and nothing is re-traced.  The trace's ``recompiles`` (and the
 ``train.recompiles`` gauge) count the train-step builds instead: the
@@ -67,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -81,7 +96,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.core import MatchaSchedule, greedy_edge_coloring
 from repro_torch.fed import (DPASGDConfig, ScheduleSlot, init_state, make_train_step,
                              plan_for_n_silos)
-from repro_torch.fed.gossip import GOSSIP_IMPLS, GossipPlan
+from repro_torch.fed.gossip import GOSSIP_IMPLS, GossipPlan, recv_bytes_per_round
 from repro_torch.models import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import spans as obs_spans
@@ -113,6 +128,12 @@ class TrainResult:
     membership_slot: Any = None
     active: tuple = ()
     rounds: List[Dict[str, Any]] = field(default_factory=list)
+    # one silo per process: this rank (its state is its own [P] row and
+    # slot, {} while idle); each round's record adds "active", the rows its
+    # plan sends it ("rows_in"), the bytes it received ("recv_bytes") and
+    # staged through host memory ("staged_bytes"), the seconds of those
+    # copies ("staging_s") and the round's wall ("wall_s")
+    rank: Optional[int] = None
 
 
 def batch_to_device(raw: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -146,6 +167,25 @@ def _verify_migration(old_state, new_state, old_active, new_active, joined):
             avg = consensus_row(o, srows)
             ok_join &= all(torch.equal(avg, w[ni[v]]) for v in joined)
     return ok_surv, ok_join
+
+
+def _process_mesh(mesh, device: DeviceLike, backend: Optional[str], log):
+    """The :class:`~repro_torch.launch.mesh.SiloMesh` to train over: the
+    given one, the initialised default group's when it spans more than one
+    rank, a new one under ``torchrun`` (``WORLD_SIZE`` > 1), else None."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_silo_mesh, silo_mesh
+
+    if mesh is not None:
+        if backend is not None and backend != mesh.backend:
+            raise ValueError(f"backend {backend!r} asked, the mesh runs {mesh.backend!r}")
+        return mesh
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return silo_mesh(device, backend, log=log)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return init_silo_mesh(backend=backend, device=device, log=log)
+    return None
 
 
 def _scenario(kind: str, underlay, Tc: float, tau0: float, steps: int, overlay_edges,
@@ -183,6 +223,7 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
           checkpoint: str = "", churn_checkpoint: str = "", verify_migration: bool = False,
           on_migration: Optional[Callable[[Dict[str, Any]], None]] = None,
           trace_out: Optional[str] = "", metrics_interval: int = 10,
+          backend: Optional[str] = None, mesh=None,
           log: Callable[[str], None] = print) -> TrainResult:
     """Train ``cfg`` with DPASGD for ``steps`` rounds and print the
     reference's ``step k loss ...`` lines.  Each round's time is taken
@@ -233,8 +274,38 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     :func:`make_train_step` and one per rebuild on a plan or membership
     swap) and ``wall_s``.  Tracing reads host values only and changes no
     result: the losses, re-designs, launches and state are those of the
-    untraced run."""
+    untraced run.
+
+    One silo per process: with ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.SiloMesh`), an initialised default
+    process group of more than one rank, or ``WORLD_SIZE`` > 1 in the
+    environment (``torchrun``; the group is then initialised with
+    ``backend``, ``nccl`` on CUDA and ``gloo`` on the CPU when None), each
+    rank trains silo ``rank``'s row (``silos`` must equal the world size)
+    with the process-group forms of :func:`init_state` and
+    :func:`make_train_step`.  Rank 0 prints the run's lines and owns the
+    simulated timeline, the controller (its K1 launches), the trace and the
+    checkpoint, which it writes from the rows it gathers, the same file as
+    a single process writes; it broadcasts on the control group each
+    round's active mask (``designer="matcha"``), each plan or schedule swap
+    and each membership move.  An idle rank (its silo left) skips the
+    round's local steps and mix; a leaver's rank writes its own
+    ``churn_checkpoint``; joiners receive their float64 consensus rows
+    from the survivors (:func:`~repro_torch.fed.dpasgd.migrate_rank_state`).
+    ``on_migration`` is called on every rank with the migration's record
+    (no states); ``verify_migration`` needs the stacked state and
+    raises."""
     dev = resolve_device(device)
+    mesh = _process_mesh(mesh, device, backend, log)
+    rank_log = log  # this rank's own lines: staging, a leaver's checkpoint
+    if mesh is not None:
+        dev = mesh.device
+        if mesh.rank != 0:
+            log = _quiet
+        if verify_migration:
+            raise ValueError("verify_migration checks the stacked [n, P] state; with one "
+                             "silo per process no rank holds it")
+    rank0 = mesh is None or mesh.rank == 0
     if cfg.vision_prefix_len:
         raise ValueError(f"{cfg.arch_id} needs vision_embeds for its {cfg.vision_prefix_len}-"
                          "patch prefix, which the token stream does not supply; train a "
@@ -262,9 +333,12 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         sites = {"gaia": GAIA_SITES, "aws_na": AWS_NA_SITES}.get(net.name)
         if sites is not None:
             silo_names = [name for name, _ in sites]
+    if mesh is not None and silos != mesh.world_size:
+        raise ValueError(f"{silos} silos over {mesh.world_size} ranks: one silo per rank "
+                         f"needs --silos (or the underlay's silo count) == the world size")
     recorder = None
     spans_were_on = obs_spans.enabled()
-    if trace_out:
+    if trace_out and rank0:
         obs_spans.reset()
         obs_metrics.reset()
         obs_spans.enable()
@@ -293,7 +367,12 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     fed = DPASGDConfig(local_steps=local_steps,
                        gossip_impl=("einsum" if sched_mode else gossip_impl) if n > 1 else "none")
     plan = slot = sched_slot = mem_slot = timeline = controller = None
-    if dynamic:
+    if dynamic and not rank0:
+        # rank 0 designs the plan or schedule; the others mirror its slots
+        plan, schedule = mesh.broadcast(None)
+        if schedule is not None:
+            sched_slot = ScheduleSlot(schedule[0], n, silos=schedule[1])
+    elif dynamic:
         from repro_torch.core import (DEFAULT_MATCHA_BUDGETS, OVERLAY_KINDS, WORKLOADS,
                                       TrainingParams, design_overlay, design_schedule)
         from repro_torch.dynamics import (ControllerConfig, DynamicTimeline,
@@ -347,6 +426,9 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             connectivity_provider=provider, membership_slot=mem_slot,
             membership_provider=timeline.current_active, recorder=recorder,
             silo_names=silo_names, device=dev, **slot_kw)
+        if mesh is not None:
+            mesh.broadcast((plan, None if sched_slot is None
+                            else (sched_slot.schedule, sched_slot.silos)))
     else:
         if designer in MEASURED_DESIGNERS:
             log(f"[train] designer-ignored --designer {designer} needs --dynamic "
@@ -367,9 +449,9 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             if kind != topology:
                 log(f"topology {topology} needs network measurements; using {kind}")
             plan = plan_for_n_silos(kind, n) if n > 1 else None
-    step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode)
+    step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode, mesh=mesh)
     builds = 1  # train-step builds: the eager counterpart of re-traces
-    state = init_state(cfg, opt, seed=seed, device=dev)
+    state = init_state(cfg, opt, seed=seed, device=dev, mesh=mesh)
     # The data stream spans the full silo universe: under elastic
     # membership each silo label keeps its own (non-iid) distribution
     # across leaves/rejoins; the batcher stacks only the active labels.
@@ -379,24 +461,25 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     # dict would keep a buffer alive that a mix replaces
     result = TrainResult(cfg=cfg, fed=fed, optimizer=opt, plan=plan, batcher=batcher,
                          state={}, schedule_slot=sched_slot, controller=controller,
-                         membership_slot=mem_slot)
+                         membership_slot=mem_slot, rank=None if mesh is None else mesh.rank)
     built_version = slot.version if slot is not None else 0
     built_mem_version = mem_slot.version if mem_slot is not None else 0
+    sent_sched_version = sched_slot.version if sched_slot is not None else 0
     active = tuple(range(n))
+    step_count = 0  # the shared optimizer step counter, kept on idle ranks too
     t0 = time.time()
     for i in range(steps):
-        if dynamic and dev.type == "cuda":
+        if (dynamic or mesh is not None) and dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)  # each round's own peak
         t_step = time.perf_counter()
-        if dynamic:
+        if mesh is not None:
+            counts = (mesh.recv_bytes, mesh.staged_bytes, mesh.staging_s)
+        if dynamic and rank0:
             # one round == one communication round of simulated WAN,
             # simulated *first*, so the consensus mask below (and the
             # controller after the step) see the epoch the round spans
             duration = timeline.step()
-        raw = batcher.batch(i, silos=active if dynamic else None)
-        if recorder is not None:
-            obs_metrics.counter("train.h2d_bytes").inc(sum(v.nbytes for v in raw.values()))
-        batch = batch_to_device(raw, dev)
+        training = mesh is None or mesh.position is not None
         step_args = ()
         if sched_mode:
             round_plan = sched_slot.plan_for_round(i)  # this round's sampled topology
@@ -406,28 +489,53 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
                 # renormalize over the silos still active at the end of
                 # this round: a leaver's stale params must not be mixed in
                 # during the one-round lag before the membership rebuild
-                ep_active = set(timeline.current_active())
-                flags = [1.0 if v in ep_active else 0.0 for v in active]
-                n_act = int(sum(flags))
-                if n_act < len(active):
-                    log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
-                        f"(mid-round churn)")
+                flags = None
+                if rank0:
+                    ep_active = set(timeline.current_active())
+                    flags = [1.0 if v in ep_active else 0.0 for v in active]
+                    n_act = int(sum(flags))
+                    if n_act < len(active):
+                        log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
+                            f"(mid-round churn)")
+                if mesh is not None:
+                    flags = mesh.broadcast(flags)
                 step_args = (A, torch.tensor(flags))
             else:
                 step_args = (A,)
         else:
             round_plan = plan
-        # the span ends when the step returns (on the card: when its
-        # kernels are queued); the loss read below waits for them
-        with obs_spans.span("train.step"):
-            state, metrics = step_fn(state, batch, *step_args)
-        del batch
-        loss = float(metrics["loss"])
+        loss = None
+        if training:
+            silos_now = active if mesh is None and dynamic else None
+            if mesh is not None:
+                silos_now = (mesh.rank,)
+            raw = batcher.batch(i, silos=silos_now)
+            if mesh is not None:
+                raw = {k: v[0] for k, v in raw.items()}  # this rank's [s, B, S]
+            if recorder is not None:
+                obs_metrics.counter("train.h2d_bytes").inc(sum(v.nbytes for v in raw.values()))
+            batch = batch_to_device(raw, dev)
+            # the span ends when the step returns (on the card: when its
+            # kernels are queued); the loss read below waits for them
+            with obs_spans.span("train.step"):
+                state, metrics = step_fn(state, batch, *step_args)
+            del batch
+            loss = float(metrics["loss"])
+        step_count += local_steps
         result.step_seconds.append(time.perf_counter() - t_step)
-        result.losses.append(loss)
-        if dynamic:
+        rec = None
+        if dynamic or mesh is not None:
             rec = {"K": len(round_plan.terms) if round_plan is not None else 0,
                    "n": len(active)}
+        if mesh is not None:
+            rows_in = 0 if not training else recv_bytes_per_round(
+                round_plan, fed.gossip_impl, mesh.position, 1)
+            rec.update(active=training, wall_s=result.step_seconds[-1], rows_in=rows_in,
+                       recv_bytes=mesh.recv_bytes - counts[0],
+                       staged_bytes=mesh.staged_bytes - counts[1],
+                       staging_s=mesh.staging_s - counts[2])
+        control = None
+        if dynamic and rank0:
             redesign = controller.observe_round(duration)
             if redesign is not None:
                 timeline.set_schedule(redesign.schedule)
@@ -439,33 +547,64 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
                     f"-> {rand} {name} tau {redesign.measured_ms:.1f} -> "
                     f"{redesign.predicted_tau_ms:.1f} ms ({redesign.n_candidates} candidates "
                     f"in {redesign.elapsed_s*1e3:.0f} ms), bottleneck {redesign.bottleneck}")
-            if mem_slot.version != built_mem_version:
-                # rebinding ``state`` drops the old buffers before the
-                # step is rebuilt over the new silo count
-                state = _migrate_membership(
-                    state, cfg, dev, active, mem_slot.active, mem_slot.version, i,
-                    churn_checkpoint, verify_migration, on_migration, log)
-                active = mem_slot.active
+            control = {
+                "active": (mem_slot.active, mem_slot.version)
+                if mem_slot.version != built_mem_version else None,
+                "plan": slot.plan if slot is not None and slot.version != built_version
+                else None,
+                "schedule": (sched_slot.schedule, sched_slot.silos, sched_slot.history[-1][1])
+                if sched_slot is not None and sched_slot.version != sent_sched_version
+                else None}
+            built_mem_version = mem_slot.version
+            built_version = slot.version if slot is not None else 0
+            sent_sched_version = sched_slot.version if sched_slot is not None else 0
+        if dynamic and mesh is not None:
+            # every rank: the round's loss (from an active silo) and rank 0's
+            # swaps, in one exchange on the control group
+            reports = mesh.all_gather_objects({"loss": loss, "control": control})
+            loss = next(r["loss"] for r in reports if r["loss"] is not None)
+            control = reports[0]["control"]
+            if control["schedule"] is not None and not rank0:
+                schedule, silos_order, label = control["schedule"]
+                sched_slot.swap_schedule(schedule, label=label, silos=silos_order)
+        result.losses.append(loss)
+        if dynamic:
+            rebuild = False
+            if control["active"] is not None:
+                new_active, version = control["active"]
+                if mesh is None:
+                    # rebinding ``state`` drops the old buffers before the
+                    # step is rebuilt over the new silo count
+                    state = _migrate_membership(
+                        state, cfg, dev, active, new_active, version, i,
+                        churn_checkpoint, verify_migration, on_migration, log)
+                else:
+                    state = _migrate_ranks(
+                        state, cfg, opt, mesh, active, new_active, version, i, step_count,
+                        churn_checkpoint, on_migration, log, rank_log)
+                active = new_active
                 n = len(active)
                 cfg = dataclasses.replace(cfg, n_silos=n)
-                step_fn = make_train_step(cfg, fed, opt,
-                                          slot.plan if slot is not None else None,
-                                          consensus_arg=sched_mode)
-                builds += 1
-                built_version = slot.version if slot is not None else 0
-                built_mem_version = mem_slot.version
-            if slot is not None and slot.version != built_version:
+                rebuild = True
+            if control["plan"] is not None:
                 # hot-swap: rebuild the train step on the new plan
-                step_fn = make_train_step(cfg, fed, opt, slot.plan)
+                plan = control["plan"]
+                rebuild = True
+            if rebuild:
+                step_fn = None
+                if mesh is None or mesh.position is not None:
+                    step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode,
+                                              mesh=mesh)
                 builds += 1
-                built_version = slot.version
             # sched_slot swaps need no rebuild: the consensus matrix is a
             # step input and matrix_for_round follows the new schedule
-            peak = ""
-            if dev.type == "cuda":
-                rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-                peak = f" peak {rec['peak_bytes'] / 2**30:.2f} GiB"
+        peak = ""
+        if rec is not None and dev.type == "cuda":
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            peak = f" peak {rec['peak_bytes'] / 2**30:.2f} GiB"
+        if rec is not None:
             result.rounds.append(rec)
+        if dynamic:
             log(f"round {i} wall {result.step_seconds[-1]:.4f} s K {rec['K']} n {rec['n']}"
                 + peak)
         if recorder is not None and metrics_interval and i % metrics_interval == 0:
@@ -484,7 +623,7 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             obs_metrics.gauge("train.recompiles").set(builds)
         if i % max(1, steps // 10) == 0 or i == steps - 1:
             log(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)")
-    if dynamic:
+    if dynamic and rank0:
         final = controller.schedule
         desc = (f"randomized schedule {final.name} (C_b={getattr(final, 'budget', 0):g})"
                 if final.is_randomized else f"overlay {controller.overlay.name}")
@@ -492,15 +631,27 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
             f"simulated, {len(controller.redesigns)} re-design(s), {mem_slot.version} "
             f"membership swap(s) ({len(active)}/{net.num_silos} silos active), final {desc} "
             f"(tau {controller.predicted_tau_ms:.1f} ms)")
-        result.plan = slot.plan if slot is not None else None
+    if dynamic:
+        result.plan = slot.plan if slot is not None else plan
+    if mesh is not None and mesh.staged:
+        rank_log(f"[mesh] rank {mesh.rank} staged {mesh.staged_bytes} bytes through pinned "
+                 f"host memory in {mesh.staging_s:.3f} s")
     if checkpoint:
         from repro_torch.checkpoint import save_checkpoint
         from repro_torch.models import ParamLayout, model_specs, state_to_tree
 
         t_ck = time.perf_counter()
-        tree = state_to_tree(state, ParamLayout(model_specs(cfg)))
-        save_checkpoint(checkpoint, tree["params"], step=steps)
-        del tree
+        layout = ParamLayout(model_specs(cfg))
+        ckpt_state = state
+        if mesh is not None:
+            # rank 0 gathers the rows in silo order: the single-process state
+            rows = mesh.gather_rows(state["params"] if state else None, layout.size)
+            ckpt_state = None if rows is None else {
+                "params": rows if n > 1 else rows[0], "opt_state": None, "step": step_count}
+        if ckpt_state is not None:
+            tree = state_to_tree(ckpt_state, layout)
+            save_checkpoint(checkpoint, tree["params"], step=steps)
+            del tree
         log(f"checkpoint -> {checkpoint} ({time.perf_counter() - t_ck:.1f} s)")
     if recorder is not None:
         obs_metrics.gauge("train.recompiles").set(builds)
@@ -508,7 +659,7 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
         log(f"[train] trace-written path={trace_out} spans={len(obs_spans.summary())}")
         if not spans_were_on:
             obs_spans.disable()
-    result.cfg, result.state, result.active = cfg, state, active
+    result.cfg, result.state, result.active = cfg, state or {}, active
     return result
 
 
@@ -548,6 +699,44 @@ def _migrate_membership(state, cfg, dev, active, new_active, version, i,
         on_migration(dict(record, old_state=state, new_state=new_state))
     log(msg + f" (migration {wall:.4f} s)")
     return new_state
+
+
+def _migrate_ranks(state, cfg, opt, mesh, active, new_active, version, i, step,
+                   churn_checkpoint, on_migration, log, rank_log):
+    """Elastic membership with one silo per rank: a leaver's rank
+    checkpoints its own row and goes idle, the joiners receive their
+    float64 consensus rows from the survivors
+    (:func:`~repro_torch.fed.dpasgd.migrate_rank_state`), and rank 0 prints
+    the ``membership`` line.  Returns this rank's state (None when idle)."""
+    from repro_torch.fed.dpasgd import migrate_rank_state
+    from repro_torch.models import ParamLayout, model_specs
+
+    layout = ParamLayout(model_specs(cfg))
+    paths = []
+    if churn_checkpoint and mesh.rank in active and mesh.rank not in new_active:
+        from repro_torch.checkpoint import save_silo_checkpoint
+        from repro_torch.fed import slice_silo_row
+
+        row = slice_silo_row(state, (mesh.rank,), mesh.rank, layout)
+        paths.append(save_silo_checkpoint(churn_checkpoint, mesh.rank, row, step=i))
+        rank_log(f"step {i:4d} leaver silo {mesh.rank} checkpoint -> {paths[-1]}")
+    _sync(mesh.device)
+    t_mig = time.perf_counter()
+    state, joined, left = migrate_rank_state(state, mesh, active, new_active, size=layout.size,
+                                             optimizer=opt, step=step)
+    _sync(mesh.device)
+    wall = time.perf_counter() - t_mig
+    if on_migration is not None:
+        on_migration({"old_active": active, "new_active": new_active, "joined": joined,
+                      "left": left, "wall_s": wall, "checkpoints": paths})
+    log(f"step {i:4d} membership v{version}: {len(active)} -> {len(new_active)} silos "
+        f"(left {list(left)}, joined {list(joined)}); mesh+state rebuilt (migration "
+        f"{wall:.4f} s)")
+    return state
+
+
+def _quiet(line: str) -> None:
+    """The log of a rank other than 0: the run's lines are rank 0's."""
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -602,6 +791,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "per-round records; decision records are always "
                          "written when --trace-out is set)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun (one silo per rank): nccl (the default on CUDA, one "
+                         "card per rank) or gloo (the default on the CPU; with ranks on a "
+                         "card, every transfer is staged through pinned host memory)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -615,7 +808,7 @@ def main(argv: Optional[List[str]] = None) -> int:
           scenario=args.scenario, p_churn=args.p_churn, objective=args.objective,
           checkpoint=args.checkpoint, churn_checkpoint=args.churn_checkpoint,
           verify_migration=args.verify_migration, trace_out=args.trace_out,
-          metrics_interval=args.metrics_interval,
+          metrics_interval=args.metrics_interval, backend=args.dist_backend,
           log=lambda line: print(line, flush=True))
     return 0
 

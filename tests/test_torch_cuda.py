@@ -1059,3 +1059,79 @@ def test_trace_payloads_refuse_cuda_tensors(cuda, tmp_path):
     records, problems = events.validate_trace(str(path))
     assert problems == [] and records[1]["active"] == [0, 1, 2]
     assert events.run_metadata()["device_kind"] == torch.cuda.get_device_name()
+
+
+# ---------------------------------------------------------------------------
+# One silo per process on the card (repro_torch.launch.mesh)
+
+def _mix_rank_on_card(rank, world, init, backend, device, rows):
+    """A rank of the two-rank checks: its row of a 2-silo ring's ``pallas``
+    mix over ``backend`` on ``device``, with its K2 launches and the bytes
+    it staged."""
+    from repro_torch.fed import plan_for_n_silos
+    from repro_torch.fed.gossip import mix_rank
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.mesh import init_silo_mesh
+
+    mesh = init_silo_mesh(rank, world, init, backend=backend, device=device,
+                          log=lambda line: None)
+    reset_launch_counts()
+    row = rows[rank].to(mesh.device)
+    got = mix_rank(row, plan_for_n_silos("ring", world), "pallas", mesh, out=row)
+    torch.cuda.synchronize(mesh.device)
+    return {"row": got.cpu(), "launches": LAUNCHES["gossip_mix"], "staged": mesh.staged_bytes,
+            "recv": mesh.recv_bytes}
+
+
+def _two_rows(n):
+    gen = torch.Generator().manual_seed(n)
+    return torch.randn((2, n), generator=gen)
+
+
+def _stacked_mix(cuda, rows):
+    from repro_torch.fed import plan_for_n_silos
+    from repro_torch.fed.gossip import gossip_fused
+
+    return gossip_fused(rows.to(cuda), plan_for_n_silos("ring", 2)).cpu()
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_over_staged_gloo_mix_bit_identical(cuda):
+    """Two ranks share cuda:0 over gloo: each transfer is staged through
+    pinned host memory in chunks (here three), and each rank's K2 output is
+    row r of the stacked ``gossip_fused``, bit for bit."""
+    from repro_torch.launch.mesh import CHUNK_BYTES, spawn
+
+    n = 2 * (CHUNK_BYTES // 4) + 12345
+    rows = _two_rows(n)
+    ranks = spawn(_mix_rank_on_card, 2, "gloo", "cuda:0", rows)
+    expect = _stacked_mix(cuda, rows)
+    for rank, r in enumerate(ranks):
+        assert torch.equal(r["row"], expect[rank])
+        assert r["launches"] == 1 and r["recv"] == n * 4
+        assert r["staged"] == 2 * n * 4  # its row out, its neighbour's in
+
+
+@pytest.mark.gpu
+def test_nccl_with_two_ranks_on_one_device_raises(cuda):
+    from repro_torch.launch.mesh import spawn
+
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException,
+                       match="nccl needs one device per rank"):
+        spawn(_mix_rank_on_card, 2, "nccl", "cuda:0", _two_rows(1024))
+
+
+@pytest.mark.gpu
+def test_nccl_on_two_cards_mix_bit_identical(cuda):
+    """One rank per card over NCCL: the device rows go as they are (nothing
+    staged), each rank's K2 output bit-identical to the stacked mix."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.launch.mesh import spawn
+
+    rows = _two_rows((1 << 24) + 7)
+    ranks = spawn(_mix_rank_on_card, 2, "nccl", "cuda", rows)
+    expect = _stacked_mix(cuda, rows)
+    for rank, r in enumerate(ranks):
+        assert torch.equal(r["row"], expect[rank])
+        assert r["launches"] == 1 and r["staged"] == 0

@@ -23,6 +23,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.fed import init_state  # noqa: E402
+from repro_torch.launch.mesh import init_silo_mesh  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import from_jax_params, init_params, model_specs  # noqa: E402
@@ -130,6 +131,21 @@ def test_obs_loads_neither_jax_nor_reference_nor_torch():
         assert REPO / "src" / "repro_torch" / "obs" / f"{name}.py" in PORT_FILES
 
 
+def test_mesh_loads_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.launch.mesh\n"
+        "from repro_torch.fed.gossip import mix_rank\n"
+        "from repro_torch.fed.dpasgd import migrate_rank_state\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert REPO / "src" / "repro_torch" / "launch" / "mesh.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_or_jax_imports(path):
     bad = []
@@ -177,9 +193,10 @@ def _controller():
     lambda: train(_cfg(), dynamic=True, steps=1),
     lambda: serve(get_config("qwen3-moe-30b-a3b").reduced(), batch=1, gen=2),
     lambda: serve(get_config("whisper-large-v3").reduced(), batch=1, gen=2),
+    lambda: init_silo_mesh(0, 1, "file:///nonexistent/store"),
 ], ids=["resolve_device", "init_state", "init_params", "from_jax_params", "train",
         "design_overlay", "serve", "design_schedule", "OnlineTopologyController",
-        "train_dynamic", "serve_moe", "serve_whisper"])
+        "train_dynamic", "serve_moe", "serve_whisper", "init_silo_mesh"])
 def test_entry_points_refuse_cpu_fallback(no_gpu, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
