@@ -257,7 +257,33 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 31. the same for phase 18's configuration (h2o-danube-1.8b, 1 of 24 layers,
    Gaia churn, 25 rounds; phase 18's rows) as 11 ranks: silo 5's rank idle
    between its leave and its rejoin (no launch, no byte), the migrations
-   11 -> 10 -> 11, the controller's K1 launches on rank 0 only.
+   11 -> 10 -> 11, the controller's K1 launches on rank 0 only;
+32. the launch tooling's dry run (``repro_torch.launch.dryrun.dryrun_one``)
+   on four pairs of the assignment's shapes at full width: h2o-danube-1.8b
+   ``prefill_32k`` at batch 1 through K3 (24 launches a prefill; K3 at the
+   32k shape held against its plain version on the first layer's q, k, v,
+   then timed in turns with its plain version and a windowed
+   ``scaled_dot_product_attention``, chunked by query blocks, beside its
+   bound), internlm2-1.8b ``decode_32k`` (the batch halves from the
+   reference's 128 until the 3.2 GB-a-sequence cache fits), xlstm-350m
+   ``long_500k`` (batch 1 at position 524,287) and internlm2-1.8b
+   ``train_4k`` (one AdamW micro-step, halving from 16), a warm-up and one
+   timed step each, no profile (the sweep profiles): each record ok,
+   finite, its failed batches the halvings before the batch that ran, its
+   step no faster than its roofline bound;
+33. ``repro_torch.launch.perf_gossip`` at 4 ranks on the one card over
+   staged gloo (internlm2-1.8b at full width, 1 of 24 layers, 1 x 1024
+   tokens a silo, AdamW through ``build_train_step(mesh=)``): ring, chain
+   and star under ``ppermute`` and ``pallas``, ring under ``einsum``, one
+   round each from the same state (the CLI takes two: a warm-up and a
+   timed round; one keeps this phase inside the script's time limit);
+   every rank's bytes
+   received equal to ``recv_bytes_per_round``, one K2 launch per rank a
+   round under ``pallas`` and none otherwise, each plan's rows equal
+   across its lowerings bit for bit where the CPU tests show them so (ring,
+   star) and elsewhere (chain) within AdamW's 2 lr rounds, the bound the
+   CPU tests hold AdamW rounds to; the star/ring traffic ratio 3;
+   then K2 timed at the star's per-rank shape (K = 4, N = P).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -358,6 +384,19 @@ STEPS_SERVE = (1, 1024, 8)
 DIST_TRAIN = ("internlm2-1.8b", 4, 4, 3)
 DIST_DYNAMIC = ("h2o-danube-1.8b", 1, 25)
 DIST_CHUNK = 1 << 22
+# the launch tooling on the card: dry-run pairs (arch, shape, starting batch,
+# None for the reference's; prefill through K3), the timed steps of each
+# after its warm-up, and K3's query chunk for the windowed
+# scaled_dot_product_attention at the 32k shape; perf_gossip's one-card run
+# (ranks, layers kept, tokens a silo, rounds an entry: the CLI's two cut to
+# one for the script's time limit)
+DRYRUN_PAIRS = (("h2o-danube-1.8b", "prefill_32k", 1, True),
+                ("internlm2-1.8b", "decode_32k", None, False),
+                ("xlstm-350m", "long_500k", None, False),
+                ("internlm2-1.8b", "train_4k", None, False))
+DRYRUN_REPS = 1
+SDPA_CHUNK = 4096
+PERF_GOSSIP = (4, 1, 1024, 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4040,6 +4079,245 @@ def dist_phase(torch, kind: str, ref_path: str, ref_round_s) -> dict:
             "peak_bytes": max(r["peak_bytes"] for r in ranks), "wall_s": wall}
 
 
+def k3_32k_phase(torch, dev, q, k, v, window: int) -> dict:
+    """K3 on the first attention layer's q, k, v of the 32k prefill,
+    against its plain version (the K3 phases' tolerance), then timed in
+    turns with its plain version and a windowed GQA
+    ``scaled_dot_product_attention`` with a boolean mask, one call a query
+    chunk of ``SDPA_CHUNK`` against the keys its window reaches (the whole
+    32k mask does not fit the math path's scores), beside its bound."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    F = torch.nn.functional
+    B, S, K, G, hd = q.shape
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, atol=TOL["float32"], rtol=TOL["float32"]),
+          f"flash_attention at the 32k prefill shape: max abs err {err}")
+    # Yardstick only, never called by the port.
+    qh = q.reshape(B, S, K * G, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
+    chunks = []
+    for q0 in range(0, S, SDPA_CHUNK):
+        k0 = max(0, q0 - window + 1)
+        qp, kp = pos[q0:q0 + SDPA_CHUNK], pos[k0:q0 + SDPA_CHUNK]
+        chunks.append((q0, k0, (kp[None, :] <= qp[:, None]) & (qp[:, None] - kp[None, :] < window)))
+
+    def sdpa_window():
+        return torch.cat([F.scaled_dot_product_attention(
+            qh[:, :, q0:q0 + SDPA_CHUNK], kh[:, :, k0:q0 + SDPA_CHUNK],
+            vh[:, :, k0:q0 + SDPA_CHUNK], attn_mask=mask, enable_gqa=True)
+            for q0, k0, mask in chunks], dim=2)
+
+    same = float((sdpa_window().transpose(1, 2).reshape(q.shape) - ref).abs().max())
+    del got, ref
+    runs = {"kernel": (lambda: flash_attention(q, k, v, causal=True, window=window), 5),
+            "plain": (lambda: flash_attention_ref(q, k, v, causal=True, window=window), 1),
+            "sdpa": (sdpa_window, 2)}
+    times = {n: [] for n in runs}
+    for n in list(runs) + list(runs)[::-1]:
+        fn, reps = runs[n]
+        times[n].append(time_ms(torch, fn, reps=reps, warmup=1))
+    mean = {n: sum(t) / len(t) for n, t in times.items()}
+    bound, by = attn_bound_ms(B, S, S, K, G, hd, window, 4, passes=3, rate=TF32_FLOPS)
+    bound_f32, _ = attn_bound_ms(B, S, S, K, G, hd, window, 4)
+    pairs = attn_pairs(S, S, True, window) * B * K * G
+    print(f"kernel flash_attention B={B} S=T={S} K={K} G={G} hd={hd} window={window} f32 "
+          f"(h2o-danube-1.8b prefill_32k, layer 0's q, k, v), in turns: ms "
+          f"{fmt_times(times['kernel'])}  plain_ms {fmt_times(times['plain'])}  library_ms "
+          f"windowed scaled_dot_product_attention, {len(chunks)} query chunks "
+          f"{fmt_times(times['sdpa'])} (max abs diff to plain {same:.3g})  bound_ms "
+          f"{bound:.4f} ({by}, 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s; {pairs} visible "
+          f"pairs)  float32 CUDA-core bound {bound_f32:.4f}  max_abs_err {err:.3g}  achieved "
+          f"{4 * hd * pairs / (mean['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s of fp32-accurate "
+          f"products ({bound / mean['kernel']:.1%} of the bound)")
+    return {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": mean["sdpa"],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
+def dryrun_phase(torch, dev) -> dict:
+    """The dry run of ``DRYRUN_PAIRS`` through ``dryrun_one`` on the card
+    (the launch counts set to 0 just before each pair and read just
+    after), the checks of each record, and K3 at the 32k shape on the
+    first layer's q, k, v of the danube prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.dryrun import dryrun_one
+
+    out = {"records": {}, "k3_launches": 0}
+    first = []
+
+    def keep(args, res):
+        if not first:
+            first.extend(a.detach().clone() for a in args[:3])
+
+    for arch, shape, batch, flash in DRYRUN_PAIRS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with recording(kops, "flash_attention", [], keep):
+            reset_launch_counts()
+            r = dryrun_one(arch, shape, device=dev, batch=batch, flash_kernel=flash,
+                           reps=DRYRUN_REPS, profile=False)
+            launches = dict(LAUNCHES)
+        what = f"dry run {arch} {shape}"
+        check(r["status"] == "ok", f"{what}: {r['status']} {r.get('error', r.get('reason'))}")
+        check(r["finite"], f"{what}: the step's output is not finite")
+        start, failed = r["start_batch"], r["failed_batches"]
+        check(failed == [start >> i for i in range(len(failed))] and
+              r["batch"] == start >> len(failed),
+              f"{what}: batches failed {failed}, ran {r['batch']}, from {start}")
+        roof = r["roofline"]
+        check(0 < roof["share"] <= 1.0, f"{what}: step {r['step_s']} s against a bound of "
+                                         f"{roof['bound_ms']} ms")
+        k3 = launches["flash_attention"]
+        want = get_config(arch).n_layers * r["steps_run"] if flash else 0
+        check(k3 == want, f"{what}: flash_attention launched {k3} times, expected {want}")
+        others = {k: v for k, v in launches.items() if v and k != "flash_attention"}
+        check(not others, f"{what}: launched {others}")
+        out["k3_launches"] += k3
+        out["records"][(arch, shape)] = r
+        print(f"{what}: batch {r['batch']} (failed {failed}, start {start}), peak "
+              f"{r['peak_gib']:.2f} GiB, step {r['step_s']:.4f} s (warm-up {r['warm_up_s']:.4f}), "
+              f"bound {roof['bound_ms']:.3f} ms ({roof['bottleneck']}: compute "
+              f"{roof['compute_ms']:.3f} at float32, {roof['compute_tf32_ms']:.3f} at TF32, "
+              f"bytes {roof['memory_ms']:.3f}), share {roof['share']:.4f}; flash_attention "
+              f"launches {k3} in {r['steps_run']} steps; {r['seconds']} s")
+        if flash:
+            check(len(first) == 3, f"{what}: no flash_attention call recorded")
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["k3"] = k3_32k_phase(torch, dev, *first,
+                                     window=get_config(arch).sliding_window)
+            first.clear()
+    return out
+
+
+def perf_gossip_rank(rank: int, world: int, init: str, opts) -> dict:
+    """One rank of the ``perf_gossip`` phase: ``perf_gossip``'s own rank,
+    with each K2 call held to K2's plain version on the rank's stack as
+    the call made it (``mix_against_plain``)."""
+    import torch
+
+    from repro_torch.launch import perf_gossip as PG
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = []
+    with mix_against_plain(torch, record, chunk=1 << 24):
+        out = PG.run_rank(rank, world, init, opts)
+    out["k2_vs_plain"] = record
+    return out
+
+
+def perf_gossip_phase(torch, dev) -> dict:
+    """``perf_gossip`` on the one card (``PERF_GOSSIP``), its checks, and
+    K2 timed at the star's per-rank shape."""
+    from repro_torch.launch import perf_gossip as PG
+    from repro_torch.launch.mesh import spawn
+
+    n, layers, tokens, rounds = PERF_GOSSIP
+    opts = PG.Options(device="cuda:0", backend="gloo", layers=layers, seq_len=tokens, batch=1,
+                      rounds=rounds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"perf_gossip: {n} ranks on cuda:0 over gloo, staged through pinned host memory; "
+          f"{PG.ARCH} full width, {layers} layer(s), 1 x {tokens} tokens a silo, adamw(1e-4), "
+          f"flash_vjp, {rounds} rounds an entry; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated by this process")
+    t0 = time.perf_counter()
+    ranks = spawn(perf_gossip_rank, n, opts)
+    summary = PG.summarise(ranks, opts)
+    wall = time.perf_counter() - t0
+    for line in PG.table(summary):
+        print(f"perf_gossip: {line}")
+    rows = {(e["kind"], e["impl"]): e for e in summary["entries"]}
+    for (kind, impl), e in rows.items():
+        what = f"perf_gossip {kind}/{impl}"
+        check(e["recv_ok"], f"{what}: received {e['recv_bytes']}, the plan sends other bytes")
+        want = [rounds if impl == "pallas" else 0] * n
+        check(e["launches"] == want, f"{what}: gossip_mix launches {e['launches']}, want {want}")
+        check(math.isfinite(e["losses"]), f"{what}: loss {e['losses']}")
+        print(f"perf_gossip: {what} round walls by rank "
+              f"{[[round(x, 4) for x in w] for w in e['round_s']]} s; staged "
+              f"{[round(b / 1e9, 3) for b in e['staged_bytes']]} GB in "
+              f"{[round(x, 3) for x in e['staging_s']]} s; peak "
+              f"{e['peak_bytes'] / 2**30:.2f} GiB; collective term "
+              f"{e['roofline']['collective_ms']:.3f} ms at NVLink's rate; loss {e['losses']:.6f}")
+    pallas = sum(impl == "pallas" for _, impl in PG.ENTRIES) * rounds
+    for r in ranks:
+        k2 = r["k2_vs_plain"]
+        check(len(k2) == pallas and all(same for same, _ in k2),
+              f"perf_gossip rank {r['rank']}: K2 vs plain on its stacks {k2} (want {pallas} "
+              f"bit-identical calls)")
+    for key in (("ring", "einsum"), ("ring", "pallas"), ("star", "pallas")):
+        check(rows[key]["same_bits_as_first"],
+              f"perf_gossip {key}: rows differ from {rows[key]['first_of_plan']}'s "
+              f"(max abs params diff {rows[key]['max_abs_diff_params']})")
+    chain = rows["chain", "pallas"]["max_abs_diff_params"]
+    check(chain <= 2 * 1e-4 * rounds,
+          f"perf_gossip chain/pallas: params {chain} from chain/ppermute's (AdamW's bound "
+          f"2 lr rounds = {2 * 1e-4 * rounds})")
+    check(summary["star_ring_traffic_ratio"] == n - 1,
+          f"star/ring traffic {summary['star_ring_traffic_ratio']}")
+    P = summary["P"]
+    launches = sum(sum(e["launches"]) for e in summary["entries"])
+    print(f"perf_gossip: every rank's bytes == recv_bytes_per_round; gossip_mix launches "
+          f"{launches} ({rounds} a rank under pallas), each bit-identical to K2's plain version "
+          f"on the rank's stack (ring, chain with weights of 1/3, star); ring einsum, ring "
+          f"pallas and star pallas "
+          f"bit-identical to ppermute, chain pallas within {chain:.3g} (limit "
+          f"{2 * 1e-4 * rounds:g}); spawn and run {wall:.1f} s")
+    star = star_shape_phase(torch, dev, 4, P)
+    return {"launches": launches, "P": P, "star_k2": star, "summary": summary, "wall_s": wall}
+
+
+def star_shape_phase(torch, dev, K: int, N: int) -> dict:
+    """K2 at a star rank's shape (its ``[K, P]`` stack: its own row and
+    its K - 1 in-neighbours'), with random weights that sum to 1 (not
+    powers of two, so each product rounds): bit-identical to its plain
+    version and to the grid-stride kernel, then timed in turns with them
+    and ``torch.matmul`` of the weights and the stack (the same function),
+    beside its bytes bound."""
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda, gossip_mix_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    blocks = torch.randn((K, N), generator=gen, device=dev)
+    w = torch.rand((K,), generator=gen, device=dev) + 0.5
+    w /= w.sum()
+    got = gossip_mix(blocks, w)
+    check(torch.equal(got, gossip_mix_ref(blocks, w)),
+          f"gossip_mix at K={K} N={N}: kernel and plain version differ")
+    check(torch.equal(got, gossip_mix_cuda(blocks, w, grid_stride=True)),
+          f"gossip_mix at K={K} N={N}: streaming and grid-stride kernels differ")
+    err = float((torch.matmul(w, blocks) - got).abs().max())
+    del got
+    runs = {"kernel": (lambda: gossip_mix(blocks, w), 5),
+            "grid_stride": (lambda: gossip_mix_cuda(blocks, w, grid_stride=True), 5),
+            "matmul": (lambda: torch.matmul(w, blocks), 3),
+            "plain": (lambda: gossip_mix_ref(blocks, w), 2)}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fn, n = runs[name]
+        times[name].append(time_ms(torch, fn, reps=n, warmup=1))
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    bound, by = bound_ms(K, N, 4)
+    print(f"kernel gossip_mix K={K} N={N} f32 (a star rank's stack), in turns: ms "
+          f"{fmt_times(times['kernel'])}  grid-stride entry ms {fmt_times(times['grid_stride'])}  "
+          f"plain_ms {fmt_times(times['plain'])}  library_ms torch.matmul "
+          f"{fmt_times(times['matmul'])} (max abs diff {err:.3g})  bound_ms {bound:.4f} ({by})  "
+          f"bit-identical to plain  achieved {gb_per_s(K, N, 4, mean['kernel']):.1f} GB/s "
+          f"({bound / mean['kernel']:.1%} of the bound)")
+    del blocks
+    return {"ms": mean["kernel"], "grid_stride_ms": mean["grid_stride"],
+            "plain_ms": mean["plain"], "library_ms": mean["matmul"], "bound_ms": bound,
+            "bound_by": by, "max_abs_err": 0.0}
+
+
 def main() -> int:
     import torch
 
@@ -4174,6 +4452,14 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
     rank_shape = slice_shape_phase(torch, dev, 2, dtr["P"])
     ddyn = dist_phase(torch, "dynamic", ref_dynamic, dyn["round_s"])
     dist_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launch tooling phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+          "allocated from the earlier phases")
+    t0 = time.perf_counter()
+    dry = dryrun_phase(torch, dev)
+    pg = perf_gossip_phase(torch, dev)
+    tooling_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -4267,6 +4553,18 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
           f"N={dtr['P']}) ms {rank_shape['ms']:.4f} (torch.lerp {rank_shape['library_ms']:.4f}, "
           f"bound {rank_shape['bound_ms']:.4f}); dynamic peak GiB "
           f"{ddyn['peak_bytes'] / 2**30:.2f}; distributed phases took {dist_s:.1f} s")
+    k3_32k, star = dry["k3"], pg["star_k2"]
+    print("summary: dry run " + "; ".join(
+        f"{a} {s_} batch {r['batch']} step {r['step_s']:.4f} s share "
+        f"{r['roofline']['share']:.4f}" for (a, s_), r in dry["records"].items())
+        + f"; flash_attention 32k prefill shape ms {k3_32k['ms']:.4f} (plain "
+        f"{k3_32k['plain_ms']:.4f}, windowed scaled_dot_product_attention "
+        f"{k3_32k['library_ms']:.4f}, bound {k3_32k['bound_ms']:.4f} at 3xTF32); perf_gossip "
+        f"round s (one an entry; the first entry's is cold) " + ", ".join(
+            f"{e['kind']}/{e['impl']} {e['last_round_s']:.4f}" for e in pg["summary"]["entries"])
+        + f"; gossip_mix at the star shape (K=4, N={pg['P']}) ms {star['ms']:.4f} (torch.matmul "
+        f"{star['library_ms']:.4f}, bound {star['bound_ms']:.4f}); launch tooling phases took "
+        f"{tooling_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     tl = tdyn["launches"]
@@ -4278,12 +4576,14 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix.py:41",
         "launches": (tr["launches"] + dl["gossip_mix"] + tl["gossip_mix"] + mtr["launches"]
-                     + htr["launches"] + ztr["launches"] + dtr["launches"] + ddyn["launches"]),
+                     + htr["launches"] + ztr["launches"] + dtr["launches"] + ddyn["launches"]
+                     + pg["launches"]),
         "launches_by_path": {"static_train": tr["launches"], "dynamic_train": dl["gossip_mix"],
                              "traced_dynamic_train": tl["gossip_mix"],
                              "moe_train": mtr["launches"], "hymba_train": htr["launches"],
                              "zoo_train": ztr["launches"], "distributed_train": dtr["launches"],
-                             "distributed_dynamic_train": ddyn["launches"]},
+                             "distributed_dynamic_train": ddyn["launches"],
+                             "perf_gossip": pg["launches"]},
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4325,10 +4625,12 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": danube["launches"] + zoo_k3 + hv_k3 + wh["launches"] + sserve["launches"],
+        "launches": (danube["launches"] + zoo_k3 + hv_k3 + wh["launches"] + sserve["launches"]
+                     + dry["k3_launches"]),
         "launches_by_path": {"dense_serve": danube["launches"], "moe_and_large_dense_serve": zoo_k3,
                              "hybrid_and_vlm_serve": hv_k3, "encdec_serve": wh["launches"],
-                             "steps_serve": sserve["launches"]},
+                             "steps_serve": sserve["launches"],
+                             "dryrun_prefill_32k": dry["k3_launches"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],

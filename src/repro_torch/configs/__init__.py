@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.configs``, with all ten of its configurations:
 the dense transformers, the MoE and MLA models, the xLSTM stack, the
-Hymba hybrid, the vision-prefix backbone and whisper's encoder-decoder.
+Hymba hybrid, the vision-prefix backbone and whisper's encoder-decoder;
+and the assignment's four input shapes (``INPUT_SHAPES``) with the gate
+that keeps ``long_500k`` to sub-quadratic decode.
 """
 
 from __future__ import annotations
@@ -48,3 +50,26 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the assignment.
+
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4_096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32_768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524_288, global_batch=1, kind="decode"),
+}
+
+
+def long_context_supported(cfg: ModelConfig) -> bool:
+    """long_500k requires sub-quadratic decode: a sliding window or a
+    recurrent state, so that the cache does not grow with the context."""
+    return cfg.is_subquadratic
+
+
+def shape_supported(cfg: ModelConfig, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return long_context_supported(cfg)
+    return True

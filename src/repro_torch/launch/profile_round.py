@@ -19,7 +19,7 @@ import argparse
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -45,22 +45,24 @@ def kernel_part(name: str) -> str:
     return "other kernels"
 
 
-def profile_round(result: TrainResult, round_idx: int) -> Dict[str, object]:
-    """Trace round ``round_idx`` of a run continued from ``result``."""
-    state = result.state
-    dev = state["params"].device
-    step_fn = make_train_step(result.cfg, result.fed, result.optimizer, result.plan)
-    batch = batch_to_device(result.batcher.batch(round_idx), dev)
+def device_profile(fn: Callable[[], Any], dev: torch.device) -> Tuple[Any, Dict[str, object]]:
+    """One ``torch.profiler`` window around ``fn()``: its output and the
+    window's wall time (from before the call to the device's last
+    kernel), the device's busy time (the sum of its kernels' and copies'
+    self times), the idle share, and the device time by part (see
+    :func:`kernel_part`) and by kernel.  The idle share is None when the
+    profiler saw no device events (the CPU)."""
+    cuda = dev.type == "cuda"
     activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        float(metrics["loss"])  # waits for every kernel of the round
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(dev)
         wall_s = time.perf_counter() - t0
-    result.state = state
     per_kernel: Dict[str, Tuple[int, float]] = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -73,13 +75,22 @@ def profile_round(result: TrainResult, round_idx: int) -> Dict[str, object]:
         parts[kernel_part(name)] += us
     kernels = sorted(((n, c, us) for n, (c, us) in per_kernel.items()),
                      key=lambda r: -r[2])
-    return {
+    return out, {
         "wall_s": wall_s,
         "busy_s": busy_us / 1e6,
         "idle_share": (1.0 - busy_us / 1e6 / wall_s) if busy_us else None,
         "parts_s": {k: v / 1e6 for k, v in sorted(parts.items(), key=lambda kv: -kv[1])},
         "kernels": kernels,
     }
+
+
+def profile_round(result: TrainResult, round_idx: int) -> Dict[str, object]:
+    """Trace round ``round_idx`` of a run continued from ``result``."""
+    dev = result.state["params"].device
+    step_fn = make_train_step(result.cfg, result.fed, result.optimizer, result.plan)
+    batch = batch_to_device(result.batcher.batch(round_idx), dev)
+    (result.state, _), prof = device_profile(lambda: step_fn(result.state, batch), dev)
+    return prof
 
 
 def report(prof: Dict[str, object], top: int = 15) -> List[str]:

@@ -4,10 +4,14 @@ Counterpart of ``repro.launch.steps``: :func:`build_train_step` returns the
 DPASGD step of :func:`repro_torch.fed.make_train_step` (AdamW at 1e-4 by
 default, the ring plan when there are several silos and no plan is
 given), :func:`build_prefill_step` and :func:`build_decode_step` the
-serving steps over a ``batch`` dict.  The reference's ``silo_axis``,
-``mesh`` and ``grad_pspecs`` are GSPMD layout arguments (the silo axis of
-a device mesh, sharding specs of the gradient accumulators); one card
-has no counterpart of them, so they are not taken here.
+serving steps over a ``batch`` dict.  ``mesh`` is passed on to
+``make_train_step`` as the reference passes its device mesh: with a
+:class:`~repro_torch.launch.mesh.SiloMesh` (one silo per process) the
+step trains this rank's row and gossips over the process group.  The
+reference's ``silo_axis`` and ``grad_pspecs`` are GSPMD layout arguments
+(the silo axis of a device mesh, sharding specs of the gradient
+accumulators) with no counterpart in that process layout, so they are
+not taken here.
 
 K3 and K4 have no backward, in either package, so a config with
 ``use_flash_kernel`` cannot be trained: :func:`build_train_step` refuses
@@ -29,11 +33,13 @@ from repro_torch.optim import Optimizer, adamw
 
 def build_train_step(cfg: ModelConfig, *, optimizer: Optional[Optimizer] = None,
                      gossip_impl: str = "ppermute", plan: Optional[GossipPlan] = None,
-                     local_steps: int = 1, accum_steps: int = 1) -> Callable:
+                     mesh=None, local_steps: int = 1, accum_steps: int = 1) -> Callable:
     """``step_fn(state, batch) -> (state, {"loss"})`` for a state from
     :func:`repro_torch.fed.init_state` with the same optimizer (default
-    ``adamw(1e-4)``).  Raises ``RuntimeError`` for ``cfg.use_flash_kernel``:
-    the kernels are forward-only."""
+    ``adamw(1e-4)``) and the same ``mesh``: with one, the state is this
+    rank's row and the batch its silo's ``[s, B, S]`` microbatches.
+    Raises ``RuntimeError`` for ``cfg.use_flash_kernel``: the kernels are
+    forward-only."""
     if cfg.use_flash_kernel:
         raise RuntimeError(
             "use_flash_kernel sends attention through flash_attention (K3) and the mLSTM "
@@ -44,7 +50,7 @@ def build_train_step(cfg: ModelConfig, *, optimizer: Optional[Optimizer] = None,
                        accum_steps=accum_steps)
     if cfg.n_silos > 1 and plan is None:
         plan = plan_for_n_silos("ring", cfg.n_silos)
-    return make_train_step(cfg, fed, optimizer, plan)
+    return make_train_step(cfg, fed, optimizer, plan, mesh=mesh)
 
 
 def build_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:

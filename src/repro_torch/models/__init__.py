@@ -4,6 +4,7 @@ from .moe import moe_forward
 from .params import (
     ParamLayout,
     ParamSpec,
+    count_params,
     from_jax_params,
     init_params,
     state_to_tree,
@@ -19,6 +20,7 @@ __all__ = [
     "ParamLayout",
     "ParamSpec",
     "SSMConfig",
+    "count_params",
     "from_jax_params",
     "init_params",
     "state_to_tree",

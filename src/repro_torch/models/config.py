@@ -137,6 +137,16 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder is not None and self.encoder.n_layers > 0
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode memory is bounded (SWA / recurrent)."""
+        kinds = set(self.block_pattern)
+        if kinds <= {"mlstm", "slstm"}:
+            return True
+        if "hymba" in kinds:
+            return self.sliding_window is not None
+        return self.sliding_window is not None and not self.is_encdec
+
     def layer_uses_window(self, layer: int) -> bool:
         if self.sliding_window is None:
             return False

@@ -150,6 +150,15 @@ def init_params(specs, *, seed: int = 0, device: DeviceLike = "cuda"):
     return layout.views(init_params_(row, layout, specs, gen))
 
 
+def count_params(spec_tree) -> int:
+    """Number of parameters of a spec tree (leaves are :class:`ParamSpec`\\ s,
+    shapes or tensors)."""
+    total = 0
+    for _, leaf in tree_leaves_with_path(spec_tree):
+        total += math.prod(tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf))
+    return total
+
+
 def _is_state(tree) -> bool:
     return isinstance(tree, Mapping) and set(tree) == {"params", "opt_state", "step"}
 

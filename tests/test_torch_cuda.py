@@ -1135,3 +1135,35 @@ def test_nccl_on_two_cards_mix_bit_identical(cuda):
     for rank, r in enumerate(ranks):
         assert torch.equal(r["row"], expect[rank])
         assert r["launches"] == 1 and r["staged"] == 0
+
+
+@pytest.mark.gpu
+def test_flash_attention_at_the_32k_prefill_shape_matches_plain(cuda):
+    """K3 at h2o-danube-1.8b's prefill_32k shape (B=1, S=T=32768, K=8, G=4,
+    hd=80, window 4096); the plain version chunks its queries."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    q = torch.randn((1, 32768, 8, 4, 80), generator=gen, device=cuda)
+    k = torch.randn((1, 32768, 8, 80), generator=gen, device=cuda)
+    v = torch.randn((1, 32768, 8, 80), generator=gen, device=cuda)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, window=4096)
+    assert LAUNCHES["flash_attention"] == before + 1
+    expect = flash_attention_ref(q, k, v, causal=True, window=4096)
+    torch.testing.assert_close(got, expect, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_dryrun_halves_the_batch_until_the_decode_cache_fits(cuda):
+    """internlm2-1.8b decode_32k from the reference's batch 128: its bf16
+    cache is 3.2 GB a sequence, so the first batches run out of memory and
+    the record keeps them, each half of the one before."""
+    from repro_torch.launch.dryrun import dryrun_one
+
+    r = dryrun_one("internlm2-1.8b", "decode_32k", device=cuda, reps=1, profile=False)
+    assert r["status"] == "ok", r.get("traceback", r.get("error"))
+    failed = r["failed_batches"]
+    assert failed and failed == [128 >> i for i in range(len(failed))]
+    assert r["batch"] == 128 >> len(failed) and r["finite"]
+    assert all("out of memory" in f["error"].lower() for f in r["oom"])
+    assert 0 < r["roofline"]["share"] <= 1.0
+    assert r["peak_bytes"] <= torch.cuda.get_device_properties(cuda).total_memory
