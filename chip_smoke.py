@@ -283,7 +283,18 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    across its lowerings bit for bit where the CPU tests show them so (ring,
    star) and elsewhere (chain) within AdamW's 2 lr rounds, the bound the
    CPU tests hold AdamW rounds to; the star/ring traffic ratio 3;
-   then K2 timed at the star's per-rank shape (K = 4, N = P).
+   then K2 timed at the star's per-rank shape (K = 4, N = P);
+34. the analysis layer on the card: the Ebone device design
+   (``design_overlay("sparse_rewire")``: the climb's K1 Karp and
+   reachability launches) four times in turns with the port's shape
+   contracts (``repro_torch.analysis.contracts``) checked and unchecked,
+   and one Ebone MATCHA design (``design_matcha_schedule``: one K1
+   timing-recursion launch) each way: the overlays, schedules and
+   estimates equal bit for bit, the K1 launches moved and equal in every
+   run, a
+   wrong-shape CUDA call refused by its contract; the port's lint of this
+   checkout (files, new = 0, grandfathered); and, at the end of the run,
+   each CUDA library built and loaded at most once in this process.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -4318,6 +4329,137 @@ def star_shape_phase(torch, dev, K: int, N: int) -> dict:
             "bound_by": by, "max_abs_err": 0.0}
 
 
+def start_lint(out_path: str):
+    """The port's lint of this checkout, ``python -m repro_torch.analysis.lint
+    --no-cache``, in a process of its own beside the phases: it is host work
+    of 5-11 s, which phase 34 reads when it is done."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    with open(out_path, "w") as fh:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.analysis.lint", "--no-cache"],
+                                cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT)
+
+
+def contracts_phase(torch, dev, lint, lint_out: str) -> dict:
+    """Phase 34: the Ebone device design four times in turns with the
+    shape contracts checked and unchecked (on, off, off, on) and one Ebone
+    MATCHA design each way, each with the launch counts and the count of
+    checked calls set to 0 just before it and read just after; the cost of
+    one checked call; then the result of the port's lint of this checkout,
+    which ran beside the phases (:func:`start_lint`)."""
+    from repro_torch.analysis import contracts
+    from repro_torch.core import (WORKLOADS, TrainingParams, batched_cycle_time_sparse_torch,
+                                  design_matcha_schedule, design_overlay, make_underlay)
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+
+    M, Tc = WORKLOADS["inaturalist"]
+    tp = TrainingParams(model_size_mbits=M, local_steps=1)
+    gc = make_underlay("ebone").connectivity_graph(comp_time_ms=Tc)
+
+    def run(checked, fn):
+        (contracts.enable if checked else contracts.disable)()
+        reset_launch_counts()
+        c0 = contracts.CHECKED_CALLS
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(LAUNCHES), contracts.CHECKED_CALLS - c0
+
+    design = {True: [], False: []}
+    matcha = {}
+    try:
+        for checked in (True, False, False, True):
+            design[checked].append(run(checked, lambda: design_overlay(
+                "sparse_rewire", gc, tp, device=dev)))
+        for checked in (True, False):
+            matcha[checked] = run(checked, lambda: design_matcha_schedule(gc, tp, device=dev))
+        # the checks really run, on CUDA tensors, reading shapes only
+        contracts.enable()
+        w = torch.zeros((2, 5), dtype=torch.float64, device=dev)
+        ids = torch.zeros((2, 5), dtype=torch.int32, device=dev)
+        try:
+            batched_cycle_time_sparse_torch(ids, ids, w[:, :4], 3)
+        except contracts.ContractError as exc:
+            check("argument 'w'" in str(exc), f"contract error names no argument: {exc}")
+        else:
+            check(False, "a wrong-shape CUDA call passed its contract")
+        # one call's cost on this host: the Karp scorer's contract around a
+        # function that does nothing, on CUDA tensors of the climb's shapes
+        spec = batched_cycle_time_sparse_torch.__contract__
+        probe = contracts.contract(*spec["args"], **spec["kwargs"])(
+            lambda src, dst, w, num_nodes, *, kernel="auto", max_in_degree=None: None)
+        ids = torch.zeros((16, 200), dtype=torch.int32, device=dev)
+        w = torch.zeros((16, 200), dtype=torch.float64, device=dev)
+        call_us = {}
+        for what, checked, fn in (("bare", False, probe.__wrapped__), ("unchecked", False, probe),
+                                  ("checked", True, probe)):
+            (contracts.enable if checked else contracts.disable)()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn(ids, ids, w, 64, max_in_degree=10)
+            call_us[what] = (time.perf_counter() - t0) / 2000 * 1e6
+    finally:
+        contracts.disable()
+    runs = design[True] + design[False]
+    ov0, _, dl, _ = runs[0]
+    check(dl["karp"] == dl["reach"] == 96 + 1 and sum(dl.values()) == 2 * 97,
+          f"ebone design launched {dl}: expected 97 karp and 97 reach")
+    for ov, _, launches, _ in runs[1:]:
+        check(launches == dl, f"ebone design launches differ between runs: {launches} vs {dl}")
+        check(ov.edges == ov0.edges and ov.cycle_time_ms == ov0.cycle_time_ms,
+              f"ebone design differs between runs: tau {ov.cycle_time_ms!r} vs "
+              f"{ov0.cycle_time_ms!r}")
+    checks = {k: [n for _, _, _, n in v] for k, v in design.items()}
+    check(min(checks[True]) > 0 and checks[False] == [0, 0] and len(set(checks[True])) == 1,
+          f"checked calls a design: {checks}")
+    (m_on, t_on, ml, mc_on), (m_off, t_off, ml_off, mc_off) = matcha[True], matcha[False]
+    check(mc_on > 0 and mc_off == 0, f"checked calls a matcha design: {mc_on} / {mc_off}")
+    check(ml["timing"] == 1 and sum(ml.values()) == 1 and ml_off == ml,
+          f"ebone matcha design launched {ml} checked, {ml_off} unchecked: expected one "
+          f"timing launch each")
+    # repr is exact for floats (an unpriced rho is NaN, which == refuses)
+    check(repr(m_on) == repr(m_off), f"ebone matcha design differs with contracts on: "
+          f"{m_on[1]} vs {m_off[1]}")
+    walls = {k: [t for _, t, _, _ in v] for k, v in design.items()}
+    sched, est = m_on
+    print(f"contracts on the card: ebone design tau {ov0.cycle_time_ms:.6f} ms in 4 runs (on, "
+          f"off, off, on), walls checked {[round(t, 4) for t in walls[True]]} s unchecked "
+          f"{[round(t, 4) for t in walls[False]]} s, {checks[True][0]} checked calls a checked "
+          f"run, karp launches {dl['karp']} and reach launches {dl['reach']} in each")
+    print(f"contracts on the card: ebone matcha budget {sched.budget:g} tau {est.tau_ms:.6f} ms, "
+          f"wall checked {t_on:.4f} s unchecked {t_off:.4f} s, {mc_on} checked calls, timing "
+          f"launches {ml['timing']} / {ml_off['timing']}; overlays, schedules and estimates "
+          f"bit-identical checked and unchecked; a wrong-shape CUDA call refused by its contract")
+    print(f"contracts on the card: one call of the Karp scorer's contract around a no-op, "
+          f"mean of 2000, us: bare {call_us['bare']:.3f}, unchecked {call_us['unchecked']:.3f}, "
+          f"checked {call_us['checked']:.3f}")
+    t0 = time.perf_counter()
+    rc = lint.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    out = Path(lint_out).read_text()
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    print(f"lint: python -m repro_torch.analysis.lint --no-cache beside the phases: rc {rc}, "
+          f"{last!r}, waited {waited:.1f} s for it")
+    m = re.match(r"repro-lint: clean \((\d+) grandfathered; (\d+) checked", last)
+    check(rc == 0 and m is not None, f"the port's lint failed (rc {rc}):\n{out[-4000:]}")
+    return {"design_s": walls, "matcha_s": (t_on, t_off), "karp": dl["karp"],
+            "timing": ml["timing"], "checks": (checks[True][0], mc_on), "call_us": call_us,
+            "lint_files": int(m.group(2)), "lint_grandfathered": int(m.group(1))}
+
+
+def library_counts_check() -> dict:
+    """Each CUDA library built at most once in this process; the loads are
+    printed beside (``load_library`` is cached, so a library loads once)."""
+    from repro_torch.kernels._build import BUILDS, LOADS, kernel_sources
+
+    built, loaded = dict(sorted(BUILDS.items())), dict(sorted(LOADS.items()))
+    print(f"kernel libraries in this process: built {built}, loaded {loaded} "
+          f"(of {len(kernel_sources())} sources)")
+    check(all(n <= 1 for n in built.values()), f"a library was built more than once: {built}")
+    return {"built": built, "loaded": loaded}
+
+
 def main() -> int:
     import torch
 
@@ -4352,16 +4494,22 @@ def main() -> int:
 
     ref_dir = tempfile.mkdtemp(prefix="chip_smoke_rows_")
     ref_static, ref_dynamic = (os.path.join(ref_dir, f"{k}.f32") for k in ("static", "dynamic"))
+    lint_out = os.path.join(ref_dir, "lint.txt")
+    lint = start_lint(lint_out)
     try:
-        return run_phases(torch, dev, ref_static, ref_dynamic)
+        return run_phases(torch, dev, ref_static, ref_dynamic, lint, lint_out)
     finally:
+        if lint.poll() is None:
+            lint.kill()
+        lint.wait()
         shutil.rmtree(ref_dir, ignore_errors=True)
 
 
-def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
+def run_phases(torch, dev, ref_static: str, ref_dynamic: str, lint, lint_out: str) -> int:
     """Every phase after the build and the nvidia-smi line, in order; the
     two distributed phases hold their ranks to the rows that phases 3 and
-    18 saved at ``ref_static`` and ``ref_dynamic``."""
+    18 saved at ``ref_static`` and ``ref_dynamic``, and phase 34 reads the
+    lint that ``lint`` runs into ``lint_out``."""
     kern = kernel_phase(torch, dev)
     seg = segmax_kernel_phase(torch, dev)
     karp = karp_kernel_phase(torch, dev)
@@ -4460,6 +4608,12 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
     dry = dryrun_phase(torch, dev)
     pg = perf_gossip_phase(torch, dev)
     tooling_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ana = contracts_phase(torch, dev, lint, lint_out)
+    libs = library_counts_check()
+    analysis_s = time.perf_counter() - t0
     print(f"summary: gossip_mix 2^28 ms {kern['ms_2p28']:.4f} (grid-stride entry "
           f"{kern['grid_stride_ms_2p28']:.4f}, torch.lerp {kern['lerp_ms_2p28']:.4f}); main-path "
           f"shape ms {main_shape['ms']:.4f} (grid-stride entry {main_shape['grid_stride_ms']:.4f}, "
@@ -4565,6 +4719,16 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str) -> int:
         + f"; gossip_mix at the star shape (K=4, N={pg['P']}) ms {star['ms']:.4f} (torch.matmul "
         f"{star['library_ms']:.4f}, bound {star['bound_ms']:.4f}); launch tooling phases took "
         f"{tooling_s:.1f} s")
+    print(f"summary: contracts on the card: ebone design wall s checked "
+          f"{[round(t, 4) for t in ana['design_s'][True]]} unchecked "
+          f"{[round(t, 4) for t in ana['design_s'][False]]}, ebone matcha design "
+          f"wall s checked {ana['matcha_s'][0]:.4f} unchecked {ana['matcha_s'][1]:.4f}, karp "
+          f"launches {ana['karp']} and timing launches {ana['timing']} in each, checked calls "
+          f"{ana['checks'][0]} a design and {ana['checks'][1]} a matcha design, one checked call "
+          f"{ana['call_us']['checked']:.3f} us (unchecked {ana['call_us']['unchecked']:.3f}, bare "
+          f"{ana['call_us']['bare']:.3f}); lint {ana['lint_files']} files, new 0, grandfathered "
+          f"{ana['lint_grandfathered']}; libraries built "
+          f"{libs['built']} loaded {libs['loaded']}; analysis phase took {analysis_s:.1f} s")
     climb = karp["ebone_climb"]
     dl = dyn["launches"]
     tl = tdyn["launches"]

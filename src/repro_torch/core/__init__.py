@@ -1,8 +1,9 @@
 """Host-side math and topology design of the port.
 
 * numpy copies of the reference's host code: Birkhoff decomposition and
-  consensus matrices, the delay digraph and Eq. 3 pricing
-  (:mod:`.delays`), the underlays of the paper (:mod:`.underlay`,
+  consensus matrices, the delay digraph and its dict-graph max-plus API
+  (:mod:`.maxplus`: cycle time, throughput, Eq. 4, SCCs, the critical
+  circuit and the ``*_legacy`` oracles), Eq. 3 pricing (:mod:`.delays`), the underlays of the paper (:mod:`.underlay`,
   :mod:`.networks_data`), the dense and sparse Karp engines and
   ``DeltaPricer`` (:mod:`.maxplus_vec`, :mod:`.maxplus_sparse`) and the
   host designers (:mod:`.topologies`);
@@ -41,7 +42,20 @@ from .delays import (
     overlay_delay_matrix,
     symmetrized_delay_ms,
 )
-from .maxplus import DelayDigraph
+from .maxplus import (
+    DelayDigraph,
+    critical_circuit,
+    critical_circuit_legacy,
+    cycle_time,
+    empirical_cycle_time,
+    is_strongly_connected,
+    max_cycle_mean,
+    max_cycle_mean_legacy,
+    strongly_connected_components,
+    throughput,
+    timing_recursion,
+    timing_recursion_legacy,
+)
 from .maxplus_sparse import (
     DeltaPricer,
     EdgeBatch,
@@ -50,16 +64,27 @@ from .maxplus_sparse import (
     batched_cycle_time_sparse_torch,
     batched_is_strongly_connected_sparse,
     batched_overlay_delay_edges,
+    batched_timing_recursion_sparse,
     critical_circuit_sparse,
     cycle_time_engine,
+    cycle_time_sparse,
+    dense_to_edge_batch,
+    edge_batch_to_dense,
     reachable_from_sparse,
     scc_labels_sparse,
+    timing_recursion_time_varying_sparse,
+    timing_recursion_unique_rounds_sparse,
     timing_recursion_unique_rounds_sparse_torch,
 )
 from .maxplus_vec import (
     MISSING,
+    NEG_INF,
     batched_cycle_time,
     batched_is_strongly_connected,
+    batched_throughput,
+    batched_timing_recursion,
+    batched_timing_recursion_piecewise,
+    critical_circuit_dense,
     cycle_time_dense,
     edges_to_matrix,
     graph_to_matrix,
@@ -67,6 +92,8 @@ from .maxplus_vec import (
     missing_mask,
     reachability_closure,
     scc_labels,
+    timing_recursion_dense,
+    timing_recursion_piecewise,
 )
 from .networks_data import EXPECTED_SIZES, GAIA_SITES, NETWORK_NAMES, WORKLOADS, make_underlay
 from .topologies import (
@@ -138,14 +165,21 @@ __all__ = [
     "ConnectivityGraph", "SiloParams", "TrainingParams",
     "batched_overlay_delay_matrices", "connectivity_delay_ms", "edge_delay_ms",
     "is_edge_capacitated", "overlay_delay_digraph", "overlay_delay_matrix",
-    "symmetrized_delay_ms", "DelayDigraph",
+    "symmetrized_delay_ms",
+    "DelayDigraph", "critical_circuit", "critical_circuit_legacy", "cycle_time",
+    "empirical_cycle_time", "is_strongly_connected", "max_cycle_mean", "max_cycle_mean_legacy",
+    "strongly_connected_components", "throughput", "timing_recursion", "timing_recursion_legacy",
     "DeltaPricer", "EdgeBatch", "batched_cycle_time_auto", "batched_cycle_time_sparse",
     "batched_cycle_time_sparse_torch", "batched_is_strongly_connected_sparse",
-    "batched_overlay_delay_edges", "critical_circuit_sparse", "cycle_time_engine",
-    "reachable_from_sparse", "scc_labels_sparse", "timing_recursion_unique_rounds_sparse_torch",
-    "MISSING", "batched_cycle_time", "batched_is_strongly_connected", "cycle_time_dense",
-    "edges_to_matrix", "graph_to_matrix", "karp_from_levels", "missing_mask",
-    "reachability_closure", "scc_labels",
+    "batched_overlay_delay_edges", "batched_timing_recursion_sparse", "critical_circuit_sparse",
+    "cycle_time_engine", "cycle_time_sparse", "dense_to_edge_batch", "edge_batch_to_dense",
+    "reachable_from_sparse", "scc_labels_sparse", "timing_recursion_time_varying_sparse",
+    "timing_recursion_unique_rounds_sparse", "timing_recursion_unique_rounds_sparse_torch",
+    "MISSING", "NEG_INF", "batched_cycle_time", "batched_is_strongly_connected",
+    "batched_throughput", "batched_timing_recursion", "batched_timing_recursion_piecewise",
+    "critical_circuit_dense", "cycle_time_dense", "edges_to_matrix", "graph_to_matrix",
+    "karp_from_levels", "missing_mask", "reachability_closure", "scc_labels",
+    "timing_recursion_dense", "timing_recursion_piecewise",
     "EXPECTED_SIZES", "GAIA_SITES", "NETWORK_NAMES", "WORKLOADS", "make_underlay",
     "OVERLAY_KINDS", "SCHEDULE_KINDS", "Overlay", "algorithm1_mbst", "brute_force_mct",
     "christofides_tour",

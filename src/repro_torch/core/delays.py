@@ -21,6 +21,7 @@ from typing import Dict, Hashable, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.contracts import contract
 from ..obs.spans import span_fn
 from .maxplus import DelayDigraph
 from .maxplus_vec import MISSING
@@ -74,6 +75,7 @@ class TrainingParams:
     local_steps: int = 1  # s
 
 
+@contract()
 def effective_rate_gbps(
     gc: ConnectivityGraph,
     i: Node,
@@ -87,6 +89,7 @@ def effective_rate_gbps(
     return min(up, dn, gc.available_bw_gbps[(i, j)])
 
 
+@contract()
 def edge_delay_ms(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -104,6 +107,7 @@ def edge_delay_ms(
     )
 
 
+@contract()
 def connectivity_delay_ms(gc: ConnectivityGraph, tp: TrainingParams, i: Node, j: Node) -> float:
     """d_c(i,j) = s*T_c(i) + l(i,j) + M/A(i',j') — the *edge-capacitated*
     delay used to weigh the connectivity graph for topology design."""
@@ -114,11 +118,13 @@ def connectivity_delay_ms(gc: ConnectivityGraph, tp: TrainingParams, i: Node, j:
     )
 
 
+@contract()
 def symmetrized_delay_ms(gc: ConnectivityGraph, tp: TrainingParams, i: Node, j: Node) -> float:
     """d_c^(u)(i,j) = (d_c(i,j) + d_c(j,i)) / 2 (Prop. 3.1)."""
     return 0.5 * (connectivity_delay_ms(gc, tp, i, j) + connectivity_delay_ms(gc, tp, j, i))
 
 
+@contract()
 def node_capacitated_sym_delay_ms(
     gc: ConnectivityGraph, tp: TrainingParams, i: Node, j: Node
 ) -> float:
@@ -136,6 +142,7 @@ def node_capacitated_sym_delay_ms(
     )
 
 
+@contract()
 def overlay_delay_digraph(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -164,6 +171,7 @@ def overlay_delay_digraph(
     return DelayDigraph(tuple(gc.silos), delays)
 
 
+@contract(ret="[N,N]")
 def overlay_delay_matrix(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -184,6 +192,7 @@ def overlay_delay_matrix(
 
 
 @span_fn("engine.price_matrices")
+@contract(None, None, "#E", "[B,E]", ret="[B,N,N]")
 def batched_overlay_delay_matrices(
     gc: ConnectivityGraph,
     tp: TrainingParams,
@@ -236,6 +245,7 @@ def batched_overlay_delay_matrices(
     return W
 
 
+@contract()
 def is_edge_capacitated(gc: ConnectivityGraph) -> bool:
     """Sufficient condition from Sect. 3.1:
     min(C_UP(i), C_DN(j)) / N >= A(i',j') for every connectivity edge."""

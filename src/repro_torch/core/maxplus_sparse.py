@@ -11,8 +11,11 @@ A batch of delay digraphs is a set of padded edge lists
 (an :class:`EdgeBatch`), evaluated in O(B·N·E) work with O(B·E) graph
 storage:
 
+* :func:`dense_to_edge_batch` / :func:`edge_batch_to_dense` -- between
+  dense ``[B, N, N]`` stacks and edge lists;
 * :func:`batched_cycle_time_sparse` -- multi-source Karp via one segment
-  max over edges per DP level (numpy, f32/f64);
+  max over edges per DP level (numpy, f32/f64), and
+  :func:`cycle_time_sparse` for one flat edge list;
 * :func:`batched_cycle_time_sparse_torch` -- the same DP on a torch
   device, through the implementation
   :func:`repro_torch.kernels.select_segment_max_impl` picks (on the card,
@@ -22,6 +25,10 @@ storage:
 * :func:`batched_is_strongly_connected_sparse` /
   :func:`reachable_from_sparse` / :func:`scc_labels_sparse` --
   reachability and SCCs along edges;
+* :func:`batched_timing_recursion_sparse`,
+  :func:`timing_recursion_unique_rounds_sparse` and
+  :func:`timing_recursion_time_varying_sparse` -- the Eq. 4 recursion on
+  the host (numpy), fixed and round-varying;
 * :func:`timing_recursion_unique_rounds_sparse_torch` -- the
   round-varying Eq. 4 recursion behind MATCHA pricing (on the card, one
   launch of the hand-written persistent recursion for all rounds);
@@ -43,6 +50,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.contracts import contract
 from ..kernels import karp_cycle_time, select_segment_max_impl, timing_recursion
 from ..kernels.segment_max import karp_cycle_time_ref, karp_from_step
 from ..obs.spans import span_fn
@@ -83,6 +91,50 @@ class EdgeBatch(NamedTuple):
         return self.src.shape[1]
 
 
+@contract("[B,N,N]|[N,N]", ret="eb[B,E,N]")
+def dense_to_edge_batch(W: np.ndarray, e_max: Optional[int] = None) -> EdgeBatch:
+    """Convert a dense ``[B, N, N]`` (or ``[N, N]``) weight stack to a
+    padded :class:`EdgeBatch`.
+
+    ``e_max`` overrides the edge capacity (default: the max finite-arc
+    count across the batch); extra slots are padding (``w = -inf``).
+    """
+    W = np.asarray(W)
+    if W.ndim == 2:
+        W = W[None]
+    B, N, _ = W.shape
+    finite = W > MISSING
+    counts = finite.reshape(B, -1).sum(axis=1)
+    E = int(counts.max()) if e_max is None else int(e_max)
+    if E < counts.max():
+        raise ValueError(f"e_max={E} < densest graph ({int(counts.max())} arcs)")
+    src = np.zeros((B, max(E, 1)), dtype=np.int32)
+    dst = np.zeros((B, max(E, 1)), dtype=np.int32)
+    w = np.full((B, max(E, 1)), MISSING, dtype=W.dtype)
+    for b in range(B):
+        i, j = np.nonzero(finite[b])
+        src[b, : i.size] = i
+        dst[b, : j.size] = j
+        w[b, : i.size] = W[b, i, j]
+    return EdgeBatch(src, dst, w, N)
+
+
+@contract("eb[B,E,N]", ret="[B,N,N]")
+def edge_batch_to_dense(eb: EdgeBatch) -> np.ndarray:
+    """Inverse of :func:`dense_to_edge_batch`: ``[B, N, N]`` with ``-inf``
+    holes.  Duplicate arcs keep their max weight (max-plus semantics)."""
+    B, E = eb.src.shape
+    N = eb.num_nodes
+    flat = np.full(B * N * N, MISSING, dtype=eb.w.dtype)
+    keys = (
+        np.repeat(np.arange(B, dtype=np.int64), E) * (N * N)
+        + eb.src.ravel().astype(np.int64) * N
+        + eb.dst.ravel().astype(np.int64)
+    )
+    np.maximum.at(flat, keys, eb.w.ravel())
+    return flat.reshape(B, N, N)
+
+
 class _Segments(NamedTuple):
     """Precomputed sort-order for repeated segment maxes over fixed keys."""
 
@@ -119,6 +171,7 @@ def _dst_segments(eb: EdgeBatch) -> _Segments:
 
 
 @span_fn("engine.karp_sparse")
+@contract("eb[B,E,N]", ret="[B]")
 def batched_cycle_time_sparse(
     eb: EdgeBatch,
     *,
@@ -168,6 +221,7 @@ def batched_cycle_time_sparse(
     return out
 
 
+@contract("N", "E", "B")
 def cycle_time_engine(num_nodes: int, num_edges: int, batch: int) -> str:
     """Pick the winning Karp engine for a scoring problem size.
 
@@ -187,6 +241,7 @@ def cycle_time_engine(num_nodes: int, num_edges: int, batch: int) -> str:
     return "sparse"
 
 
+@contract("eb[B,E,N]", ret="[B]")
 def batched_cycle_time_auto(
     eb: EdgeBatch, *, dtype: Optional[np.dtype] = None
 ) -> np.ndarray:
@@ -233,6 +288,216 @@ def _sparse_karp_chunk(eb: EdgeBatch, dtype: np.dtype) -> np.ndarray:
     return karp_from_levels(D)
 
 
+@contract("#E", "#E", "#E", "N")
+def cycle_time_sparse(
+    src: Sequence[int], dst: Sequence[int], w: Sequence[float], num_nodes: int
+) -> float:
+    """Max cycle mean of a single edge-list digraph (flat ``[E]`` arrays)."""
+    eb = EdgeBatch(
+        np.asarray(src, dtype=np.int32)[None],
+        np.asarray(dst, dtype=np.int32)[None],
+        np.asarray(w, dtype=np.float64)[None],
+        num_nodes,
+    )
+    return float(batched_cycle_time_sparse(eb)[0])
+
+
+# ---------------------------------------------------------------------------
+# Timing recursion (Eq. 4) over edge lists
+
+
+@contract("eb[B,E,N]", "R", "*[B,N]", ret="[B,R+1,N]")
+def batched_timing_recursion_sparse(
+    eb: EdgeBatch, num_rounds: int, t0: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Eq. 4 max-plus recursion over an edge-list batch.
+
+    ``t_j(k+1) = max over arcs (i -> j) of t_i(k) + w(i, j)``, with a
+    missing self-loop acting as weight 0 (a silo with no modeled
+    computation delay still observes its own previous start) — matching
+    :func:`repro_torch.core.maxplus_vec.batched_timing_recursion` exactly.
+
+    Parameters
+    ----------
+    eb:
+        :class:`EdgeBatch` of B delay digraphs.
+    num_rounds:
+        R, the number of rounds to evolve.
+    t0:
+        Optional ``[B, N]`` initial start times (default zeros).
+
+    Returns
+    -------
+    ``[B, R+1, N]`` start-time trajectories.
+    """
+    B, E = eb.src.shape
+    N = eb.num_nodes
+    dtype = np.float64
+    w = eb.w.astype(dtype, copy=False)
+    present = w > MISSING
+    has_self = np.zeros((B, N), dtype=bool)
+    self_arc = present & (eb.src == eb.dst)
+    bb = np.arange(B)[:, None]
+    np.logical_or.at(has_self, (bb * np.ones_like(eb.src), eb.src), self_arc)
+    seg = _dst_segments(eb)
+    t = (
+        np.zeros((B, N), dtype=dtype)
+        if t0 is None
+        else np.asarray(t0, dtype=dtype).copy()
+    )
+    out = np.empty((B, num_rounds + 1, N), dtype=dtype)
+    out[:, 0] = t
+    for k in range(num_rounds):
+        vals = t[bb, eb.src] + w
+        nxt = _segment_max(vals.ravel(), seg, B * N, dtype).reshape(B, N)
+        t = np.maximum(nxt, np.where(has_self, MISSING, t))
+        out[:, k + 1] = t
+    return out
+
+
+@contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")
+def timing_recursion_unique_rounds_sparse(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w_unique: np.ndarray,
+    round_ids: np.ndarray,
+    num_nodes: int,
+    t0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Eq. 4 recursion with round-varying weights drawn from a pool of
+    distinct weight rows — the kernel behind randomized-schedule (MATCHA)
+    pricing.
+
+    A randomized plan distribution samples a fresh overlay every round,
+    but the *candidate arc pool* (matching arcs + computation self-loops)
+    is fixed: only the weights change (``-inf`` = the arc was not sampled
+    this round), and at realistic budgets many rounds repeat the same
+    activation subset.  So the batch is
+
+    ``src``, ``dst``:
+        ``[E]`` int arc endpoints, shared by every chain and round.
+    ``w_unique``:
+        ``[U, E]`` distinct weight rows (``-inf`` marks an absent arc).
+    ``round_ids``:
+        ``[C, R]`` int — round k of chain c uses graph
+        ``(src, dst, w_unique[round_ids[c, k]])``.  C is the number of
+        independent Monte-Carlo chains (e.g. budgets × seeds).
+
+    The full ``[C, R, E]`` stack is never materialized: each step gathers
+    its ``[C, E]`` weight rows from the pool.  A vertex with no present
+    self-loop at round k observes its own previous start (weight 0),
+    matching :func:`batched_timing_recursion_sparse`.
+
+    Returns ``[C, R+1, N]`` start-time trajectories (``t0``: optional
+    ``[C, N]`` initial starts, default zeros).
+    """
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    w_unique = np.asarray(w_unique, dtype=np.float64)
+    round_ids = np.asarray(round_ids, dtype=np.int64)
+    if w_unique.ndim != 2 or w_unique.shape[1] != src.shape[0]:
+        raise ValueError(
+            f"expected w_unique [U, E] with E == len(src); got "
+            f"{w_unique.shape} vs {src.shape[0]} arcs"
+        )
+    if round_ids.ndim != 2:
+        raise ValueError(f"expected round_ids [C, R], got {round_ids.shape}")
+    C, R = round_ids.shape
+    E = src.shape[0]
+    N = int(num_nodes)
+    self_arc = src == dst
+    # Cheap common case first: every vertex has an always-present self
+    # loop (Eq. 3 pools), so the carry-over merge is a no-op everywhere.
+    sv = src[self_arc]
+    all_self = (
+        np.unique(sv).size == N
+        and bool((w_unique[:, self_arc] > MISSING).all())
+    )
+    has_self_u = None
+    if not all_self:
+        # has_self_u[u, v]: does weight row u carry a self-loop at v?
+        has_self_u = np.zeros((w_unique.shape[0], N), dtype=bool)
+        if sv.size:
+            np.logical_or.at(
+                has_self_u,
+                (np.arange(w_unique.shape[0])[:, None], sv[None, :]),
+                w_unique[:, self_arc] > MISSING,
+            )
+    t = (
+        np.zeros((C, N), dtype=np.float64)
+        if t0 is None
+        else np.asarray(t0, dtype=np.float64).copy()
+    )
+    out = np.empty((C, R + 1, N), dtype=np.float64)
+    out[:, 0] = t
+    # Fast path: when every vertex owns at least one arc slot (true for
+    # Eq. 3 pools, whose N computation self-loops are always present) a
+    # dst-presorted reduceat yields [C, N] directly — no flatten, no
+    # scatter — and the recursion is three numpy calls per round.
+    order = np.argsort(dst, kind="stable")
+    dsts = dst[order]
+    group_starts = np.flatnonzero(np.r_[True, dsts[1:] != dsts[:-1]])
+    full_cover = np.array_equal(dsts[group_starts], np.arange(N))
+    if full_cover:
+        srcs = src[order]
+        # Callers that pre-sort arcs by dst (the pricing hot path) skip
+        # this whole-pool column gather.
+        wu = w_unique if np.array_equal(dsts, dst) else w_unique[:, order]
+        ids_t = np.ascontiguousarray(round_ids.T)  # [R, C] row per step
+        reduceat, maximum = np.maximum.reduceat, np.maximum
+        for k in range(R):
+            ids_k = ids_t[k]
+            vals = t[:, srcs]
+            vals += wu[ids_k]
+            nxt = reduceat(vals, group_starts, axis=1)
+            t = nxt if all_self else maximum(
+                nxt, np.where(has_self_u[ids_k], MISSING, t)
+            )
+            out[:, k + 1] = t
+        return out
+    seg = _segments_by(
+        (np.repeat(np.arange(C, dtype=np.int64), E) * N + np.tile(dst, C))
+    )
+    for k in range(R):
+        vals = t[:, src] + w_unique[round_ids[:, k]]
+        nxt = _segment_max(vals.ravel(), seg, C * N, np.float64).reshape(C, N)
+        t = nxt if all_self else np.maximum(
+            nxt, np.where(has_self_u[round_ids[:, k]], MISSING, t)
+        )
+        out[:, k + 1] = t
+    return out
+
+
+@contract("[E]", "[E]", "[C,R,E]", "N", "*[C,N]", ret="[C,R+1,N]")
+def timing_recursion_time_varying_sparse(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: np.ndarray,
+    num_nodes: int,
+    t0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Eq. 4 recursion with a dense ``[C, R, E]`` round-varying weight
+    stack over a fixed arc layout.
+
+    Convenience wrapper over :func:`timing_recursion_unique_rounds_sparse`
+    with every (chain, round) treated as its own weight row — use the
+    unique-rounds form directly when rounds repeat activation subsets.
+    Returns ``[C, R+1, N]``.
+    """
+    w = np.asarray(w, dtype=np.float64)
+    if w.ndim != 3 or w.shape[-1] != np.asarray(src).shape[0]:
+        raise ValueError(
+            f"expected w [C, R, E] with E == len(src); got {w.shape} vs "
+            f"{np.asarray(src).shape[0]} arcs"
+        )
+    C, R, E = w.shape
+    ids = np.arange(C * R, dtype=np.int64).reshape(C, R)
+    return timing_recursion_unique_rounds_sparse(
+        src, dst, w.reshape(C * R, E), ids, num_nodes, t0
+    )
+
+
+@contract("eb[B,E,N]", ret="[B,N]")
 def reachable_from_sparse(eb: EdgeBatch, start: int = 0) -> np.ndarray:
     """``[B, N]`` bool: vertices reachable from ``start`` (inclusive) by
     the present arcs of each graph.  Frontier propagation to a fixed
@@ -258,6 +523,7 @@ def _reversed_batch(eb: EdgeBatch) -> EdgeBatch:
     return EdgeBatch(eb.dst, eb.src, eb.w, eb.num_nodes)
 
 
+@contract("eb[B,E,N]", ret="[B]")
 def batched_is_strongly_connected_sparse(eb: EdgeBatch) -> np.ndarray:
     """``[B]`` bool: is each edge-list graph strongly connected?
 
@@ -271,6 +537,7 @@ def batched_is_strongly_connected_sparse(eb: EdgeBatch) -> np.ndarray:
     return np.all(fwd & bwd, axis=1)
 
 
+@contract("[E]", "[E]", "N", ret="[N]")
 def scc_labels_sparse(
     src: np.ndarray, dst: np.ndarray, num_nodes: int
 ) -> np.ndarray:
@@ -328,6 +595,7 @@ def _reduced_potentials(
     return pot
 
 
+@contract("[E]", "[E]", "[E]", "N")
 def critical_circuit_sparse(
     src: np.ndarray,
     dst: np.ndarray,
@@ -702,6 +970,7 @@ class DeltaPricer:
 
 
 @span_fn("engine.price_edges")
+@contract(None, None, "#E", "[B,E]", ret="eb[B,E+N,N]")
 def batched_overlay_delay_edges(gc, tp, arcs: Sequence[Arc], masks) -> EdgeBatch:
     """Eq. 3 delay *edge lists* for a batch of candidate overlays.
 
@@ -845,6 +1114,7 @@ def _padded_edge_layout(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     return torch.gather(ssp, 1, table), torch.gather(wsp, 1, table)
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[B]", max_in_degree="*D")
 def batched_cycle_time_sparse_torch(src, dst, w, num_nodes: int, *,
                                     kernel: str = "auto",
                                     max_in_degree: Optional[int] = None
@@ -890,6 +1160,7 @@ def batched_cycle_time_sparse_torch(src, dst, w, num_nodes: int, *,
 # The round-varying timing recursion on a device (torch)
 
 
+@contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")
 def timing_recursion_unique_rounds_sparse_torch(src, dst, w_unique, round_ids, num_nodes: int,
                                                 t0=None) -> torch.Tensor:
     """Eq. 4 recursion with round-varying weights drawn from a pool of

@@ -32,12 +32,15 @@ from typing import Hashable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.contracts import contract
 from ..obs.spans import span_fn
 
 
 # The "absent arc" sentinel of every engine in the port.
 MISSING = float("-inf")
-NEG_INF = MISSING  # the reference's name for it
+# The reference's name for it, kept as an alias (its lint knows only its
+# own sentinel home, so the alias is marked for it).
+NEG_INF = MISSING  # repro-lint: ignore[sentinel-discipline]
 
 # Above this vertex count the boolean matrix-power closure (O(N^3 log N)
 # bits) loses to iterative Tarjan (O(N + E)).
@@ -51,6 +54,7 @@ _DEFAULT_DP_BYTES = 256 << 20
 _DP_CACHE_BYTES = 2 << 20
 
 
+@contract()
 def missing_mask(x) -> np.ndarray:
     """Boolean mask of *absent* arcs: True where ``x`` carries the
     ``MISSING`` sentinel (``np.isneginf``).
@@ -62,6 +66,7 @@ def missing_mask(x) -> np.ndarray:
     return np.isneginf(x)
 
 
+@contract(None, "#N", ret="[N,N]")
 def edges_to_matrix(delays: Mapping[Tuple[Hashable, Hashable], float],
                     nodes: Sequence[Hashable]) -> np.ndarray:
     """Dense ``[N, N]`` weight matrix with ``-inf`` holes from an edge dict."""
@@ -72,12 +77,14 @@ def edges_to_matrix(delays: Mapping[Tuple[Hashable, Hashable], float],
     return W
 
 
+@contract()
 def graph_to_matrix(graph) -> Tuple[np.ndarray, Tuple[Hashable, ...]]:
     """Convert a :class:`repro_torch.core.maxplus.DelayDigraph` to (W, nodes)."""
     return edges_to_matrix(graph.delays, graph.nodes), tuple(graph.nodes)
 
 
 @span_fn("engine.karp_dense")
+@contract("[B,N,N]|[N,N]", ret="[B]|[]")
 def batched_cycle_time(
     weights: np.ndarray,
     *,
@@ -149,6 +156,7 @@ def _karp_chunk(W: np.ndarray) -> np.ndarray:
     return karp_from_levels(D)
 
 
+@contract("[N+1,B,N]", ret="[B]")
 def karp_from_levels(D: np.ndarray) -> np.ndarray:
     """Karp's formula from a precomputed multi-source DP table.
 
@@ -173,11 +181,13 @@ def karp_from_levels(D: np.ndarray) -> np.ndarray:
     return np.max(mins, axis=1)
 
 
+@contract("[N,N]")
 def cycle_time_dense(W: np.ndarray) -> float:
     """Max cycle mean of a single dense weight matrix."""
     return float(batched_cycle_time(np.asarray(W, dtype=np.float64)))
 
 
+@contract("[B,N,N]|[N,N]", ret="[_]")
 def batched_throughput(weights: np.ndarray) -> np.ndarray:
     """1 / tau per graph (inf where tau <= 0 or the graph is acyclic)."""
     tau = np.atleast_1d(batched_cycle_time(weights))
@@ -187,6 +197,7 @@ def batched_throughput(weights: np.ndarray) -> np.ndarray:
     return out
 
 
+@contract("[...,N,N]", ret="[...,N,N]")
 def reachability_closure(adj: np.ndarray) -> np.ndarray:
     """Reflexive-transitive closure of boolean adjacency ``[..., N, N]``.
 
@@ -204,6 +215,7 @@ def reachability_closure(adj: np.ndarray) -> np.ndarray:
     return R
 
 
+@contract("[B,N,N]|[N,N]", ret="[B]|[]")
 def batched_is_strongly_connected(weights: np.ndarray) -> np.ndarray:
     """``[B]`` bool: is each graph (arcs where weight > -inf) strong?
 
@@ -222,6 +234,7 @@ def batched_is_strongly_connected(weights: np.ndarray) -> np.ndarray:
     return ok[0] if single else ok
 
 
+@contract("[N,N]", ret="[N]")
 def scc_labels(adj: np.ndarray, *, dense_threshold: int = _DENSE_SCC_THRESHOLD) -> np.ndarray:
     """Component label per vertex (vertices share a label iff mutually
     reachable).  Matrix-power closure for small N, Tarjan for large N."""
@@ -291,6 +304,7 @@ def _tarjan_labels(A: np.ndarray) -> np.ndarray:
 # Timing recursion (Eq. 4) on dense state
 
 
+@contract("[N,N]", "R", "*[N]", ret="[R+1,N]")
 def timing_recursion_dense(
     W: np.ndarray, num_rounds: int, t0: Optional[np.ndarray] = None
 ) -> np.ndarray:
@@ -308,6 +322,7 @@ def timing_recursion_dense(
     return out[0]
 
 
+@contract("[B,N,N]", "R", "*[B,N]", ret="[B,R+1,N]")
 def batched_timing_recursion(
     W: np.ndarray, num_rounds: int, t0: Optional[np.ndarray] = None
 ) -> np.ndarray:
@@ -329,6 +344,7 @@ def batched_timing_recursion(
     return out
 
 
+@contract("[N,N]", "R")
 def empirical_cycle_time_dense(W: np.ndarray, num_rounds: int = 200) -> float:
     """Estimate tau from the slope of the dense recursion tail."""
     t = timing_recursion_dense(W, num_rounds)
@@ -355,6 +371,7 @@ def _epoch_of(starts: np.ndarray, t: np.ndarray) -> np.ndarray:
     return np.clip(e, 0, starts.shape[-1] - 1)
 
 
+@contract("[E,N,N]", "[E]", "R", "*[N]", ret="[R+1,N]")
 def timing_recursion_piecewise(
     Ws: np.ndarray,
     epoch_starts_ms: np.ndarray,
@@ -384,6 +401,7 @@ def timing_recursion_piecewise(
 
 
 @span_fn("engine.timing_piecewise")
+@contract("[B,E,N,N]", "[B,E]", "R", "*[B,N]", ret="[B,R+1,N]")
 def batched_timing_recursion_piecewise(
     Ws: np.ndarray,
     epoch_starts_ms: np.ndarray,
@@ -424,6 +442,7 @@ def batched_timing_recursion_piecewise(
 # Critical circuit (vectorized tight-subgraph extraction)
 
 
+@contract("[N,N]")
 def critical_circuit_dense(
     W: np.ndarray, *, tau: Optional[float] = None
 ) -> Tuple[float, List[int]]:

@@ -49,6 +49,7 @@ import numpy as np
 
 import torch
 
+from ..analysis.contracts import contract
 from ..obs.spans import span_fn
 from .consensus import local_degree_matrix, metropolis_matrix, ring_matrix
 from .schedule import Schedule, _unique_rows
@@ -72,6 +73,7 @@ RHO_FLOOR = 1e-9
 # Consensus-matrix construction
 
 
+@contract("N", "#E", ret="[N,N]")
 def mixing_matrix(
     num_nodes: int,
     edges: Sequence[Tuple[int, int]],
@@ -109,6 +111,7 @@ def mixing_matrix(
 
 
 @span_fn("engine.mixing_matrices")
+@contract("N", "[E]", "[E]", "[B,E]", ret="[B,N,N]")
 def batched_mixing_matrices(
     num_nodes: int,
     src: np.ndarray,
@@ -166,6 +169,7 @@ def batched_mixing_matrices(
 
 
 @span_fn("engine.mixing_rho")
+@contract("[B,N,N]", ret="[B]")
 def batched_rho(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
     """``[B]`` contraction factors ρ = ‖W − (1/n)·11ᵀ‖₂ of a matrix stack.
 
@@ -189,6 +193,7 @@ def batched_rho(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
 
 
 @span_fn("engine.mixing_gap")
+@contract("[B,N,N]", ret="[B]")
 def batched_spectral_gap(W: np.ndarray, *, symmetric: bool = False) -> np.ndarray:
     """``[B]`` spectral gaps ``1 − ρ`` (see :func:`batched_rho`); the
     batched twin of :func:`repro_torch.core.consensus.spectral_gap`."""
@@ -196,6 +201,7 @@ def batched_spectral_gap(W: np.ndarray, *, symmetric: bool = False) -> np.ndarra
     return one - batched_rho(W, symmetric=symmetric)
 
 
+@contract("[B,N,N]", ret="[B]")
 def batched_rho_torch(W) -> torch.Tensor:
     """Torch twin of :func:`batched_rho` (general SVD path): ``[B]`` ρ of
     a ``[B, N, N]`` stack on its own device, by ``torch.linalg.svdvals``.
@@ -206,6 +212,7 @@ def batched_rho_torch(W) -> torch.Tensor:
     return torch.linalg.svdvals(M)[..., 0]
 
 
+@contract("[B,N,N]", ret="[B]")
 def batched_spectral_gap_torch(W) -> torch.Tensor:
     """Torch twin of :func:`batched_spectral_gap`."""
     W = torch.as_tensor(W)
@@ -228,6 +235,7 @@ def _silo_index(
     return {v: k for k, v in enumerate(silos)}
 
 
+@contract(None, "N", ret="[N,N]")
 def overlay_mixing_matrix(
     overlay, num_nodes: int, *, silos: Optional[Sequence[Node]] = None
 ) -> np.ndarray:
@@ -260,6 +268,7 @@ def overlay_mixing_matrix(
 
 
 @span_fn("engine.overlay_rho")
+@contract(None, "N", ret="[]")
 def overlay_rho(
     overlay, num_nodes: int, *, silos: Optional[Sequence[Node]] = None
 ) -> float:
@@ -269,6 +278,7 @@ def overlay_rho(
 
 
 @span_fn("engine.overlay_rho_batch")
+@contract("#C", "N", ret="[C]")
 def overlay_rho_batch(
     overlays: Sequence, num_nodes: int, *, silos: Optional[Sequence[Node]] = None
 ) -> np.ndarray:
@@ -290,6 +300,7 @@ def overlay_rho_batch(
 
 
 @span_fn("engine.matcha_expected_gram")
+@contract(None, None, ret="[N,N]")
 def matcha_expected_gram(
     schedule,
     gc,
@@ -326,6 +337,7 @@ def matcha_expected_gram(
     return np.einsum("u,uij,uik->jk", p, W, W)
 
 
+@contract("[N,N]", ret="[]")
 def contraction_from_gram(G: np.ndarray) -> float:
     """ρ = sqrt(λ_max(E[WᵀW] − (1/n)·11ᵀ)) of a symmetric Gram average —
     the mean-square per-round consensus contraction of a random W."""
@@ -337,6 +349,7 @@ def contraction_from_gram(G: np.ndarray) -> float:
 
 
 @span_fn("engine.schedule_rho")
+@contract(None, None, ret="[]")
 def schedule_rho(
     schedule: Schedule,
     gc,
@@ -364,6 +377,7 @@ def schedule_rho(
 # The composite objective and the Pareto frontier
 
 
+@contract(ret="[]")
 def wall_clock_to_eps(tau_ms: float, rho: float) -> float:
     """Score a ``(τ, ρ)`` pair as wall clock per e-fold of error decay.
 
@@ -385,6 +399,7 @@ def wall_clock_to_eps(tau_ms: float, rho: float) -> float:
     return tau / -math.log(max(r, RHO_FLOOR))
 
 
+@contract(None, ret="[]")
 def score_estimate(est, objective: str) -> float:
     """Scalarize a priced estimate under ``objective``.
 
@@ -407,6 +422,7 @@ def score_estimate(est, objective: str) -> float:
     raise ValueError(f"unknown objective {objective!r}; one of {OBJECTIVES}")
 
 
+@contract("[C]", "[C]", ret=None)
 def pareto_frontier(taus, rhos) -> np.ndarray:
     """Indices of the (τ, ρ)-non-dominated candidates, sorted by τ.
 

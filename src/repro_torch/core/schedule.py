@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..analysis.contracts import contract
 from ..obs.spans import span_fn
 from .delays import ConnectivityGraph, TrainingParams
 from .matcha import Matcha, greedy_edge_coloring
@@ -531,6 +532,7 @@ def _sweep_inputs(
 
 
 @span_fn("engine.schedule_cycle_times")
+@contract("#S", ret="[S,K]", seeds="#K")
 def average_cycle_times_batched(
     schedules: Sequence[MatchaSchedule],
     gc: ConnectivityGraph,
@@ -564,6 +566,7 @@ def average_cycle_times_batched(
 # Constructors / designer
 
 
+@contract()
 def matcha_schedule_from_connectivity(
     gc: ConnectivityGraph, budget: float = 0.5, *, sample_seed: int = 0
 ) -> MatchaSchedule:
@@ -583,6 +586,7 @@ def matcha_schedule_from_connectivity(
     )
 
 
+@contract()
 def matcha_schedule_from_underlay(
     underlay, budget: float = 0.5, *, sample_seed: int = 0
 ) -> MatchaSchedule:
@@ -597,6 +601,7 @@ def matcha_schedule_from_underlay(
     )
 
 
+@contract()
 def schedule_from_matcha(m: Matcha, *, sample_seed: int = 0) -> MatchaSchedule:
     """Lift a legacy :class:`~repro_torch.core.matcha.Matcha` sampler."""
     return MatchaSchedule(
@@ -606,6 +611,7 @@ def schedule_from_matcha(m: Matcha, *, sample_seed: int = 0) -> MatchaSchedule:
     )
 
 
+@contract()
 def design_matcha_schedule(
     gc: ConnectivityGraph,
     tp: TrainingParams,

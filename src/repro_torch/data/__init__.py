@@ -1,4 +1,5 @@
-from .partition import dirichlet_vocab_partition
+from .partition import dirichlet_vocab_partition, jensen_shannon, lognormal_sizes
 from .pipeline import FederatedBatcher, SyntheticLMStream
 
-__all__ = ["FederatedBatcher", "SyntheticLMStream", "dirichlet_vocab_partition"]
+__all__ = ["FederatedBatcher", "SyntheticLMStream", "dirichlet_vocab_partition",
+           "jensen_shannon", "lognormal_sizes"]

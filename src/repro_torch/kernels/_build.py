@@ -10,6 +10,9 @@ without ``nvcc``.
 
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them — the way a run that needs every kernel should build them.
+``BUILDS`` and ``LOADS`` count, per library, the compilations and the
+``ctypes`` loads this process made: a run builds and loads each library
+at most once (``chip_smoke.py`` checks it).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+BUILDS: Dict[str, int] = {}
+LOADS: Dict[str, int] = {}
 
 
 def kernel_sources() -> List[str]:
@@ -74,6 +79,7 @@ def _finish(name: str, out: Path, tmp: Path, proc: subprocess.Popen) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    BUILDS[name] = BUILDS.get(name, 0) + 1
     return log
 
 
@@ -102,4 +108,5 @@ def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
     if not library_path(name).exists():
         build_all([name])
+    LOADS[name] = LOADS.get(name, 0) + 1
     return ctypes.CDLL(str(library_path(name)))

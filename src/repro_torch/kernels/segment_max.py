@@ -50,6 +50,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..analysis.contracts import contract
+
 # dtype codes of the C interface (csrc/segment_max.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 _HALF = (torch.float16, torch.bfloat16)
@@ -62,6 +64,7 @@ def _check_float(vals: torch.Tensor) -> None:
                         f"is float-only); got {vals.dtype}")
 
 
+@contract("[B,E]", "[B,E]", "S", ret="[B,S]")
 def edge_segment_max_ref(vals: torch.Tensor, seg_ids: torch.Tensor,
                          num_segments: int) -> torch.Tensor:
     """``out[b, s] = max vals[b, e]`` over ``seg_ids[b, e] == s`` in plain
@@ -85,6 +88,7 @@ def edge_segment_max_ref(vals: torch.Tensor, seg_ids: torch.Tensor,
     return out[:, :S].to(vals.dtype)
 
 
+@contract()
 def select_segment_max_impl(kernel: str = "auto", *, padded: bool = False,
                             device: torch.device = torch.device("cpu")) -> str:
     """Resolve a segment-max implementation name for the Karp recursion.
@@ -156,6 +160,7 @@ def _raise_on(err: int, what: str, lib: _Lib) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
 
 
+@contract("[B,E]", "[B,E]", "S", ret="[B,S]")
 def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
                           num_segments: int) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Takes
@@ -190,6 +195,7 @@ def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
 # Karp's max cycle mean
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N")
 def check_karp_inputs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                       num_nodes: int) -> None:
     """Types and shapes of a Karp score, and, for tensors off the card,
@@ -220,6 +226,7 @@ def _check_ids_on_host(N: int, *ids: torch.Tensor) -> None:
             raise ValueError(f"ids must lie in [0, {N}); got [{int(t.min())}, {int(t.max())}]")
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N")
 def karp_scatter_step(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                       num_nodes: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """One Karp level ``D_k = max over arcs of D_{k-1}[src] + w`` as a
@@ -236,6 +243,7 @@ def karp_scatter_step(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     return step
 
 
+@contract(None, "B", "N", ret="[B]")
 def karp_from_step(step: Callable[[torch.Tensor], torch.Tensor], B: int, N: int,
                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Karp's max cycle means from N applications of ``step`` to ``D_0 = 0``:
@@ -257,6 +265,7 @@ def karp_from_step(step: Callable[[torch.Tensor], torch.Tensor], B: int, N: int,
     return mins.amax(dim=1)
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[B]")
 def karp_cycle_time_ref(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                         num_nodes: int) -> torch.Tensor:
     """``[B]`` max cycle means of ``[B, E]`` arc lists (``-inf`` weights
@@ -267,6 +276,7 @@ def karp_cycle_time_ref(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     return karp_from_step(karp_scatter_step(src, dst, w, N), w.shape[0], N, w.dtype, w.device)
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[B]")
 def karp_cycle_time_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                          num_nodes: int) -> torch.Tensor:
     """One persistent launch for a batch of Karp scores, on PyTorch's
@@ -298,6 +308,7 @@ def karp_cycle_time_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 # Reachability from vertex 0, forward and backward
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N")
 def check_reach_inputs(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
                        num_nodes: int) -> None:
     """Types and shapes of a reachability call, and, for tensors off the
@@ -314,6 +325,7 @@ def check_reach_inputs(src: torch.Tensor, dst: torch.Tensor, present: torch.Tens
     _check_ids_on_host(N, src, dst)
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[2,B,N]")
 def reach_from_zero_ref(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
                         num_nodes: int) -> torch.Tensor:
     """``[2, B, N]`` bool: the vertices reachable from vertex 0 along
@@ -339,6 +351,7 @@ def reach_from_zero_ref(src: torch.Tensor, dst: torch.Tensor, present: torch.Ten
     return torch.stack([reach(src, (boff + dst).ravel()), reach(dst, (boff + src).ravel())])
 
 
+@contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[2,B,N]")
 def reach_from_zero_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
                          num_nodes: int) -> torch.Tensor:
     """One launch for both directions, on PyTorch's current stream.  Takes
@@ -370,6 +383,7 @@ def reach_from_zero_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Te
 _TIMING_DTYPES = (torch.float32, torch.float64)
 
 
+@contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]")
 def check_timing_inputs(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
                         round_ids: torch.Tensor, num_nodes: int,
                         t0: Optional[torch.Tensor] = None) -> None:
@@ -399,6 +413,7 @@ def check_timing_inputs(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Te
     _check_ids_on_host(w_unique.shape[0], round_ids)
 
 
+@contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")
 def timing_recursion_ref(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
                          round_ids: torch.Tensor, num_nodes: int,
                          t0: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -436,6 +451,7 @@ def timing_recursion_ref(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.T
     return out
 
 
+@contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")
 def timing_recursion_cuda(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
                           round_ids: torch.Tensor, num_nodes: int,
                           t0: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -86,13 +86,18 @@ def config(n_silos: int, opts: Options):
 def digest(t: torch.Tensor) -> Tuple[int, float]:
     """``(sum of the float32 bit patterns as integers, float64 sum)`` of a
     flat row, a chunk at a time: equal rows give equal digests."""
-    bits, total = 0, 0.0
     flat = t.reshape(-1)
-    for lo in range(0, flat.numel(), DIGEST_CHUNK):
-        part = flat[lo:lo + DIGEST_CHUNK]
-        bits += int(part.view(torch.int32).sum(dtype=torch.int64))
-        total += float(part.sum(dtype=torch.float64))
-    return bits, total
+    parts = [flat[lo:lo + DIGEST_CHUNK] for lo in range(0, flat.numel(), DIGEST_CHUNK)]
+    if not parts:
+        return 0, 0.0
+    # one read-back of the per-chunk sums, then the same left-to-right
+    # float64 additions as chunk-by-chunk reads would make
+    bits = torch.stack([p.view(torch.int32).sum(dtype=torch.int64) for p in parts]).tolist()
+    sums = torch.stack([p.sum(dtype=torch.float64) for p in parts]).tolist()
+    total = 0.0
+    for x in sums:
+        total += x
+    return sum(bits), total
 
 
 def run_entries(mesh, opts: Options) -> Dict[str, Any]:
@@ -158,9 +163,9 @@ def run_entries(mesh, opts: Options) -> Dict[str, Any]:
                                                     ("mu", state["opt_state"]["mu"]),
                                                     ("nu", state["opt_state"]["nu"]))}}
         ref = held.setdefault(kind, state["params"].clone())
-        rec["max_abs_diff_params"] = max(
-            (float((state["params"][lo:lo + DIGEST_CHUNK] - ref[lo:lo + DIGEST_CHUNK])
-                   .abs().max()) for lo in range(0, P, DIGEST_CHUNK)), default=0.0)
+        diffs = [(state["params"][lo:lo + DIGEST_CHUNK] - ref[lo:lo + DIGEST_CHUNK]).abs().max()
+                 for lo in range(0, P, DIGEST_CHUNK)]
+        rec["max_abs_diff_params"] = float(torch.stack(diffs).max()) if diffs else 0.0
         if last[kind] == i:
             del held[kind]
         if opts.keep_rows:

@@ -500,3 +500,31 @@ def test_undeployable_rewire_result_is_left_out(monkeypatch):
                                            rewire_steps=5, device="cpu")
     assert directed not in pool and scored == 4 + 16 + 2 * 5
     assert all(ctl._deployable(ov, gc) for ov in pool)
+
+
+def test_contract_violation_on_the_rewire_path_is_not_dropped(monkeypatch):
+    """A ``ContractError`` is a ``TypeError`` only: the pool, which skips
+    a search that raises ``ValueError``, lets a contract violation on the
+    climb's K1 reach call through instead of dropping the rewire
+    candidate.  With checks off the wrapper's own ``ValueError`` is what
+    the climb raises, and the pool drops the candidate, as the reference's
+    does."""
+    import repro_torch.core.topologies as PT
+    from repro_torch.analysis import contracts
+
+    _, gc, tp, _ = _gaia(PORT)
+    real = PT.reach_from_zero
+    monkeypatch.setattr(PT, "reach_from_zero",
+                        lambda src, dst, present, n: real(src, dst[:, :-1], present, n))
+    kw = dict(n_candidates=16, rewire_restarts=2, rewire_steps=5, rewire_engine="jit",
+              device="cpu")
+    was = contracts.checking_enabled()
+    try:
+        contracts.enable()
+        with pytest.raises(contracts.ContractError, match="reach_from_zero_ref: argument 'dst'"):
+            ctl._overlay_candidates(gc, tp, **kw)
+        contracts.disable()
+        pool, scored = ctl._overlay_candidates(gc, tp, **kw)
+        assert all(ov.name != "sparse_rewire" for ov in pool) and scored == 4 + 16
+    finally:
+        (contracts.enable if was else contracts.disable)()

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it (the step functions and the
-optimizers included) loads neither JAX nor the JAX package, no file of
-it (or chip_smoke.py) imports either, its entry
+"""The port stands alone: importing it (the step functions, the
+optimizers and the analysis layer included) loads neither JAX nor the
+JAX package, the shape contracts load neither torch nor numpy, no file
+of it (or chip_smoke.py) imports either, its entry
 points refuse to fall back to the CPU, and chip_smoke.py fails without
 a GPU."""
 
@@ -144,6 +145,39 @@ def test_mesh_loads_neither_jax_nor_reference():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert REPO / "src" / "repro_torch" / "launch" / "mesh.py" in PORT_FILES
+
+
+def test_analysis_and_lint_load_neither_jax_nor_reference():
+    code = (
+        "import sys, repro_torch.analysis, repro_torch.analysis.lint\n"
+        "import repro_torch.analysis.recompile, repro_torch.analysis.rules\n"
+        "from repro_torch.analysis.lint import default_paths, lint_source\n"
+        "lint_source('import torch\\ntorch.manual_seed(0)\\n')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for rel in ("analysis/lint.py", "analysis/dataflow.py", "analysis/protocols.py",
+                "analysis/recompile.py", "analysis/rules/slot_protocol.py"):
+        assert REPO / "src" / "repro_torch" / rel in PORT_FILES
+
+
+def test_contracts_load_neither_torch_nor_numpy():
+    """Every engine module imports the contracts at load: they stay stdlib."""
+    code = (
+        "import sys, repro_torch.analysis.contracts\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'torch', 'numpy'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert REPO / "src" / "repro_torch" / "analysis" / "contracts.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -12,10 +12,15 @@ and ``jnp.take_along_axis``).  A numpy emulation of the kernel's
 arithmetic -- each add, subtraction and division rounded once to the
 input type -- equals the plain version bit for bit in all four dtypes."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro_torch.analysis import contracts  # noqa: E402
+from repro_torch.analysis.contracts import ContractError  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -214,6 +219,19 @@ def _good(B=2, E=6, n=4):
     return src, dst, torch.ones((B, E)), torch.ones((B, E), dtype=torch.bool), n
 
 
+
+@contextlib.contextmanager
+def _checks(on):
+    """The port's contract checks on (True), off (False) or as they are
+    (None), as they were after."""
+    was = contracts.checking_enabled()
+    if on is not None:
+        (contracts.enable if on else contracts.disable)()
+    try:
+        yield
+    finally:
+        (contracts.enable if was else contracts.disable)()
+
 @pytest.mark.parametrize("case", ["w_int", "w_half_ok_but_cpu", "ids_float", "ids_bool",
                                   "shape", "not_2d", "n_zero", "src_high", "dst_negative"])
 def test_cuda_wrappers_check_their_inputs(case):
@@ -242,14 +260,21 @@ def test_cuda_wrappers_check_their_inputs(case):
         dst = dst.clone()
         dst[0, 0] = -1
     match = "CUDA" if case == "w_half_ok_but_cpu" else None
-    with pytest.raises(err, match=match):
-        karp_cycle_time_cuda(src, dst, w, n)
     if case == "w_int":  # reachability takes no weights: a float mask is its type error
-        present = present.float()
-    with pytest.raises(err, match=match):
-        reach_from_zero_cuda(src, dst, present, n)
-    if case != "w_half_ok_but_cpu":  # the dispatching wrappers' plain path checks the same
-        with pytest.raises(err):
-            karp_cycle_time(src, dst, w, n)
-        with pytest.raises(err):
-            reach_from_zero(src, dst, present, n)
+        present_arg = present.float()
+    else:
+        present_arg = present
+    # A shape the contracts refuse raises their ContractError (a TypeError)
+    # with checks on, and the wrappers' own ValueError with them off.
+    modes = ((True, ContractError), (False, err)) if case in ("shape", "not_2d") else ((None, err),)
+    for checked, want in modes:
+        with _checks(checked):
+            with pytest.raises(want, match=match):
+                karp_cycle_time_cuda(src, dst, w, n)
+            with pytest.raises(want, match=match):
+                reach_from_zero_cuda(src, dst, present_arg, n)
+            if case != "w_half_ok_but_cpu":  # the dispatching wrappers' plain path checks the same
+                with pytest.raises(want):
+                    karp_cycle_time(src, dst, w, n)
+                with pytest.raises(want):
+                    reach_from_zero(src, dst, present_arg, n)

@@ -15,10 +15,15 @@ order-preserving integer keys, the atomicMax fold, the carry folded as one
 more max and the parity-stamped self-loop flags -- equals the plain
 version bit for bit."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro_torch.analysis import contracts  # noqa: E402
+from repro_torch.analysis.contracts import ContractError  # noqa: E402
 
 import repro.core.maxplus_sparse as ref_sparse  # noqa: E402
 import repro_torch.core.maxplus_sparse as port_sparse  # noqa: E402
@@ -64,6 +69,19 @@ CASES = [
     (3, 1, 2, 1, 5, False, True, False),
 ]
 
+
+
+@contextlib.contextmanager
+def _checks(on):
+    """The port's contract checks on (True), off (False) or as they are
+    (None), as they were after."""
+    was = contracts.checking_enabled()
+    if on is not None:
+        (contracts.enable if on else contracts.disable)()
+    try:
+        yield
+    finally:
+        (contracts.enable if was else contracts.disable)()
 
 @pytest.mark.parametrize("case", CASES, ids=[f"case{i}" for i in range(len(CASES))])
 def test_plain_bit_identical_to_reference_unique_rounds(case):
@@ -233,5 +251,11 @@ def test_cuda_wrapper_checks_its_inputs(case):
     elif case == "round_high":
         ids = ids.clone()
         ids[1, 3] = 2
-    with pytest.raises(err, match=match):
-        timing_recursion_cuda(src, dst, w, ids, n, t0)
+    # A shape the contract refuses raises its ContractError (a TypeError)
+    # with checks on, and the wrapper's own ValueError with them off.
+    modes = ((True, ContractError), (False, err)) if case in ("w_shape", "ids_1d", "t0_shape") \
+        else ((None, err),)
+    for checked, want in modes:
+        with _checks(checked):
+            with pytest.raises(want, match=match):
+                timing_recursion_cuda(src, dst, w, ids, n, t0)
