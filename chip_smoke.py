@@ -68,11 +68,14 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    pools: C in {1, 3, 24, 64} x R in {1, 2, 17, 150, 300} x U in {1, 5, 24,
    64} x N in {2, 11, 87, 256, 512} x E in {1, N, 3N, 2048}, missing
    self-loops, all -inf rows, a dst that covers only part of the nodes,
-   t0, float32 and float64), and times it in turns with its plain version
-   at the repo's engine shape (N = 64, a degree-8 random-geometric base
-   graph, 8 budgets x 8 seeds x 300 rounds) and at Ebone's design shape (8
-   budgets x 3 seeds x 150 rounds), beside its bound and its device time
-   (the profiler must see all 20 launches of a timed window);
+   t0, float32 and float64, and 12 pools whose chain count C spreads each
+   chain over a cluster of 1, 2, 4 and 8 CTAs, odd E), and times it in
+   turns with its plain version at the repo's engine shape (N = 64, a
+   degree-8 random-geometric base graph, 8 budgets x 8 seeds x 300 rounds)
+   and at Ebone's design shape (8 budgets x 3 seeds x 150 rounds), beside
+   its bound, its device time (the profiler must see all 20 launches of a
+   timed window), its layout (cluster size, ring depth, ms a round) and
+   the compiler's registers, shared memory and spills of ``timing_kernel``;
 11. drives the MATCHA design path: ``design_schedule("matcha", ...)`` on
    the card at the reference's defaults on the paper's five networks,
    each with the counts set to 0 just before it and read just after: one
@@ -1284,7 +1287,8 @@ def timing_kernel_phase(torch, dev) -> dict:
                                   matcha_schedule_from_connectivity)
     from repro_torch.core.schedule import _sweep_inputs
     from repro_torch.kernels import LAUNCHES, timing_recursion
-    from repro_torch.kernels.segment_max import timing_recursion_ref
+    from repro_torch.kernels.segment_max import (TIMING_MIN_ARCS_PER_CTA, timing_plan_on_card,
+                                                 timing_recursion_ref)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     pick = random.Random(6)
@@ -1305,11 +1309,31 @@ def timing_kernel_phase(torch, dev) -> dict:
               f"timing C={C} R={R} U={U} E={E} N={N} {dtype} carry={carry} t0={with_t0} "
               f"partial={partial} differs from its plain version")
         n_cases += 1
+    # C picks the cluster: a chain over 8, 4, 2 or 1 CTAs, E odd, N not a
+    # multiple of the cluster, the last (all -inf) row in the last round
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    reached = {}
+    for i, (cluster, dtype) in enumerate((cs, dt) for cs in (8, 4, 2, 1) for dt in (
+            torch.float32, torch.float64, torch.float64)):
+        C = sms // cluster if cluster > 1 else sms // 2 + 1
+        E, N, R, U = 8 * TIMING_MIN_ARCS_PER_CTA + 1 + 2 * i, (87, 64, 100)[i % 3], 40, 9
+        src, dst, w, ids, t0 = timing_case(torch, gen, dev, C, R, U, E, N, dtype, True,
+                                           i % 2 == 0, i % 3 == 1)
+        ids[:, -1] = U - 1
+        plan = timing_plan_on_card(C, E, N, dtype, dev)
+        got = timing_recursion(src, dst, w, ids, N, t0)
+        torch.cuda.synchronize()
+        check(plan.cluster == cluster and torch.equal(got, timing_recursion_ref(
+            src, dst, w, ids, N, t0)), f"timing C={C} E={E} N={N} {dtype} {plan} differs from "
+              f"its plain version (want cluster {cluster})")
+        reached[cluster] = reached.get(cluster, 0) + 1
+        n_cases += 1
     check(LAUNCHES["timing"] - before == n_cases, "the sweep's launches were not counted one per call")
     print(f"kernel timing_recursion: sweep C in (1,3,24,64) x R in (1,2,17,150,300) x U in "
           f"(1,5,24,64) x N in (2,11,87,256,512) x E in (1,N,3N,2048), missing self-loops, all--inf "
-          f"rows, partial dst cover, t0, f32/f64 ({n_cases} cases): bit-identical to the plain "
-          f"version")
+          f"rows, partial dst cover, t0, f32/f64, and clusters of 8/4/2/1 CTAs a chain "
+          f"({reached} cases at E odd) ({n_cases} cases): bit-identical to the plain version")
+    ptxas = timing_kernel_resources()
 
     M, Tc = WORKLOADS["inaturalist"]
     tp = TrainingParams(model_size_mbits=M, local_steps=1)
@@ -1348,14 +1372,39 @@ def timing_kernel_phase(torch, dev) -> dict:
         _, plain_kernels = device_kernels(torch, lambda: timing_recursion_ref(src, dst, w, ids, N),
                                           lead_in=True)
         plain_launches = sum(c for c, _ in plain_kernels.values())
+        plan = timing_plan_on_card(C, E, N, w.dtype, dev)
         print(f"kernel timing_recursion C={C} R={R} U={U} E={E} N={N} f64 ({name}), in turns: ms "
               f"{fmt_times(times['kernel'])}  device_ms {dev_ms:.5f} (profile window {windows})  "
               f"plain_ms {fmt_times(times['plain'])} ({plain_launches} device kernels a call)  "
-              f"library_ms null  bound_ms {bound:.6f} ({by})  max_abs_err {err:.3g}")
+              f"library_ms null  bound_ms {bound:.6f} ({by})  max_abs_err {err:.3g}; cluster "
+              f"{plan.cluster} x {plan.arcs_per_cta} arcs, ring {plan.stages} rounds, smem "
+              f"{plan.smem_bytes} B a CTA, ms a round {mean['kernel'] / R:.6f}; "
+              f"{ptxas[(w.dtype == torch.float64, plan.stages > 0)]}")
         shapes[name] = {"ms": mean["kernel"], "device_ms": dev_ms, "plain_ms": mean["plain"],
                         "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-                        "library_ms": None, "plain_launches": plain_launches}
+                        "library_ms": None, "plain_launches": plain_launches,
+                        "cluster": plan.cluster, "stages": plan.stages}
     return shapes
+
+
+def timing_kernel_resources() -> dict:
+    """``-Xptxas -v``'s registers, shared memory and spills of each
+    ``timing_kernel<T, staged>`` instantiation, from the build log of
+    ``segment_max.cu``: {(float64?, staged?): text}."""
+    from repro_torch.kernels._build import BUILD_DIR
+
+    log = (BUILD_DIR / "segment_max.log").read_text().splitlines()
+    found = {}
+    for i, line in enumerate(log):
+        m = re.search(r"Function properties for \S*timing_kernelI([fd])Lb([01])E", line)
+        if m:
+            props = " ".join(x.split(":", 1)[-1].strip() for x in log[i + 1:i + 3])
+            found[(m.group(1) == "d", m.group(2) == "1")] = (
+                f"timing_kernel<{'double' if m.group(1) == 'd' else 'float'}, "
+                f"{'staged' if m.group(2) == '1' else 'in place'}>: {props}")
+    check(len(found) == 4, f"the build log lists {len(found)} of the 4 timing_kernel "
+          f"instantiations")
+    return found
 
 
 def matcha_design_phase(torch, dev) -> dict:

@@ -15,6 +15,13 @@ prints five means of 50 calls on CUDA events and a digest of the output
 (equal digests: equal results across checkouts).  To compare two
 versions on one card, unpack the parent beside the change and give the
 checkouts in turns: parent, change, change, parent.
+
+    python3 scripts/port_timing_ab.py --plans PATH/TO/CHECKOUT
+
+times, at the same two shapes, every layout the checkout's cluster kernel
+can take (``TimingPlan``: 1, 2, 4 or 8 CTAs a chain, a ring of 0, 2 or 4
+rounds) beside the one its ``timing_plan`` picks, each held to the plain
+version bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def time_checkout(root: Path) -> None:
+def time_checkout(root: Path, plans: bool = False) -> None:
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -69,14 +76,56 @@ def time_checkout(root: Path) -> None:
         times = [time_ms(torch, lambda: timing_recursion(src, dst, w, ids, N), reps=50)
                  for _ in range(5)]
         bound, by = timing_bound(C, R, U, E, N, 8)
+        if plans:
+            time_plans(torch, name, src, dst, w, ids, N, R, bound, digest)
+            continue
         print(f"timing_ab {root} {name} C={C} R={R} U={U} E={E} N={N} f64: ms {fmt_times(times)} "
               f"mean {sum(times) / len(times):.5f}  bound_ms {bound:.6f} ({by})  digest {digest}  "
               f"({torch.cuda.get_device_name(0)})", flush=True)
 
 
+def time_plans(torch, name, src, dst, w, ids, N, R, bound, digest) -> None:
+    """Every layout of the cluster kernel at one shape, in turns (each
+    plan twice, the grid walked forward then back), the picked one marked."""
+    from repro_torch.kernels.segment_max import (TimingPlan, _library, _launch_timing,
+                                                 timing_plan_on_card, timing_smem_bytes)
+
+    from chip_smoke import time_ms
+
+    (U, E), (C, _) = w.shape, ids.shape
+    picked = timing_plan_on_card(C, E, N, w.dtype, w.device)
+    cap = int(_library().timing_smem_cap())
+    grid = []
+    for cluster in (1, 2, 4, 8):
+        arcs = -(-E // cluster)
+        for stages in (0, 2, 4):
+            plan = TimingPlan(cluster, arcs, stages,
+                              timing_smem_bytes(N, arcs, stages, 8, cluster))
+            if plan.smem_bytes <= cap:
+                grid.append(plan)
+    times = {p: [] for p in grid}
+    for p in grid + grid[::-1]:
+        got = _launch_timing(src, dst, w, ids, N, None, p)
+        if hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16] != digest:
+            raise SystemExit(f"port_timing_ab {name} {p}: differs from the plain version")
+        times[p].append(time_ms(torch, lambda: _launch_timing(src, dst, w, ids, N, None, p),
+                                reps=50))
+    for p, ts in times.items():
+        mean = sum(ts) / len(ts)
+        mark = "  <- timing_plan" if (p.cluster, p.stages) == (picked.cluster,
+                                                               picked.stages) else ""
+        print(f"timing_plans {name} C={C} R={R} U={U} E={E} N={N} f64 cluster {p.cluster} "
+              f"arcs/CTA {p.arcs_per_cta} stages {p.stages} smem {p.smem_bytes}: ms "
+              f"{ts[0]:.4f} / {ts[1]:.4f}  ms a round {mean / R:.6f}  bound_ms {bound:.6f}{mark}",
+              flush=True)
+
+
 def main(argv: list) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         time_checkout(Path(argv[1]).resolve())
+        return 0
+    if len(argv) == 2 and argv[0] == "--plans":
+        time_checkout(Path(argv[1]).resolve(), plans=True)
         return 0
     if not argv:
         print(__doc__.strip(), file=sys.stderr)

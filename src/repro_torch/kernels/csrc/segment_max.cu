@@ -69,23 +69,48 @@
 // does, so the result equals the plain version bit for bit.
 // Reachability sets a byte per vertex, in place, and stops at the first
 // hop that changes nothing (__syncthreads_or): r only grows, so the
-// fixpoint is the same set that N - 1 synchronous hops reach.  The timing
-// recursion runs one block per chain over all R rounds, one barrier a
-// round where the reference has a lax.scan step: t lives in shared memory
-// as keys in three rotating buffers (read t(k), fold t(k+1), reset the
-// third), each round is one pass over the E arcs reading their ids and
-// weight row ids[c, k] from global memory (L1- and L2-resident at MATCHA's
-// sizes), and the carry is one more atomicMax of t_v(k) into t_v(k+1), so
-// it needs no barrier of its own.  Whether a row has a present self-loop at v is
-// known before its round: the pass of round k also stamps, for round
-// k + 1's row, each v with a present self-loop (two stamp buffers by
-// parity, so a stamp is written only while nobody reads it), and round
-// 0's stamps are set before the rounds.  Every add is __dadd_rn (or
-// __fadd_rn) and max is exact, so the result is the plain version's and
-// the reference's numpy host engine's bit for bit.  An id outside [0, N)
-// in any recursion, or a round id outside [0, U), stops the kernel
-// (__trap), which the caller sees as a CUDA error at the next synchronise,
-// as with torch's own indexing kernels.
+// fixpoint is the same set that N - 1 synchronous hops reach.  An id
+// outside [0, N) in any recursion, or a round id outside [0, U), stops the
+// kernel (__trap), which the caller sees as a CUDA error at the next
+// synchronise, as with torch's own indexing kernels.
+//
+// The timing recursion spreads each chain over a thread-block cluster of
+// cs CTAs (cs in {1, 2, 4, 8} and the split of the arcs come from
+// segment_max.py::timing_plan: C * cs up to the card's SMs while each CTA
+// keeps at least 256 arcs and its inbox fits).  CTA r folds a contiguous
+// 1/cs of the arcs, which it groups by dst once, with a counting sort in
+// shared memory.  The weights of round k+1 do not depend on t(k), so the
+// block's last warp (the producer) fetches the CTA's slice of each round's
+// weight row `stages` rounds ahead (2 to 4) into a shared-memory ring: one
+// bulk copy (TMA, cp.async.bulk) of the 16-byte-aligned window around the
+// slice, on one mbarrier a slot, plus a cp.async of the last elements
+// where the window would pass the end of w (a row of odd E in float64
+// starts 8 bytes off a 16-byte boundary; the window is rounded out, and
+// the slice's offset in it is kept beside the slot).  The producer also
+// writes the CTA's 1/cs of the nodes of each t(k) to out.  The other warps
+// (the consumers) fold: a group of G lanes per dst (G the power of two up
+// to 32 below the CTA's mean arcs a dst) takes its arcs' t_u(k) + w, a
+// running max of order-preserving keys a lane, then the group's max and
+// the OR of its present self-loops by redux or shuffles: the CTA's partial
+// for that dst, with no atomic.  With cs > 1 the group's first lane pushes
+// {partial, flag} into every CTA's inbox with st.async, which completes
+// its bytes on the receiving CTA's inbox mbarrier; each CTA arms that
+// barrier for the round's bytes, waits on it, and reduces its inbox into
+// its own copy of t(k+1): the max of the cs partials, with the carry
+// t_v(k) when no CTA flagged v.  A round thus needs no cluster barrier and
+// no fence: the barrier.cluster round (a release in every warp is a
+// GPU-scope MEMBAR that also waits for the stores to out) and the DSMEM
+// reads after it cost more than the fold.  Inboxes alternate by round
+// parity; a CTA pushes round k+2 only after it received every CTA's round
+// k+1, which each sent after reducing round k, so no slot is overwritten
+// before it is read.  With cs = 1 the partials stay in shared memory
+// behind a block barrier.  A plan whose slice does not fit shared memory
+// (E past about 9,000 arcs a CTA in float64, or N near its limit) reads
+// arcs and weights from global memory in the fold instead, one
+// shared-memory atomicMax an arc, and pushes every node's partial after a
+// consumer barrier (stages = 0).  Every add is __dadd_rn (or __fadd_rn)
+// and max is exact and order-free, so any split or order of the arcs gives
+// the plain version's and the reference's numpy host engine's bits.
 //
 // Bound.  The standalone kernel reads each value and id once and writes
 // each output once, (B*E*(sizeof(T) + 4) + B*S*sizeof(T)) bytes, with one
@@ -95,19 +120,19 @@
 // read, B*sizeof(T) written) and its operations (2*B*N*E adds and maxima
 // plus 3*B*N*N for the final formula); its real floor is the chain of N
 // dependent levels, one barrier and one pass over the row's arcs each,
-// which no amount of parallelism across rows removes.  A wide row could
-// spread over a thread-block cluster, sharing the level through
-// distributed shared memory; that is left to a later change.  The timing
+// which no amount of parallelism across rows removes.  The timing
 // recursion's least time is the larger of its bytes (the U*E*sizeof(T)
 // distinct weight rows, E*8 arc ids and C*R*4 round ids read once,
 // C*(R+1)*N*sizeof(T) written) and its operations (2*C*R*E adds and
-// maxima); its real floor is the chain of R dependent rounds, one barrier
-// and one pass over the arcs each.  C is 24 to 64 chains at MATCHA's
-// sizes, so most of the 132 SMs idle: spreading a chain over a cluster is
-// later work too.
+// maxima).  Its weights are not cache-resident (U*E*8 is 190.8 MB at
+// Ebone's design shape, past the 50 MB L2), which is why they are fetched
+// ahead of the chain; what the chain itself costs is R times one cluster
+// barrier, one block barrier, one pass over a CTA's arcs in shared memory
+// and the DSMEM reduce of N nodes (PERF.md has the measured ms a round).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -487,103 +512,505 @@ cudaError_t launch_karp(const void* src, const void* dst, const void* w, void* l
   return cudaGetLastError();
 }
 
-// One block per chain c.  src and dst are read from global memory every
-// round (L1-resident at MATCHA's sizes): staging them in shared memory
-// measured 1.5 % faster at Ebone's design shape and 1.6 % slower at the
-// engine shape on an H100 (scripts/port_timing_ab.py), so it is not kept.
+// ---------------------------------------------------------------------------
+// The round-varying Eq. 4 timing recursion: one thread-block cluster a chain
+
+constexpr int kMaxStages = 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Spin until the barrier has completed its phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrive on the barrier (release) and add `bytes` to the transfer count its
+// current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, completing on
+// the barrier's transfer count.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One element from global to shared memory, asynchronously (4 or 8 bytes).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+
+// The barrier's current phase counts this thread's arrival once every
+// cp.async it has issued so far has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// The address that `addr` of this CTA's shared memory has in CTA `rank`'s
+// (distributed shared memory).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t a) {
+  int x;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(x) : "r"(a));
+  return x;
+}
+
+// The barrier across the cluster, used once before the rounds and once
+// after them: the block barrier orders every thread's shared-memory
+// accesses before thread 0's cluster-scope fence, whose cumulativity
+// publishes them to the cluster before its relaxed arrival.
+__device__ __forceinline__ void cluster_barrier() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store {key, flag} into another CTA's shared memory (both addresses in
+// the cluster's window); the store completes its bytes on that CTA's
+// mbarrier, which is what orders it for the reader: no fence, no barrier.
+__device__ __forceinline__ void push(uint32_t slot, unsigned long long key, unsigned long long flag,
+                                     uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u64 [%0], {%1, %2}, [%3];\n" ::"r"(
+          slot),
+      "l"(key), "l"(flag), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void push(uint32_t slot, unsigned int key, unsigned int flag,
+                                     uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          slot),
+      "r"(key), "r"(flag), "r"(bar)
+      : "memory");
+}
+
+// Wait for the phase of the given parity, acquiring what completed it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The largest key of a whole warp: redux on the high 32 bits, then on the
+// low 32 bits of the lanes that hold the high maximum.
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long key) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mhi = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned mlo = __reduce_max_sync(0xffffffffu, hi == mhi ? lo : 0u);
+  return ((unsigned long long)mhi << 32) | mlo;
+}
+
+__device__ __forceinline__ unsigned int warp_max(unsigned int key) {
+  return __reduce_max_sync(0xffffffffu, key);
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// Shared memory of one CTA (segment_max.py::timing_smem_bytes mirrors it).
+// The head: `stages` ring mbarriers, two inbox mbarriers, `stages` slot
+// offsets and three counts.  The nodes: with cs > 1 an inbox of two
+// rounds x cs CTAs x N {key, flag} slots (every CTA's partials of a round,
+// pushed by the CTAs themselves), then two start-time buffers, and one
+// partial-key and one flag buffer of N each.  With stages > 0: the CTA's
+// arcs grouped by dst (N + 2 offsets, the N nodes they reach, (src, slice
+// index) pairs) and a ring of `stages` slots, each the slice's
+// 16-byte-aligned window of a weight row.
+__host__ __device__ constexpr size_t timing_head_bytes(int stages) {
+  return align16(12 * (size_t)stages + 16 + 12);
+}
+
 template <typename T>
+__host__ __device__ size_t timing_node_bytes(int64_t N, int64_t cs) {
+  using Key = KeyOf<T>;
+  const size_t inbox = cs > 1 ? (size_t)4 * cs * N * sizeof(Key) : 0;
+  return align16(inbox + (size_t)N * (2 * sizeof(typename Arith<T>::C) + sizeof(Key) + 1));
+}
+
+template <typename T>
+__host__ __device__ size_t timing_slot_bytes(int64_t A) {
+  return align16((size_t)A * sizeof(T)) + 16;
+}
+
+__host__ __device__ constexpr size_t timing_csr_bytes(int64_t N) {
+  return align16((size_t)(2 * N + 2) * 4);
+}
+
+template <typename T>
+size_t timing_smem_bytes(int64_t N, int64_t A, int stages, int64_t cs) {
+  size_t b = timing_head_bytes(stages) + timing_node_bytes<T>(N, cs);
+  if (stages > 0)
+    b += timing_csr_bytes(N) + align16((size_t)A * 8) + (size_t)stages * timing_slot_bytes<T>(A);
+  return b;
+}
+
+// One cluster of cs CTAs per chain (cs is the cluster's size, chosen by the
+// caller); CTA `rank` folds arcs [rank*A, rank*A + A) of every round.
+// kStaged: its arcs sit in shared memory grouped by dst, each round's
+// weight slice is prefetched `stages` rounds ahead into a ring, and a group
+// of G lanes folds each dst's arcs into one partial key with no atomic;
+// else arcs and weights are read from global memory in the fold, one
+// atomicMax an arc (shapes whose slice does not fit).  With cs > 1 each
+// CTA pushes its partials into every CTA's inbox with st.async, and waits
+// on its own inbox mbarrier for the cluster's: a round needs no cluster
+// barrier.  The last warp of the block is the producer: its lane 0 copies
+// each round's slice into the ring, and the warp stores each finished t(k)
+// to out for this CTA's share of the nodes, off the chain.  The other
+// warps, the consumers, fold and reduce.
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kMaxThreads)
 timing_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
               const T* __restrict__ w, const int32_t* __restrict__ ids,
-              const T* __restrict__ t0, T* __restrict__ out, int R, int U, int E, int N) {
-  using A = Arith<T>;
-  using C = typename A::C;
+              const T* __restrict__ t0, T* __restrict__ out, int R, int U, int E, int N, int A,
+              int stages) {
+  using Ar = Arith<T>;
+  using C = typename Ar::C;
   using Key = KeyOf<T>;
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  Key* keys = reinterpret_cast<Key*>(smem_raw);      // 3 buffers of N keys
-  int* stamp = reinterpret_cast<int*>(keys + 3 * N);  // 2 buffers of N rounds
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char timing_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  uint64_t* bar = reinterpret_cast<uint64_t*>(timing_smem);  // the ring's
+  uint64_t* ibar = bar + stages;                             // the inbox's, by round parity
+  int* shift = reinterpret_cast<int*>(ibar + 2);             // where slot j's slice starts
+  int* n_dst = shift + stages;                               // the nodes this CTA's arcs reach
+  int* sends = n_dst + 1;                                    // the partials it pushes a round
+  int* expect = sends + 1;                                   // the bytes its inbox takes a round
+  unsigned char* nodes = timing_smem + timing_head_bytes(stages);
+  Key* inbox = reinterpret_cast<Key*>(nodes);  // [2][cs][N] {key, flag}, with cs > 1
+  C* tv = reinterpret_cast<C*>(nodes + (cs > 1 ? (size_t)4 * cs * N * sizeof(Key) : 0));
+  Key* part = reinterpret_cast<Key*>(tv + 2 * N);         // N partial keys
+  uint8_t* pflag = reinterpret_cast<uint8_t*>(part + N);  // N flags
+  // dst v's arcs are s_arc[beg[v+1] .. beg[v+2]) once grouped; vlist
+  // holds the *n_dst nodes that have any
+  int* beg = reinterpret_cast<int*>(nodes + timing_node_bytes<T>(N, cs));
+  int* vlist = beg + N + 2;
+  int2* s_arc = reinterpret_cast<int2*>(reinterpret_cast<unsigned char*>(beg) +
+                                        timing_csr_bytes(N));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(s_arc) + align16((size_t)A * 8);
+  const size_t slot_bytes = timing_slot_bytes<T>(A);
 
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int64_t c = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nc = blockDim.x - 32;  // consumer threads; the last warp is the producer
+  const bool producer = tid >= nc;
+  const int64_t c = blockIdx.x / cs;
+  const int64_t lo64 = (int64_t)rank * A, hi64 = lo64 + A;
+  const int lo = (int)(lo64 < E ? lo64 : E);
+  const int n = (int)(hi64 < E ? hi64 : E) - lo;  // this CTA's arcs
+  const int ns = (N + cs - 1) / cs;               // the nodes it writes out
+  const int v_lo = rank * ns < N ? rank * ns : N;
+  const int v_hi = v_lo + ns < N ? v_lo + ns : N;
   const int32_t* g_ids = ids + c * R;
   T* o = out + c * (int64_t)(R + 1) * N;
   const C ninf = neg_inf_of<C>();
   const Key kneg = encode_key(ninf);
 
-  for (int v = tid; v < N; v += nt) {
-    const C x = t0 ? A::load(t0[c * N + v]) : C(0);
-    keys[v] = encode_key(x);
-    keys[N + v] = kneg;
-    keys[2 * N + v] = kneg;
-    stamp[v] = -1;
-    stamp[N + v] = -1;
-    o[v] = A::store(x);
+  if (tid == 0) {
+    for (int j = 0; j < stages; ++j) mbar_init(&bar[j], 2);
+    mbar_init(&ibar[0], 1);
+    mbar_init(&ibar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = tid; e < E; e += nt)
-    if ((unsigned)src[e] >= (unsigned)N || (unsigned)dst[e] >= (unsigned)N) __trap();
-  for (int k = tid; k < R; k += nt)
-    if ((unsigned)g_ids[k] >= (unsigned)U) __trap();
+  for (int v = tid; v < N; v += blockDim.x) {
+    tv[v] = t0 ? Ar::load(t0[c * N + v]) : C(0);
+    part[v] = kneg;
+    pflag[v] = 0;
+  }
+  if (cs > 1)
+    for (int i = tid; i < 2 * cs * N; i += blockDim.x) {
+      inbox[2 * i] = kneg;
+      inbox[2 * i + 1] = 0;
+    }
+  if (kStaged)
+    for (int v = tid; v < N + 2; v += blockDim.x) beg[v] = 0;
   __syncthreads();
-  // round 0's self-loop stamps
-  if (R > 0) {
-    const T* w0 = w + (int64_t)g_ids[0] * E;
-    for (int e = tid; e < E; e += nt) {
-      const int32_t s = src[e], d = dst[e];
-      if (s == d && A::load(w0[e]) > ninf) stamp[d] = 0;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int32_t s = src[lo + i], d = dst[lo + i];
+    if ((unsigned)s >= (unsigned)N || (unsigned)d >= (unsigned)N) __trap();
+    if (kStaged) atomicAdd(&beg[d + 1], 1);
+  }
+  __syncthreads();
+  // Group the arcs by dst (a counting sort, once a call): warp 0 turns the
+  // counts into each dst's end and lists the nodes that have arcs, then
+  // each arc takes a place by counting its dst's end down, which leaves
+  // beg[v+1] at dst v's start.  The order within a dst does not matter.
+  if (tid < 32) {
+    int total = 0, listed = 0;
+    for (int v0 = 0; kStaged && v0 < N; v0 += 32) {
+      const int v = v0 + lane;
+      const int cnt = v < N ? beg[v + 1] : 0;
+      int x = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (v < N) beg[v + 1] = total + x;
+      const unsigned has = __ballot_sync(0xffffffffu, cnt > 0);
+      if (cnt > 0) vlist[listed + __popc(has & ((1u << lane) - 1))] = v;
+      total += __shfl_sync(0xffffffffu, x, 31);
+      listed += __popc(has);
+    }
+    if (lane == 0) {
+      *n_dst = listed;
+      *sends = kStaged ? listed : N;  // read in place, every node's partial is pushed
+      if (kStaged) beg[N + 1] = n;
+    }
+  }
+  __syncthreads();
+  if (kStaged)
+    for (int i = tid; i < n; i += blockDim.x) {
+      const int d = dst[lo + i];
+      s_arc[atomicSub(&beg[d + 1], 1) - 1] = make_int2(src[lo + i], i);
+    }
+
+  // Round j's slice of row ids[c, j] into ring slot j % stages, by the
+  // producer's lane 0: the 16-byte-aligned window around it by one bulk
+  // copy, and where the window would pass the end of w (a last row whose
+  // bytes are not a multiple of 16), those last elements by cp.async.  The
+  // slot's barrier completes a phase once both have landed.
+  const size_t w_end16 = ((size_t)U * E * sizeof(T)) & ~size_t(15);
+  auto prefetch = [&](int j, int32_t u) {
+    if ((unsigned)u >= (unsigned)U) __trap();
+    const int sl = j % stages;
+    unsigned char* slot = ring + sl * slot_bytes;
+    const size_t b0 = ((size_t)u * E + lo) * sizeof(T), b1 = b0 + (size_t)n * sizeof(T);
+    const size_t a0 = b0 & ~size_t(15);
+    const size_t a1 = align16(b1) < w_end16 ? align16(b1) : (w_end16 > a0 ? w_end16 : a0);
+    const unsigned char* wb = reinterpret_cast<const unsigned char*>(w);
+    shift[sl] = (int)((b0 - a0) / sizeof(T));
+    for (size_t b = a1 > b0 ? a1 : b0; b < b1; b += sizeof(T))
+      cp_async<sizeof(T)>(slot + (b - a0), wb + b);
+    mbar_arrive_expect_tx(&bar[sl], (uint32_t)(a1 - a0));
+    if (a1 > a0) bulk_copy(slot, wb + a0, (uint32_t)(a1 - a0), &bar[sl]);
+    cp_async_arrive(&bar[sl]);
+  };
+  int32_t u_ahead = 0;  // the round id of the next prefetch, read a round before it
+  if (kStaged && producer && lane == 0) {
+    for (int j = 0; j < stages && j < R; ++j) prefetch(j, g_ids[j]);
+    if (stages < R) u_ahead = g_ids[stages];
+  }
+  if (cs > 1) {
+    cluster_barrier();  // every CTA has started, set its inbox and counted its pushes
+    if (tid == 0) {
+      int bytes = 0;
+      for (int r = 0; r < cs; ++r)
+        bytes += ld_cluster(map_rank(smem_addr(sends), r)) * (int)(2 * sizeof(Key));
+      *expect = bytes;
     }
   }
   __syncthreads();
 
-  // Round k reads t(k) from cur, folds t(k+1) into nxt, resets spare (read
-  // in round k-1, so free since the last barrier), stores t(k) to out
-  // (row 0 is stored above) and stamps round k+1's self-loops.
-  Key* cur = keys;
-  Key* nxt = keys + N;
-  Key* spare = keys + 2 * N;
+  // G: the lanes a dst, the power of two up to 32 nearest below the
+  // CTA's mean arcs a dst (grouped arcs only)
+  const int m = *n_dst;
+  int G = 1;
+  while (G < 32 && 2 * G * (m > 0 ? m : 1) <= n) G *= 2;
+  // a partial (key, flag) for node v of round k: with cs > 1 into slot
+  // [k&1][rank][v] of every CTA's inbox, else into part and pflag
+  auto deliver = [&](int k, int v, Key key, Key flag) {
+    if (cs > 1) {
+      const uint32_t slot = smem_addr(inbox + 2 * (((size_t)(k & 1) * cs + rank) * N + v));
+      const uint32_t b = smem_addr(&ibar[k & 1]);
+      for (int r = 0; r < cs; ++r) push(map_rank(slot, r), key, flag, map_rank(b, r));
+    } else {
+      part[v] = key;
+      pflag[v] = (uint8_t)flag;
+    }
+  };
+
+  // Round k: the consumers fold this CTA's arcs of t(k) (cur) into
+  // partials, flagging present self-loops, while the producer refills
+  // round k-1's slot with round k-1+stages and stores t(k) to out.  With
+  // cs > 1 each partial goes to every CTA's inbox and a consumer waits for
+  // its own inbox's round; with cs = 1 a block barrier.  Then the consumers
+  // reduce every node's partials and flags into t(k+1) (nxt), with the
+  // carry t_v(k) where no CTA saw a present self-loop at v; one block
+  // barrier.
+  C* cur = tv;
+  C* nxt = tv + N;
   for (int k = 0; k < R; ++k) {
-    const T* wk = w + (int64_t)g_ids[k] * E;
-    const int* st = stamp + (k & 1) * N;
-    int* st_next = stamp + ((k + 1) & 1) * N;
-    const T* wn = k + 1 < R ? w + (int64_t)g_ids[k + 1] * E : nullptr;
-    for (int e = tid; e < E; e += nt) {
-      const int32_t s = src[e], d = dst[e];
-      const C x = A::add(decode_key(cur[s]), A::load(wk[e]));
-      if (!(x == ninf)) atomicMax(&nxt[d], encode_key(x));
-      if (wn && s == d && A::load(wn[e]) > ninf) st_next[d] = k + 1;
+    if (cs > 1 && tid == 0) mbar_arrive_expect_tx(&ibar[k & 1], (uint32_t)*expect);
+    if (producer) {
+      // round k-1's slot is free (every consumer folded round k-1 before
+      // the last barrier): fill it with round k-1+stages, while the
+      // consumers fold round k
+      if (kStaged && lane == 0 && k >= 1 && k - 1 + stages < R) {
+        const int32_t u = u_ahead;
+        if (k + stages < R) u_ahead = g_ids[k + stages];
+        prefetch(k - 1 + stages, u);
+      }
+      for (int v = v_lo + lane; v < v_hi; v += 32) o[(int64_t)k * N + v] = Ar::store(cur[v]);
+    } else if (kStaged) {
+      const int sl = k % stages;
+      mbar_wait(&bar[sl], (k / stages) & 1);
+      const T* wk = reinterpret_cast<const T*>(ring + sl * slot_bytes) + shift[sl];
+      // a group of G lanes a dst: each lane folds every G-th of its arcs,
+      // the group's max by redux (a whole warp) or shuffles, and its first
+      // lane delivers the CTA's partial (the whole CTA's max at v)
+      for (int q0 = 0; q0 < m; q0 += nc / G) {  // whole warps, for the shuffles
+        const int q = q0 + tid / G;
+        int v = -1;
+        Key key = kneg;
+        unsigned present = 0;
+        if (q < m) {
+          v = vlist[q];
+          for (int j = beg[v + 1] + (tid & (G - 1)); j < beg[v + 2]; j += G) {
+            const int2 a = s_arc[j];
+            const C wv = Ar::load(wk[a.y]);
+            const Key x = encode_key(Ar::add(cur[a.x], wv));
+            key = x > key ? x : key;
+            present |= a.x == v && wv > ninf;
+          }
+        }
+        if (G == 32) {
+          key = warp_max(key);
+          present = __any_sync(0xffffffffu, present);
+        } else {
+          for (int o = 1; o < G; o <<= 1) {
+            const Key k2 = __shfl_xor_sync(0xffffffffu, key, o);
+            key = k2 > key ? k2 : key;
+            present |= __shfl_xor_sync(0xffffffffu, present, o);
+          }
+        }
+        if (q < m && (tid & (G - 1)) == 0) deliver(k, v, key, present);
+      }
+    } else {
+      const int32_t u = g_ids[k];
+      if ((unsigned)u >= (unsigned)U) __trap();
+      const T* wk = w + (int64_t)u * E + lo;
+      for (int i = tid; i < n; i += nc) {
+        const int s = src[lo + i], d = dst[lo + i];
+        const C wv = Ar::load(wk[i]);
+        const Key key = encode_key(Ar::add(cur[s], wv));
+        if (key != kneg) atomicMax(&part[d], key);
+        if (s == d && wv > ninf) pflag[d] = 1;
+      }
+      if (cs > 1) {  // every node's accumulated partial, once all are in
+        asm volatile("bar.sync 1, %0;\n" ::"r"(nc) : "memory");
+        for (int v = tid; v < N; v += nc) {
+          deliver(k, v, part[v], pflag[v]);
+          part[v] = kneg;
+          pflag[v] = 0;
+        }
+      }
     }
-    for (int v = tid; v < N; v += nt) {
-      if (st[v] != k) atomicMax(&nxt[v], cur[v]);  // no present self-loop: carry t_v(k)
-      spare[v] = kneg;
-      if (k >= 1) o[(int64_t)k * N + v] = A::store(decode_key(cur[v]));
+    if (cs > 1) {
+      if (!producer) mbar_wait_cluster(&ibar[k & 1], (k >> 1) & 1);
+    } else {
+      __syncthreads();
     }
+    if (!producer)
+      for (int v = tid; v < N; v += nc) {
+        Key best;
+        uint32_t has_self;
+        if (cs > 1) {
+          const Key* slot = inbox + 2 * ((size_t)(k & 1) * cs * N + v);
+          best = slot[0];
+          has_self = (uint32_t)slot[1];
+          for (int r = 1; r < cs; ++r) {
+            const Key x = slot[2 * (size_t)r * N];
+            best = x > best ? x : best;
+            has_self |= (uint32_t)slot[2 * (size_t)r * N + 1];
+          }
+        } else {
+          best = part[v];
+          has_self = pflag[v];
+          part[v] = kneg;
+          pflag[v] = 0;
+        }
+        if (!has_self) {
+          const Key kc = encode_key(cur[v]);
+          best = kc > best ? kc : best;
+        }
+        nxt[v] = decode_key(best);
+      }
     __syncthreads();
-    Key* t = cur;
+    C* t = cur;
     cur = nxt;
-    nxt = spare;
-    spare = t;
+    nxt = t;
   }
-  if (R > 0)
-    for (int v = tid; v < N; v += nt) o[(int64_t)R * N + v] = A::store(decode_key(cur[v]));
-}
-
-template <typename T>
-size_t timing_level_bytes(int64_t N) {
-  return (size_t)N * (3 * sizeof(KeyOf<T>) + 2 * sizeof(int));
+  if (producer)
+    for (int v = v_lo + lane; v < v_hi; v += 32) o[(int64_t)R * N + v] = Ar::store(cur[v]);
+  if (cs > 1) cluster_barrier();  // no CTA leaves while another may still push to it
 }
 
 template <typename T>
 cudaError_t launch_timing(const void* src, const void* dst, const void* w, const void* ids,
                           const void* t0, void* out, int64_t C, int64_t R, int64_t U, int64_t E,
-                          int64_t N, cudaStream_t stream) {
-  const size_t smem = timing_level_bytes<T>(N);
+                          int64_t N, int64_t cs, int64_t A, int stages, cudaStream_t stream) {
+  if (!(cs == 1 || cs == 2 || cs == 4 || cs == 8) || A < 1 || A > E || A * cs < E ||
+      stages < 0 || stages == 1 || stages > kMaxStages || C > 0x7fffffffLL / cs ||
+      (stages > 0 && reinterpret_cast<uintptr_t>(w) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = timing_smem_bytes<T>(N, A, stages, cs);
   if (smem > max_smem_optin()) return cudaErrorInvalidValue;
-  auto kernel = &timing_kernel<T>;
+  auto kernel = stages > 0 ? &timing_kernel<T, true> : &timing_kernel<T, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)C, threads_for(E > N ? E : N), smem, stream>>>(
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
-      static_cast<const T*>(w), static_cast<const int32_t*>(ids), static_cast<const T*>(t0),
-      static_cast<T*>(out), (int)R, (int)U, (int)E, (int)N);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * cs));
+  const int consumers = threads_for(A > N ? A : N);
+  cfg.blockDim = dim3((consumers < kMaxThreads - 32 ? consumers : kMaxThreads - 32) + 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(src),
+                           static_cast<const int32_t*>(dst), static_cast<const T*>(w),
+                           static_cast<const int32_t*>(ids), static_cast<const T*>(t0),
+                           static_cast<T*>(out), (int)R, (int)U, (int)E, (int)N, (int)A, stages);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -651,30 +1078,50 @@ extern "C" int reach_launch(const void* src, const void* dst, const void* presen
 
 // w is contiguous [U, E] (dtype 0 = float32, 1 = float64), src and dst are
 // int32 [E] in [0, N), ids int32 [C, R] in [0, U), t0 [C, N] of w's type
-// or null for zeros, out [C, R+1, N] of w's type.  Nothing is launched
-// when C is 0.
+// or null for zeros, out [C, R+1, N] of w's type.  cluster (1, 2, 4 or 8
+// CTAs a chain), arcs_per_cta (cluster * arcs_per_cta >= E) and stages (0:
+// weights read in place; 2 to 4: rounds in flight in the ring) come from
+// segment_max.py::timing_plan; a plan the card cannot take (its shared
+// memory, or a cluster the card refuses) returns an error and launches
+// nothing.  Nothing is launched when C is 0.
 extern "C" int timing_recursion_launch(const void* src, const void* dst, const void* w,
                                        const void* ids, const void* t0, void* out, int64_t C,
-                                       int64_t R, int64_t U, int64_t E, int64_t N, int dtype,
-                                       void* stream) {
+                                       int64_t R, int64_t U, int64_t E, int64_t N,
+                                       int64_t cluster, int64_t arcs_per_cta, int stages,
+                                       int dtype, void* stream) {
   if (C < 0 || R < 0 || U < 0 || E < 1 || N < 1 || C > 0x7fffffffLL || R > 0x7fffffffLL ||
       U > 0x7fffffffLL || E > 0x7fffffffLL || N > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (C == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_timing<float>(src, dst, w, ids, t0, out, C, R, U, E, N, s);
-    case 1: return (int)launch_timing<double>(src, dst, w, ids, t0, out, C, R, U, E, N, s);
+    case 0:
+      return (int)launch_timing<float>(src, dst, w, ids, t0, out, C, R, U, E, N, cluster,
+                                       arcs_per_cta, stages, s);
+    case 1:
+      return (int)launch_timing<double>(src, dst, w, ids, t0, out, C, R, U, E, N, cluster,
+                                        arcs_per_cta, stages, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The most nodes a timing recursion of this dtype can hold in the current
-// device's shared memory (its three key buffers and two stamp buffers).
+// device's shared memory (its start-time, partial-key and flag buffers, on
+// one CTA a chain, with the arcs and weights read in place).
 extern "C" int64_t timing_recursion_max_nodes(int dtype) {
-  const size_t per_node = dtype == 1 ? timing_level_bytes<double>(1) : timing_level_bytes<float>(1);
-  return (int64_t)(max_smem_optin() / per_node);
+  const size_t per_node = dtype == 1 ? 3 * sizeof(double) + 1 : 3 * sizeof(float) + 1;
+  return (int64_t)(((max_smem_optin() & ~size_t(15)) - timing_head_bytes(0)) / per_node);
 }
+
+// Shared memory a CTA of the timing recursion takes under a plan, and the
+// most the current device grants a block (timing_plan's inputs).
+extern "C" int64_t timing_recursion_smem_bytes(int64_t N, int64_t arcs_per_cta, int stages,
+                                               int64_t cluster, int dtype) {
+  return (int64_t)(dtype == 1 ? timing_smem_bytes<double>(N, arcs_per_cta, stages, cluster)
+                              : timing_smem_bytes<float>(N, arcs_per_cta, stages, cluster));
+}
+
+extern "C" int64_t timing_recursion_smem_cap() { return (int64_t)max_smem_optin(); }
 
 extern "C" const char* segment_max_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -32,8 +32,9 @@ each one launch where the per-level path launched once a level:
   (:func:`reach_from_zero_ref` is the plain hop loop);
 * :func:`timing_recursion_cuda` -- all R rounds of the round-varying
   Eq. 4 recursion of a batch of Monte-Carlo chains (MATCHA pricing), one
-  block per chain (:func:`timing_recursion_ref` is the plain loop: one
-  gather and one ``scatter_reduce_`` a round).
+  thread-block cluster per chain, its arcs split over the cluster's CTAs
+  by :func:`timing_plan` (:func:`timing_recursion_ref` is the plain loop:
+  one gather and one ``scatter_reduce_`` a round).
 
 All three are bit-identical to their plain versions: max is exact, the
 reachability flags are 0/1, and every add, subtraction and division of
@@ -118,6 +119,8 @@ class _Lib(NamedTuple):
     reach: Callable
     timing: Callable
     timing_max_nodes: Callable
+    timing_smem_bytes: Callable
+    timing_smem_cap: Callable
     error_string: Callable
 
 
@@ -134,16 +137,21 @@ def _library() -> _Lib:
                     [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
            "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]),
            "timing": (lib.timing_recursion_launch,
-                      [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ctypes.c_int,
-                       ptr])}
+                      [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64,
+                       ctypes.c_int, ctypes.c_int, ptr])}
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.timing_recursion_max_nodes.argtypes = [ctypes.c_int]
     lib.timing_recursion_max_nodes.restype = i64
+    lib.timing_recursion_smem_bytes.argtypes = [i64, i64, ctypes.c_int, i64, ctypes.c_int]
+    lib.timing_recursion_smem_bytes.restype = i64
+    lib.timing_recursion_smem_cap.argtypes = []
+    lib.timing_recursion_smem_cap.restype = i64
     lib.segment_max_error_string.argtypes = [ctypes.c_int]
     lib.segment_max_error_string.restype = ctypes.c_char_p
     return _Lib(*(fn for fn, _ in fns.values()), lib.timing_recursion_max_nodes,
+                lib.timing_recursion_smem_bytes, lib.timing_recursion_smem_cap,
                 lib.segment_max_error_string)
 
 
@@ -451,17 +459,98 @@ def timing_recursion_ref(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.T
     return out
 
 
+# Cluster sizes the timing kernel takes (portable on every sm_90 card), the
+# fewest arcs a CTA keeps when a chain is split, and the deepest ring.
+TIMING_CLUSTERS = (8, 4, 2)
+TIMING_MIN_ARCS_PER_CTA = 256
+TIMING_MAX_STAGES = 4
+
+
+class TimingPlan(NamedTuple):
+    """How the timing kernel lays out a call: ``cluster`` CTAs a chain,
+    each folding ``arcs_per_cta`` contiguous arcs (the last CTAs may hold
+    fewer, or none), ``stages`` rounds of weights in flight in each CTA's
+    shared-memory ring (0: arcs and weights read in place), and the
+    ``smem_bytes`` a CTA takes."""
+    cluster: int
+    arcs_per_cta: int
+    stages: int
+    smem_bytes: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+@contract("N", "A", None, None, None)
+def timing_smem_bytes(num_nodes: int, arcs_per_cta: int, stages: int, elem_bytes: int,
+                      cluster: int = 1) -> int:
+    """Shared memory of one CTA of the timing kernel, as the kernel lays it
+    out (``csrc/segment_max.cu::timing_smem_bytes``): ring and inbox
+    mbarriers, slot offsets and counts; with ``cluster > 1`` an inbox of two
+    rounds x ``cluster`` CTAs x N {key, flag} slots; two start-time buffers,
+    a partial-key and a flag buffer of N; with a ring, the CTA's arcs
+    grouped by dst (N + 2 offsets, a node list, (src, index) pairs) and
+    ``stages`` slots, each the 16-byte-aligned window of a weight row
+    around the CTA's slice."""
+    inbox = 4 * cluster * num_nodes * elem_bytes if cluster > 1 else 0
+    b = _align16(12 * stages + 28) + _align16(inbox + num_nodes * (3 * elem_bytes + 1))
+    if stages:
+        b += (_align16(4 * (2 * num_nodes + 2)) + _align16(8 * arcs_per_cta)
+              + stages * (_align16(arcs_per_cta * elem_bytes) + 16))
+    return b
+
+
+@contract("C", "E", "N", None)
+def timing_plan(C: int, E: int, num_nodes: int, elem_bytes: int, *, num_sms: int,
+                smem_cap: int) -> TimingPlan:
+    """The timing kernel's layout for ``C`` chains over ``E`` arcs and N
+    nodes.  A chain takes the largest cluster in :data:`TIMING_CLUSTERS`
+    whose ``C * cluster`` CTAs fit the card's ``num_sms`` (one wave), whose
+    CTAs keep at least :data:`TIMING_MIN_ARCS_PER_CTA` arcs each, and whose
+    inboxes fit ``smem_cap``, else one CTA; the arcs are cut into
+    ``cluster`` contiguous slices of ``ceil(E / cluster)``.  The ring is as
+    deep as ``smem_cap`` allows, up to :data:`TIMING_MAX_STAGES` rounds (at
+    least 2; else 0, read in place)."""
+    N = num_nodes
+    cs = next((k for k in TIMING_CLUSTERS
+               if C * k <= num_sms and -(-E // k) >= TIMING_MIN_ARCS_PER_CTA
+               and timing_smem_bytes(N, -(-E // k), 0, elem_bytes, k) <= smem_cap), 1)
+    arcs = -(-E // cs)
+    stages = next((s for s in range(TIMING_MAX_STAGES, 1, -1)
+                   if timing_smem_bytes(N, arcs, s, elem_bytes, cs) <= smem_cap), 0)
+    return TimingPlan(cs, arcs, stages, timing_smem_bytes(N, arcs, stages, elem_bytes, cs))
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@contract("C", "E", "N", None, None)
+def timing_plan_on_card(C: int, E: int, num_nodes: int, dtype: torch.dtype,
+                        device: torch.device) -> TimingPlan:
+    """:func:`timing_plan` with ``device``'s SM count and shared memory."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    with torch.cuda.device(index):
+        cap = int(_library().timing_smem_cap())
+    return timing_plan(C, E, num_nodes, torch.empty((), dtype=dtype).element_size(),
+                       num_sms=_num_sms(index), smem_cap=cap)
+
+
 @contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")
 def timing_recursion_cuda(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
                           round_ids: torch.Tensor, num_nodes: int,
                           t0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One persistent launch for every round of every chain, on PyTorch's
-    current stream.  Takes contiguous int32 ``src``/``dst`` ``[E]`` and
-    ``round_ids`` ``[C, R]``, ``w_unique`` ``[U, E]`` (float32 or
-    float64) and an optional ``t0`` ``[C, N]`` of its dtype, on one card;
-    returns ``[C, R+1, N]`` in ``w_unique``'s dtype, bit-identical to
-    :func:`timing_recursion_ref`.  Raises if N is past what the card's
-    shared memory holds, or if the launch fails."""
+    current stream, laid out by :func:`timing_plan` for the card.  Takes
+    contiguous int32 ``src``/``dst`` ``[E]`` and ``round_ids`` ``[C, R]``,
+    ``w_unique`` ``[U, E]`` (float32 or float64) and an optional ``t0``
+    ``[C, N]`` of its dtype, on one card; returns ``[C, R+1, N]`` in
+    ``w_unique``'s dtype, bit-identical to :func:`timing_recursion_ref`.
+    Raises if N is past what the card's shared memory holds, or if the
+    card refuses the launch."""
     check_timing_inputs(src, dst, w_unique, round_ids, num_nodes, t0)
     tensors = (src, dst, w_unique, round_ids) + (() if t0 is None else (t0,))
     if not all(t.is_cuda and t.device == w_unique.device for t in tensors):
@@ -474,17 +563,32 @@ def timing_recursion_cuda(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.
         raise TypeError(f"t0 must have the weights' dtype {w_unique.dtype}, got {t0.dtype}")
     (U, E), (C, R) = w_unique.shape, round_ids.shape
     N = int(num_nodes)
-    code = _DTYPE_CODES[w_unique.dtype]
     lib = _library()
     with _device_of(w_unique):
-        limit = int(lib.timing_max_nodes(code))
+        limit = int(lib.timing_max_nodes(_DTYPE_CODES[w_unique.dtype]))
         if N > limit:
             raise ValueError(f"timing_recursion: N = {N} nodes do not fit the card's shared "
                              f"memory; the limit for {w_unique.dtype} is {limit} nodes")
-        out = torch.empty((C, R + 1, N), dtype=w_unique.dtype, device=w_unique.device)
+        plan = timing_plan_on_card(C, E, N, w_unique.dtype, w_unique.device)
+        return _launch_timing(src, dst, w_unique, round_ids, N, t0, plan)
+
+
+def _launch_timing(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,
+                  round_ids: torch.Tensor, num_nodes: int, t0: Optional[torch.Tensor],
+                  plan: TimingPlan) -> torch.Tensor:
+    """The timing kernel under ``plan``, on inputs that
+    :func:`timing_recursion_cuda` has checked; raises if the card refuses
+    the launch (a cluster it cannot place, shared memory it cannot grant)."""
+    (U, E), (C, R) = w_unique.shape, round_ids.shape
+    if plan.stages and w_unique.data_ptr() % 16:
+        w_unique = w_unique.clone()  # the ring's bulk copies read 16-byte-aligned windows
+    lib = _library()
+    with _device_of(w_unique):
+        out = torch.empty((C, R + 1, num_nodes), dtype=w_unique.dtype, device=w_unique.device)
         stream = torch.cuda.current_stream(w_unique.device).cuda_stream
         err = lib.timing(src.data_ptr(), dst.data_ptr(), w_unique.data_ptr(),
                          round_ids.data_ptr(), None if t0 is None else t0.data_ptr(),
-                         out.data_ptr(), C, R, U, E, N, code, stream)
+                         out.data_ptr(), C, R, U, E, num_nodes, plan.cluster, plan.arcs_per_cta,
+                         plan.stages, _DTYPE_CODES[w_unique.dtype], stream)
     _raise_on(err, "timing_recursion", lib)
     return out

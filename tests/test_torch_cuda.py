@@ -756,6 +756,100 @@ def test_timing_kernel_matches_plain_bit_for_bit(cuda, C, R, U, E, N, carry, wit
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", [8, 4, 2, 1])
+def test_timing_kernel_each_cluster_size_bit_for_bit(cuda, cluster, dtype):
+    """C chosen so that the plan spreads a chain over ``cluster`` CTAs; E
+    odd (float64 rows 8 bytes off a 16-byte boundary), N not a multiple of
+    the cluster, the last row of w (all -inf) in every chain's last round."""
+    from repro_torch.kernels import timing_recursion
+    from repro_torch.kernels.segment_max import (TIMING_MIN_ARCS_PER_CTA, timing_plan_on_card,
+                                                 timing_recursion_ref)
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    C = sms // cluster if cluster > 1 else sms // 2 + 1
+    E, N, R, U = 8 * TIMING_MIN_ARCS_PER_CTA + 1, 87, 23, 9
+    plan = timing_plan_on_card(C, E, N, dtype, cuda)
+    assert plan.cluster == cluster and plan.stages >= 2
+    gen = torch.Generator(device=cuda).manual_seed(cluster)
+    src, dst, w, ids, t0 = _timing_inputs(gen, cuda, C, R, U, E, N, dtype, True, cluster % 4 == 0)
+    ids[:, -1] = U - 1
+    assert bool(torch.isneginf(w[U - 1]).all())
+    before = LAUNCHES["timing"]
+    got = timing_recursion(src, dst, w, ids, N, t0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["timing"] == before + 1
+    assert torch.equal(got, timing_recursion_ref(src, dst, w, ids, N, t0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_timing_kernel_every_plan_bit_for_bit(cuda, dtype):
+    """Every cluster size with the ring at each depth and with arcs and
+    weights read in place, through the launcher, on one pool."""
+    from repro_torch.kernels.segment_max import (TimingPlan, _launch_timing, timing_smem_bytes,
+                                                 timing_recursion_ref)
+
+    C, R, U, E, N = 5, 31, 7, 1001, 45
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    src, dst, w, ids, t0 = _timing_inputs(gen, cuda, C, R, U, E, N, dtype, True, True)
+    ids[0, -1] = U - 1
+    want = timing_recursion_ref(src, dst, w, ids, N, t0)
+    size = w.element_size()
+    for cluster in (1, 2, 4, 8):
+        arcs = -(-E // cluster)
+        for stages in (0, 2, 3, 4):
+            plan = TimingPlan(cluster, arcs, stages,
+                              timing_smem_bytes(N, arcs, stages, size, cluster))
+            got = _launch_timing(src, dst, w, ids, N, t0, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_timing_kernel_at_the_node_limit_and_refused_past_it(cuda, dtype):
+    from repro_torch.kernels import timing_recursion
+    from repro_torch.kernels.segment_max import (_library, timing_plan_on_card,
+                                                 timing_recursion_ref)
+
+    lib = _library()
+    limit = int(lib.timing_max_nodes({torch.float32: 0, torch.float64: 1}[dtype]))
+    C, R, U, E = 2, 3, 2, 2 * limit
+    plan = timing_plan_on_card(C, E, limit, dtype, cuda)
+    assert plan.stages == 0 and plan.smem_bytes <= int(lib.timing_smem_cap())
+    assert plan.cluster == 1 and plan.smem_bytes == int(lib.timing_smem_bytes(
+        limit, plan.arcs_per_cta, 0, 1, dtype == torch.float64))
+    gen = torch.Generator(device=cuda).manual_seed(limit)
+    src, dst, w, ids, _ = _timing_inputs(gen, cuda, C, R, U, E, limit, dtype, True, False)
+    got = timing_recursion(src, dst, w, ids, limit)
+    torch.cuda.synchronize()
+    assert torch.equal(got, timing_recursion_ref(src, dst, w, ids, limit))
+    before = LAUNCHES["timing"]
+    with pytest.raises(ValueError, match="limit"):
+        timing_recursion(src, dst, w, ids, limit + 1)
+    assert LAUNCHES["timing"] == before
+
+
+@pytest.mark.gpu
+def test_timing_kernel_refused_plans_raise(cuda):
+    """A plan the card cannot take raises and launches nothing: shared
+    memory past the card's grant, a cluster size the kernel does not take,
+    a split that leaves arcs out."""
+    from repro_torch.kernels.segment_max import TimingPlan, _library, _launch_timing
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    src, dst, w, ids, _ = _timing_inputs(gen, cuda, 2, 4, 3, 40000, 11, torch.float64, False,
+                                         False)
+    cap = int(_library().timing_smem_cap())
+    for plan in (TimingPlan(1, 40000, 4, cap + 1), TimingPlan(16, 2500, 2, 0),
+                 TimingPlan(2, 10000, 2, 0)):
+        with pytest.raises(RuntimeError, match="timing_recursion kernel launch failed"):
+            _launch_timing(src, dst, w, ids, 11, None, plan)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_timing_launches_count_one_per_call_and_none_when_empty(cuda):
     from repro_torch.kernels import timing_recursion
 

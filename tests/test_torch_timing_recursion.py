@@ -10,10 +10,14 @@ scatter path, missing self-loops and ``t0`` included, on random pools and
 on the pool MATCHA pricing builds for Gaia, and
 ``timing_recursion_time_varying_sparse``), and at the reference's rtol
 1e-6 against ``timing_recursion_time_varying_sparse_jax`` with the Pallas
-kernel in interpret mode.  A numpy emulation of the kernel --
-order-preserving integer keys, the atomicMax fold, the carry folded as one
-more max and the parity-stamped self-loop flags -- equals the plain
-version bit for bit."""
+kernel in interpret mode.  A numpy emulation of the cluster kernel -- the
+arcs split over 1, 2, 4 or 8 CTAs as ``timing_plan`` cuts them,
+order-preserving integer keys, each CTA's arcs grouped by dst and folded
+by groups of lanes into per-CTA partials (or one atomic max an arc when
+they are read in place), the cross-CTA max, and the carry where no CTA
+flagged a present self-loop -- equals the plain
+version bit for bit; the rule that picks the cluster, the split and the
+ring's depth is held to its examples."""
 
 import contextlib
 
@@ -30,8 +34,13 @@ import repro_torch.core.maxplus_sparse as port_sparse  # noqa: E402
 from repro.core.maxplus_sparse import timing_recursion_time_varying_sparse_jax  # noqa: E402
 from repro_torch.kernels import LAUNCHES, timing_recursion  # noqa: E402
 from repro_torch.kernels.segment_max import (  # noqa: E402
+    TIMING_CLUSTERS,
+    TIMING_MAX_STAGES,
+    TIMING_MIN_ARCS_PER_CTA,
+    timing_plan,
     timing_recursion_cuda,
     timing_recursion_ref,
+    timing_smem_bytes,
 )
 
 
@@ -166,37 +175,78 @@ def _unkeys(k):
     return np.where(k & sign, k & ~sign, ~k).view(np.float64)
 
 
-def _emulated_kernel(src, dst, w, ids, N, t0):
-    """The kernel's per-chain loop in numpy: t as keys, arcs folded by a
-    max over keys, the carry as one more max, self-loop stamps by parity."""
+def _group_size(n, m):
+    """The kernel's lanes a dst: the power of two up to 32 at most the
+    CTA's mean arcs a dst (n arcs over m dsts)."""
+    G = 1
+    while G < 32 and 2 * G * max(m, 1) <= n:
+        G *= 2
+    return G
+
+
+def _emulated_kernel(src, dst, w, ids, N, t0, cluster, staged=True):
+    """The cluster kernel's fold in numpy.  ``cluster`` CTAs each take a
+    contiguous slice of ``ceil(E / cluster)`` arcs (the last ones may be
+    short or empty, as :func:`timing_plan` cuts them).  Staged, a CTA
+    groups its arcs by dst (a counting sort), a group of G lanes folds each
+    dst (lane j takes every G-th arc from the j-th, a running max of keys),
+    the group's max by an xor tree, written as the CTA's partial; in place,
+    one atomic max of keys an arc.  Each CTA flags the dst of its present
+    self-loops.  Then the cross-CTA max of the partials and the OR of the
+    flags, with the carry t_v(k) where no CTA flagged v."""
     C, R = ids.shape
+    E = src.size
+    arcs = -(-E // cluster)
     kneg = _keys(np.array([-np.inf]))[0]
+    slices = [(min(E, r * arcs), min(E, r * arcs + arcs)) for r in range(cluster)]
+    groups = []  # per CTA: [(v, its arcs)], G
+    for lo, hi in slices:
+        order = lo + np.argsort(dst[lo:hi], kind="stable")[::-1]  # any order within a dst
+        nodes = np.unique(dst[lo:hi])
+        groups.append(([(v, order[dst[order] == v]) for v in nodes],
+                       _group_size(hi - lo, nodes.size)))
     out = np.empty((C, R + 1, N))
     for c in range(C):
-        cur = _keys(np.zeros(N) if t0 is None else t0[c])
-        stamp = np.full((2, N), -1)
-        for e in range(src.size):
-            if R and src[e] == dst[e] and w[ids[c, 0], e] > -np.inf:
-                stamp[0, dst[e]] = 0
-        out[c, 0] = _unkeys(cur)
+        cur = np.zeros(N) if t0 is None else t0[c].copy()
+        out[c, 0] = cur
         for k in range(R):
-            nxt = np.full(N, kneg, dtype=np.uint64)
-            for e in range(src.size):
-                x = _unkeys(cur[src[e]:src[e] + 1])[0] + w[ids[c, k], e]
-                if x != -np.inf:
-                    nxt[dst[e]] = max(nxt[dst[e]], _keys(np.array([x]))[0])
-                if (k + 1 < R and src[e] == dst[e]
-                        and w[ids[c, k + 1], e] > -np.inf):
-                    stamp[(k + 1) & 1, dst[e]] = k + 1
-            carry = stamp[k & 1] != k
-            nxt[carry] = np.maximum(nxt[carry], cur[carry])
-            cur = nxt
-            out[c, k + 1] = _unkeys(cur)
+            row = w[ids[c, k]]
+            parts = np.full((cluster, N), kneg, dtype=np.uint64)
+            flags = np.zeros((cluster, N), dtype=bool)
+            for r, (lo, hi) in enumerate(slices):
+                keys = _keys(cur[src[lo:hi]] + row[lo:hi])
+                present = (src[lo:hi] == dst[lo:hi]) & (row[lo:hi] > -np.inf)
+                flags[r, dst[lo:hi][present]] = True
+                if not staged:
+                    for i in range(hi - lo):
+                        if keys[i] != kneg:
+                            parts[r, dst[lo + i]] = max(parts[r, dst[lo + i]], keys[i])
+                    continue
+                node_arcs, G = groups[r]
+                for v, e in node_arcs:
+                    lanes = np.full(G, kneg, dtype=np.uint64)
+                    for j, ej in enumerate(e):
+                        lanes[j % G] = max(lanes[j % G], _keys(cur[src[ej]] + row[ej]))
+                    o = 1
+                    while o < G:
+                        lanes = np.maximum(lanes, lanes[np.arange(G) ^ o])
+                        o *= 2
+                    parts[r, v] = lanes[0]
+            m = parts.max(axis=0)
+            carry = ~flags.any(axis=0)
+            m[carry] = np.maximum(m[carry], _keys(cur[carry]))
+            cur = _unkeys(m)
+            out[c, k + 1] = cur
     return out
 
 
+@pytest.mark.parametrize("staged", [True, False], ids=["grouped", "in_place"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("case", [CASES[2], CASES[4], CASES[6]], ids=["carry", "scatter", "tiny"])
-def test_plain_equals_the_kernels_key_fold(case):
+def test_plain_equals_the_kernels_key_fold(case, cluster, staged):
+    """Cluster sizes that divide neither E (40, 25 and 1 arcs, plus the
+    self-loops) nor N (11, 9, 3), so some CTAs hold few arcs or none; the
+    pools' arcs are unsorted, so the counting sort regroups them."""
     N, E, U, C, R, full_cover, drop_self, t0 = case
     rng = np.random.default_rng(200 + sum(case[:5]))
     src, dst, w, ids, start = _pool(rng, N, E, U, C, R, full_cover=full_cover,
@@ -204,7 +254,64 @@ def test_plain_equals_the_kernels_key_fold(case):
     want = timing_recursion_ref(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(w),
                                 torch.from_numpy(ids), N,
                                 None if start is None else torch.from_numpy(start)).numpy()
-    np.testing.assert_array_equal(_emulated_kernel(src, dst, w, ids, N, start), want)
+    np.testing.assert_array_equal(_emulated_kernel(src, dst, w, ids, N, start, cluster, staged),
+                                  want)
+
+
+def test_kernels_key_fold_on_a_dst_sorted_matcha_pool():
+    """Gaia's MATCHA pool, arcs sorted by dst as the engine hands them to
+    the card, split over 4 CTAs: dsts cut between two CTAs at a slice's
+    edge, groups of several lanes."""
+    import repro_torch.core as P
+    from repro_torch.core.schedule import _sweep_inputs
+
+    M, Tc = P.WORKLOADS["inaturalist"]
+    gc = P.make_underlay("gaia").connectivity_graph(comp_time_ms=Tc)
+    tp = P.TrainingParams(model_size_mbits=M, local_steps=1)
+    sched = P.MatchaSchedule(matchings=P.matcha_schedule_from_connectivity(gc).matchings,
+                             budget=0.5)
+    src, dst, w, ids = _sweep_inputs([sched], gc, tp, 12, (0, 1))
+    assert (np.diff(dst) >= 0).all()
+    want = timing_recursion_ref(*(torch.from_numpy(a) for a in (src, dst, w, ids)), gc.num_silos)
+    got = _emulated_kernel(src, dst, w, ids, gc.num_silos, None, 4)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("C,E,N,want", [
+    (24, 7569, 87, (4, 1893)),    # Ebone's MATCHA design shape: 96 CTAs
+    (64, 590, 64, (2, 295)),      # the engine shape: 4 x 148 arcs is under the floor
+    (16, 8 * TIMING_MIN_ARCS_PER_CTA + 1, 87, (8, TIMING_MIN_ARCS_PER_CTA + 1)),
+    (64, 2 * TIMING_MIN_ARCS_PER_CTA, 64, (2, TIMING_MIN_ARCS_PER_CTA)),
+    (67, 30000, 87, (1, 30000)),  # C past half the SMs: one CTA a chain
+    (200, 30000, 87, (1, 30000)),  # C past the SM count
+    (3, 1, 2, (1, 1)),            # one arc
+    (3, 7, 5, (1, 7)),            # tiny E
+    (16, 4097, 2000, (2, 2049)),  # 4 or 8 CTAs' inboxes of 2000 nodes do not fit
+])
+def test_timing_plan_picks_the_cluster_and_the_split(C, E, N, want):
+    plan = timing_plan(C, E, N, 8, num_sms=132, smem_cap=232448)
+    assert (plan.cluster, plan.arcs_per_cta) == want
+    assert plan.cluster * plan.arcs_per_cta >= E > (plan.cluster - 1) * plan.arcs_per_cta
+    assert plan.cluster in (1,) + TIMING_CLUSTERS and C * plan.cluster <= max(132, C)
+    assert plan.smem_bytes == timing_smem_bytes(N, plan.arcs_per_cta, plan.stages, 8,
+                                                plan.cluster) <= 232448
+
+
+@pytest.mark.parametrize("elem", [4, 8])
+def test_timing_plan_ring_depth_follows_shared_memory(elem):
+    """The deepest ring that fits, at least two rounds; else the weights
+    are read in place (stages 0), which always fits below the node limit."""
+    cap = 232448
+    assert timing_plan(24, 7569, 87, elem, num_sms=132, smem_cap=cap).stages == TIMING_MAX_STAGES
+    big = timing_plan(1, 12000, 87, elem, num_sms=1, smem_cap=cap)
+    assert big.cluster == 1 and big.stages == (2 if elem == 4 else 0)
+    limit = (cap - 32) // (3 * elem + 1)
+    at_limit = timing_plan(2, 10, limit, elem, num_sms=132, smem_cap=cap)
+    assert at_limit.stages == 0 and at_limit.smem_bytes <= cap
+    assert timing_smem_bytes(limit + 1, 10, 0, elem) > cap
+    for stages in range(2, TIMING_MAX_STAGES + 1):
+        tight = timing_smem_bytes(87, 1893, stages, elem, 4)
+        assert timing_plan(24, 7569, 87, elem, num_sms=132, smem_cap=tight).stages == stages
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_and_counts_no_launch():
