@@ -22,6 +22,22 @@ times, at the same two shapes, every layout the checkout's cluster kernel
 can take (``TimingPlan``: 1, 2, 4 or 8 CTAs a chain, a ring of 0, 2 or 4
 rounds) beside the one its ``timing_plan`` picks, each held to the plain
 version bit for bit.
+
+    python3 scripts/port_timing_ab.py --segmax PATH/TO/CHECKOUT [...]
+    python3 scripts/port_timing_ab.py --segmax-plans PATH/TO/CHECKOUT
+
+do the same for K1's standalone segment max (``edge_segment_max``) at
+the Ebone climb shape (B=16, E=261, S=87), the scoring shape (B=8,
+E=8192, S=1024) and a wide one (B=2, E=5000, S=20000), float32 and
+float64, on inputs made from one seed: five means of 200 calls on CUDA
+events, the kernel's device time by the profiler, ``scatter_reduce_``
+(one PyTorch call computing the same function) in the same process, the
+bound and a digest; then, at the Ebone climb shape, the host's
+microseconds a call of each piece of the wrapper's path.  ``--segmax-plans``
+times every layout of the cluster kernel (``SegmentMaxPlan``: 1, 2, 4 or
+8 CTAs a row x the maxima in shared memory or in the output) by the
+profiler's device time, twice, with the one ``segment_max_plan`` picks
+marked, at those shapes and one where every edge collides (S = 1).
 """
 
 from __future__ import annotations
@@ -87,14 +103,14 @@ def time_checkout(root: Path, plans: bool = False) -> None:
 def time_plans(torch, name, src, dst, w, ids, N, R, bound, digest) -> None:
     """Every layout of the cluster kernel at one shape, in turns (each
     plan twice, the grid walked forward then back), the picked one marked."""
-    from repro_torch.kernels.segment_max import (TimingPlan, _library, _launch_timing,
+    from repro_torch.kernels.segment_max import (TimingPlan, _launch_timing, _smem_cap,
                                                  timing_plan_on_card, timing_smem_bytes)
 
     from chip_smoke import time_ms
 
     (U, E), (C, _) = w.shape, ids.shape
     picked = timing_plan_on_card(C, E, N, w.dtype, w.device)
-    cap = int(_library().timing_smem_cap())
+    cap = _smem_cap(torch.cuda.current_device())
     grid = []
     for cluster in (1, 2, 4, 8):
         arcs = -(-E // cluster)
@@ -120,18 +136,155 @@ def time_plans(torch, name, src, dst, w, ids, N, R, bound, digest) -> None:
               flush=True)
 
 
+SEGMAX_SHAPES = (("ebone_climb", (16, 261, 87)), ("scoring", (8, 8192, 1024)),
+                 ("wide", (2, 5000, 20000)), ("collide", (8, 8192, 1)))
+
+
+def segmax_checkout(root: Path, plans: bool = False) -> None:
+    """The standalone segment max of one checkout at SEGMAX_SHAPES."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, edge_segment_max
+    from repro_torch.kernels.segment_max import edge_segment_max_ref
+
+    sys.path.insert(1, str(HERE))
+    from chip_smoke import device_kernels, fmt_times, same_values, segmax_bound_ms, time_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("port_timing_ab: no CUDA device")
+    if not _build.CSRC.is_relative_to(root):
+        raise SystemExit(f"port_timing_ab: imported the port from {_build.CSRC}, not {root}")
+    _build.build_all(["segment_max"])
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    for name, (B, E, S) in SEGMAX_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            gen = torch.Generator(device=dev).manual_seed(B * E + S)
+            vals = torch.randn((B, E), generator=gen, device=dev, dtype=torch.float64).to(dtype)
+            ids = torch.randint(0, S, (B, E), generator=gen, device=dev, dtype=torch.int32)
+            got = edge_segment_max(vals, ids, S)
+            if not same_values(torch, got, edge_segment_max_ref(vals, ids, S)):
+                raise SystemExit(f"port_timing_ab {root} segmax {name}: differs from plain")
+            digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+            bound = segmax_bound_ms(B, E, S, vals.element_size())
+            tag = f"{name} B={B} E={E} S={S} {str(dtype)[6:]}"
+            if plans:
+                segmax_plans(torch, tag, vals, ids, S, bound, digest)
+                continue
+            times = [time_ms(torch, lambda: edge_segment_max(vals, ids, S), reps=200, warmup=5)
+                     for _ in range(5)]
+            out = torch.full((B, S), float("-inf"), device=dev, dtype=dtype)
+            ids64 = ids.long()
+            lib_ms = [time_ms(torch, lambda: out.scatter_reduce_(1, ids64, vals, "amax"),
+                              reps=200, warmup=5) for _ in range(2)]
+            _, kernels = device_kernels(torch, lambda: [edge_segment_max(vals, ids, S)
+                                                        for _ in range(100)])
+            own = [(c, us) for k, (c, us) in kernels.items() if "segment_max_kernel" in k]
+            dev_ms = f"{own[0][1] / own[0][0] / 1e3:.5f}" if own else "not measured"
+            print(f"segmax_ab {root} {tag}: ms {fmt_times(times)} mean "
+                  f"{sum(times) / len(times):.5f}  device_ms {dev_ms}  scatter_reduce_ ms "
+                  f"{fmt_times(lib_ms)}  bound_ms {bound:.6f} (bytes)  digest {digest}  ({card})",
+                  flush=True)
+    if not plans:
+        segmax_host_us(torch, root, dev)
+
+
+def segmax_host_us(torch, root: Path, dev) -> None:
+    """Host microseconds a call of each piece of the wrapper's path at the
+    Ebone climb shape: enqueue only, 2000 calls between two synchronises."""
+    import time
+
+    from repro_torch.kernels import edge_segment_max
+    from repro_torch.kernels import segment_max as mod
+    from repro_torch.kernels.segment_max import _DTYPE_CODES, _library, edge_segment_max_cuda
+
+    B, E, S = 16, 261, 87
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vals = torch.randn((B, E), generator=gen, device=dev)
+    ids = torch.randint(0, S, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    out = torch.empty((B, S), device=dev)
+    ids64 = ids.long()
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    pieces = {
+        "edge_segment_max": lambda: edge_segment_max(vals, ids, S),
+        "edge_segment_max_cuda": lambda: edge_segment_max_cuda(vals, ids, S),
+        "ctypes launch alone": lambda: lib.segment_max(vals.data_ptr(), ids.data_ptr(),
+                                                       out.data_ptr(), B, E, S,
+                                                       _DTYPE_CODES[vals.dtype], stream),
+        "torch.empty": lambda: torch.empty((B, S), dtype=vals.dtype, device=vals.device),
+        "Tensor.new_empty": lambda: vals.new_empty((B, S)),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_cuda_getCurrentRawStream": (lambda: raw(0)) if raw else None,
+        "the wrapper's checks": ((lambda: mod._check_segment_max_cuda(vals, ids, S))
+                                 if hasattr(mod, "_check_segment_max_cuda") else None),
+        "torch.cuda.current_device": torch.cuda.current_device,
+        "data_ptr x3": lambda: (vals.data_ptr(), ids.data_ptr(), out.data_ptr()),
+        "scatter_reduce_ (in place)": lambda: out.scatter_reduce_(1, ids64, vals, "amax"),
+    }
+    parts = []
+    for name, fn in pieces.items():
+        if fn is None:
+            parts.append(f"{name} n/a")
+            continue
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts.append(f"{name} {(t1 - t0) / 2000 * 1e6:.3f}")
+    print(f"segmax_host {root} B={B} E={E} S={S} float32, host us a call: " + "; ".join(parts),
+          flush=True)
+
+
+def segmax_plans(torch, tag, vals, ids, S, bound, digest) -> None:
+    """Every layout of the cluster kernel at one shape, in turns (each
+    twice, the grid walked forward then back), the picked one marked."""
+    from repro_torch.kernels.segment_max import (_launch_segment_max, _smem_cap,
+                                                 segment_max_layouts, segment_max_plan_on_card)
+
+    from chip_smoke import device_kernels
+
+    B, E = vals.shape
+    picked = segment_max_plan_on_card(B, E, S, vals.dtype, vals.device)
+    grid = segment_max_layouts(E, S, vals.element_size(), _smem_cap(torch.cuda.current_device()))
+    times = {p: [] for p in grid}
+    for p in grid + grid[::-1]:
+        got = _launch_segment_max(vals, ids, S, p)
+        if hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16] != digest:
+            raise SystemExit(f"port_timing_ab segmax {tag} {p}: differs from the plain version")
+        # the launcher's host path outlasts the kernel: time the device's side
+        _, kernels = device_kernels(torch, lambda: [_launch_segment_max(vals, ids, S, p)
+                                                    for _ in range(100)])
+        own = [(c, us) for k, (c, us) in kernels.items() if "segment_max_kernel" in k]
+        times[p].append(own[0][1] / own[0][0] / 1e3 if own else float("nan"))
+    for p, ts in times.items():
+        mark = "  <- segment_max_plan" if p == picked else ""
+        print(f"segmax_plans {tag} cluster {p.cluster} edges/CTA {p.edges_per_cta} "
+              f"{p.segments} smem {p.smem_bytes}: device_ms {ts[0]:.5f} / {ts[1]:.5f}  bound_ms "
+              f"{bound:.6f}{mark}", flush=True)
+
+
 def main(argv: list) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        time_checkout(Path(argv[1]).resolve())
+    modes = {"--one": time_checkout, "--plans": lambda r: time_checkout(r, plans=True),
+             "--one-segmax": segmax_checkout,
+             "--segmax-plans": lambda r: segmax_checkout(r, plans=True)}
+    if len(argv) == 2 and argv[0] in modes:
+        modes[argv[0]](Path(argv[1]).resolve())
         return 0
-    if len(argv) == 2 and argv[0] == "--plans":
-        time_checkout(Path(argv[1]).resolve(), plans=True)
-        return 0
+    one = "--one"
+    if argv and argv[0] == "--segmax":
+        one, argv = "--one-segmax", argv[1:]
     if not argv:
         print(__doc__.strip(), file=sys.stderr)
         return 2
     for root in argv:
-        done = subprocess.run([sys.executable, __file__, "--one", root])
+        done = subprocess.run([sys.executable, __file__, one, root])
         if done.returncode:
             return done.returncode
     return 0

@@ -40,18 +40,32 @@
 //
 // Design.  The TPU kernel compares every edge tile with every segment
 // tile, O(E * S) dense vector work, because its VPU cannot scatter.  Here
-// a block keeps a row's running maxima in shared memory and folds every
-// edge of the row into it with one shared-memory atomicMax: O(E) work per
-// row.  atomicMax exists for unsigned integers only, so each value is
-// mapped to an order-preserving unsigned key (flip all bits of a negative
-// float, set the sign bit of a non-negative one): a < b as floats iff
-// key(a) < key(b) as unsigned.  NaN is first made the canonical quiet NaN,
-// whose key lies above +inf's, so it wins every max.  -0.0 keys just below
-// +0.0: the two differ only in sign, and max(-0, +0) = +0 here while the
-// plain version may return either.  16-bit inputs are widened to float32
-// keys (exact: max only picks a value) and the pick is narrowed back
-// exactly.  Max is exact and order-free, so the result does not depend on
-// the atomics' order.
+// a row's running maxima are folded with atomicMax: O(E) work per row.
+// atomicMax exists for unsigned integers only, so each value is mapped to
+// an order-preserving unsigned key (flip all bits of a negative float, set
+// the sign bit of a non-negative one): a < b as floats iff key(a) < key(b)
+// as unsigned.  NaN is first made the canonical quiet NaN, whose key lies
+// above +inf's, so it wins every max.  -0.0 keys just below +0.0: the two
+// differ only in sign, and max(-0, +0) = +0 here while the plain version
+// may return either.  16-bit inputs key their own 16 bits the same way
+// (exact: max only picks a value, and decoding gives the pick's bits
+// back).  Max is exact and order-free, so the result depends neither on
+// the atomics' order nor on how the edges are split.
+//
+// The standalone segment max (segment_max_kernel) spreads a row over a
+// thread-block cluster of 1, 2, 4 or 8 CTAs (segment_max.py::
+// segment_max_plan: B * cs within one wave of the SMs, at least 512 edges
+// a CTA), each folding a contiguous slice of the row, four edges a thread
+// by 16-byte vector loads where the slice is long (an edge a thread
+// else).  While a row has no more segments than edges and its S keys fit
+// a CTA's shared memory, every CTA folds into its own copy with
+// shared-memory atomics, and after one cluster barrier each reduces its
+// 1/cs of the segments over its peers' copies (DSMEM) and writes them
+// once; otherwise the keys live in `out` itself (native u32 and u64
+// global atomicMax, a CAS loop for a 16-bit word), set before and decoded
+// after the fold, each side of a cluster barrier, and a warp aggregates
+// its lanes' runs of equal ids before the global atomics.  Either way
+// each edge is read once.
 //
 // The two recursions are one launch each: one block per graph row (grid
 // (B, 2) for reachability, a block per direction) runs every level of the
@@ -138,9 +152,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;  // no opt-in attribute needed below 48 KB
-
 __device__ __forceinline__ unsigned int encode_f32(float x) {
   unsigned int b = (x != x) ? 0x7fc00000u : __float_as_uint(x);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
@@ -160,88 +171,6 @@ __device__ __forceinline__ double decode_f64(unsigned long long k) {
   const unsigned long long b =
       (k & 0x8000000000000000ull) ? (k & 0x7fffffffffffffffull) : ~k;
   return __longlong_as_double((long long)b);
-}
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  using Key = unsigned int;
-  __device__ static Key encode(float x) { return encode_f32(x); }
-  __device__ static float decode(Key k) { return decode_f32(k); }
-  __device__ static Key neg_inf() { return encode_f32(__uint_as_float(0xff800000u)); }
-};
-
-template <>
-struct Traits<double> {
-  using Key = unsigned long long;
-  __device__ static Key encode(double x) { return encode_f64(x); }
-  __device__ static double decode(Key k) { return decode_f64(k); }
-  __device__ static Key neg_inf() {
-    return encode_f64(__longlong_as_double((long long)0xfff0000000000000ull));
-  }
-};
-
-template <>
-struct Traits<__half> {
-  using Key = unsigned int;
-  __device__ static Key encode(__half x) { return encode_f32(__half2float(x)); }
-  __device__ static __half decode(Key k) { return __float2half_rn(decode_f32(k)); }
-  __device__ static Key neg_inf() { return encode_f32(__uint_as_float(0xff800000u)); }
-};
-
-template <>
-struct Traits<__nv_bfloat16> {
-  using Key = unsigned int;
-  __device__ static Key encode(__nv_bfloat16 x) { return encode_f32(__bfloat162float(x)); }
-  __device__ static __nv_bfloat16 decode(Key k) { return __float2bfloat16_rn(decode_f32(k)); }
-  __device__ static Key neg_inf() { return encode_f32(__uint_as_float(0xff800000u)); }
-};
-
-// grid = (B, ceil(S / tile)); block (b, y) owns segments [y*tile, y*tile + n).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_max_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
-                   T* __restrict__ out, int64_t E, int64_t S, int tile) {
-  using Key = typename Traits<T>::Key;
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  Key* smax = reinterpret_cast<Key*>(smem_raw);
-
-  const int64_t b = blockIdx.x;
-  const int64_t s0 = (int64_t)blockIdx.y * tile;
-  const int n = (int)((S - s0) < tile ? (S - s0) : tile);
-  const Key init = Traits<T>::neg_inf();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) smax[i] = init;
-  __syncthreads();
-
-  const T* v = vals + b * E;
-  const int32_t* id = ids + b * E;
-  for (int64_t e = threadIdx.x; e < E; e += blockDim.x) {
-    // unsigned compare drops ids below s0 (and negative ids) and ids past the tile
-    const int64_t s = (int64_t)id[e] - s0;
-    if ((uint64_t)s < (uint64_t)n) atomicMax(&smax[s], Traits<T>::encode(v[e]));
-  }
-  __syncthreads();
-
-  T* o = out + b * S + s0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = Traits<T>::decode(smax[i]);
-}
-
-template <typename T>
-cudaError_t launch(const void* vals, const void* ids, void* out, int64_t B, int64_t E,
-                   int64_t S, cudaStream_t stream) {
-  using Key = typename Traits<T>::Key;
-  const int64_t max_tile = kSmemBytes / (int64_t)sizeof(Key);
-  const int tile = (int)(S < max_tile ? S : max_tile);
-  const int64_t tiles = (S + tile - 1) / tile;
-  if (B > 0x7fffffffLL || tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)B, (unsigned)tiles);
-  const size_t smem = (size_t)tile * sizeof(Key);
-  segment_max_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const int32_t*>(ids), static_cast<T*>(out),
-      E, S, tile);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1014,24 +943,414 @@ cudaError_t launch_timing(const void* src, const void* dst, const void* w, const
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The standalone segment max: one thread-block cluster of cs CTAs a row
+
+constexpr int kSegThreads = 256;
+constexpr int kMaxDevices = 64;
+
+// Order-preserving keys of the four value types.  Shared memory holds a
+// 32-bit key for float and for the 16-bit types (their 16-bit key,
+// widened) and a 64-bit key for double; in the global-memory layout `out`
+// itself holds the keys, as Word, and is decoded in place.
+__device__ __forceinline__ unsigned int encode_16(unsigned short b, unsigned int inf,
+                                                  unsigned int qnan) {
+  const unsigned int x = ((b & 0x7fffu) > inf) ? qnan : b;
+  return (x & 0x8000u) ? (~x & 0xffffu) : (x | 0x8000u);
+}
+
+__device__ __forceinline__ unsigned short decode_16(unsigned int k) {
+  return (unsigned short)((k & 0x8000u) ? (k & 0x7fffu) : (~k & 0xffffu));
+}
+
+// Raise the 16-bit key at p to at least k (there is no 16-bit atomicMax).
+__device__ __forceinline__ void cas_max_16(unsigned short* p, unsigned int k) {
+  unsigned short old = __ldcg(p);
+  while (old < k) {
+    const unsigned short seen = atomicCAS(p, old, (unsigned short)k);
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
+template <typename T>
+struct SegKey;
+
+template <>
+struct SegKey<float> {
+  using Key = unsigned int;
+  using Word = unsigned int;
+  __device__ static Key encode(float x) { return encode_f32(x); }
+  __device__ static float decode(Key k) { return decode_f32(k); }
+  __device__ static Key neg_inf() { return 0x007fffffu; }  // encode_f32(-inf)
+  __device__ static void global_max(Word* p, Key k) { atomicMax(p, k); }
+};
+
+template <>
+struct SegKey<double> {
+  using Key = unsigned long long;
+  using Word = unsigned long long;
+  __device__ static Key encode(double x) { return encode_f64(x); }
+  __device__ static double decode(Key k) { return decode_f64(k); }
+  __device__ static Key neg_inf() { return 0x000fffffffffffffull; }  // encode_f64(-inf)
+  __device__ static void global_max(Word* p, Key k) { atomicMax(p, k); }
+};
+
+template <>
+struct SegKey<__half> {
+  using Key = unsigned int;
+  using Word = unsigned short;
+  __device__ static Key encode(__half x) { return encode_16(__half_as_ushort(x), 0x7c00u, 0x7e00u); }
+  __device__ static __half decode(Key k) { return __ushort_as_half(decode_16(k)); }
+  __device__ static Key neg_inf() { return 0x03ffu; }  // -inf is 0xfc00
+  __device__ static void global_max(Word* p, Key k) { cas_max_16(p, k); }
+};
+
+template <>
+struct SegKey<__nv_bfloat16> {
+  using Key = unsigned int;
+  using Word = unsigned short;
+  __device__ static Key encode(__nv_bfloat16 x) {
+    return encode_16(__bfloat16_as_ushort(x), 0x7f80u, 0x7fc0u);
+  }
+  __device__ static __nv_bfloat16 decode(Key k) { return __ushort_as_bfloat16(decode_16(k)); }
+  __device__ static Key neg_inf() { return 0x007fu; }  // -inf is 0xff80
+  __device__ static void global_max(Word* p, Key k) { cas_max_16(p, k); }
+};
+
+// Four consecutive values by one load: 16 bytes (two for double, 8 for the
+// 16-bit types); p is aligned to four elements.
+template <typename T>
+struct alignas(4 * sizeof(T) < 16 ? 4 * sizeof(T) : 16) Four {
+  T v[4];
+};
+
+// Fold a lane's W consecutive edges (W = 4 or 1; id -1: none) into the
+// row's maxima.  First inside the lane: an edge whose id repeats the next
+// one's hands its key on to it.  Then, into shared memory (kGlobal false),
+// one atomicMax an edge: the shared-memory atomics resolve lanes that
+// collide faster than any exchange between the lanes does (a match.any and
+// shuffle aggregation measured slower at every shape, S = 1 included).  Into
+// `out` (kGlobal), warp-aggregated: for each of the W places, a lane holding the same id
+// as the lane before it joins that lane's run, a segmented max-scan of five
+// shuffles gives each run's maximum to its last lane, and only that lane
+// issues the global atomic (a native u32/u64 atomicMax, or a 16-bit CAS):
+// one a run instead of one an edge where the ids come in runs (sorted or
+// repeated ids).  Called by whole warps.  An id outside [0, S) or a -inf
+// value (the identity) issues nothing.
+template <typename T, bool kGlobal, int W>
+__device__ __forceinline__ void fold(int32_t (&id)[W], typename SegKey<T>::Key (&key)[W], int S,
+                                     typename SegKey<T>::Key* keys,
+                                     typename SegKey<T>::Word* words) {
+  using Key = typename SegKey<T>::Key;
+  const Key kneg = SegKey<T>::neg_inf();
+#pragma unroll
+  for (int j = 0; j + 1 < W; ++j)
+    if (id[j] == id[j + 1]) {
+      key[j + 1] = key[j] > key[j + 1] ? key[j] : key[j + 1];
+      id[j] = -1;
+    }
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const bool valid = (unsigned)id[j] < (unsigned)S && key[j] != kneg;
+    if (!kGlobal) {
+      if (valid) atomicMax(keys + id[j], key[j]);
+      continue;
+    }
+    const int sid = valid ? id[j] : -1;
+    const int lane = (int)(threadIdx.x & 31);
+    const int prev = __shfl_up_sync(0xffffffffu, sid, 1);
+    const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || prev != sid);
+    const int start = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));  // the run's first lane
+    Key best = key[j];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Key x = __shfl_up_sync(0xffffffffu, best, d);
+      if (lane - d >= start) best = x > best ? x : best;
+    }
+    const int next = __shfl_down_sync(0xffffffffu, sid, 1);
+    if (valid && (lane == 31 || next != sid)) SegKey<T>::global_max(words + sid, best);
+  }
+}
+
+// grid (B * cs), clusters of cs CTAs (a plain launch when cs == 1): CTA
+// `rank` of row b folds edges [rank * per, rank * per + per) of the row.
+// Shared layout (kGlobal false): every CTA keeps all S keys of the row in
+// its shared memory; after one cluster barrier CTA `rank` reduces its 1/cs
+// of the segments over its peers' shared memory (DSMEM), decodes them and
+// writes them; a last arrive/wait keeps its shared memory alive until the
+// peers have read it.  Global layout: CTA `rank` sets its 1/cs of the row's
+// `out` to the -inf key, a cluster barrier, the fold into `out`, a cluster
+// barrier, then it decodes its 1/cs in place.  kVec: the slice goes in
+// one pass of four edges a thread, its aligned body by one vector load each
+// of ids and values, its head and tail (at most three edges each) by
+// further threads of the same pass; else an edge a thread.
+template <typename T, bool kGlobal, bool kVec>
+__global__ void __launch_bounds__(kSegThreads)
+segment_max_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
+                   T* __restrict__ out, int64_t E, int S, int64_t per, int cs) {
+  using Key = typename SegKey<T>::Key;
+  using Word = typename SegKey<T>::Word;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char seg_smem[];
+  Key* keys = reinterpret_cast<Key*>(seg_smem);
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rank = (int)(blockIdx.x % cs);  // the CTA's rank in its 1-D cluster
+  const int64_t b = blockIdx.x / cs;
+  const int ns = (S + cs - 1) / cs;  // the segments a CTA writes
+  const int s_lo = rank * ns < S ? rank * ns : S;
+  const int s_hi = s_lo + ns < S ? s_lo + ns : S;
+  T* o = out + b * (int64_t)S;
+  Word* words = reinterpret_cast<Word*>(o);
+  const Key kneg = SegKey<T>::neg_inf();
+
+  if (kGlobal) {
+    for (int s = s_lo + tid; s < s_hi; s += nt) words[s] = (Word)kneg;
+    if (cs > 1)
+      cluster_barrier();  // the whole row is set before any CTA folds into it
+    else
+      __syncthreads();
+  } else {
+    for (int s = tid; s < S; s += nt) keys[s] = kneg;
+    __syncthreads();
+  }
+
+  const int64_t lo = (int64_t)rank * per < E ? (int64_t)rank * per : E;
+  const int64_t hi = lo + per < E ? lo + per : E;
+  const int64_t g0 = b * E + lo, g1 = b * E + hi;  // the slice, as flat indices
+  // with kVec: the aligned body [a0, a1) in nvec slots of four edges, then
+  // the head [g0, a0) and the tail [a1, g1) a slot an edge; else a slot an
+  // edge from g0
+  int64_t a0 = g0, a1 = g0;
+  if (kVec) {
+    const int64_t up = (g0 + 3) & ~int64_t(3), down = g1 & ~int64_t(3);
+    a0 = up < g1 ? up : g1;
+    a1 = down > a0 ? down : a0;
+  }
+  const int nvec = (int)((a1 - a0) >> 2);
+  const int nh = (int)(a0 - g0);
+  const int nslots = kVec ? nvec + nh + (int)(g1 - a1) : (int)(g1 - g0);
+  // the same trip count in every thread, so whole warps reach the shuffles
+  for (int base = 0; base < nslots; base += nt) {
+    const int slot = base + tid;
+    if (kVec) {
+      int32_t id[4] = {-1, -1, -1, -1};
+      Key key[4] = {kneg, kneg, kneg, kneg};
+      if (slot < nvec) {
+        const int64_t e = a0 + 4 * (int64_t)slot;
+        const int4 i4 = __ldg(reinterpret_cast<const int4*>(ids + e));
+        const Four<T> x = *reinterpret_cast<const Four<T>*>(vals + e);
+        id[0] = i4.x;
+        id[1] = i4.y;
+        id[2] = i4.z;
+        id[3] = i4.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) key[j] = SegKey<T>::encode(x.v[j]);
+      } else if (slot < nslots) {
+        const int k = slot - nvec;
+        const int64_t e = k < nh ? g0 + k : a1 + (k - nh);
+        id[0] = ids[e];
+        key[0] = SegKey<T>::encode(vals[e]);
+      }
+      fold<T, kGlobal, 4>(id, key, S, keys, words);
+    } else {
+      int32_t id[1] = {-1};
+      Key key[1] = {kneg};
+      if (slot < nslots) {
+        id[0] = ids[g0 + slot];
+        key[0] = SegKey<T>::encode(vals[g0 + slot]);
+      }
+      fold<T, kGlobal, 1>(id, key, S, keys, words);
+    }
+  }
+
+  if (cs > 1)
+    cluster_barrier();  // every fold of the row is done and visible in the cluster
+  else
+    __syncthreads();
+  if (kGlobal) {
+    for (int s = s_lo + tid; s < s_hi; s += nt) o[s] = SegKey<T>::decode((Key)__ldcg(words + s));
+  } else if (cs == 1) {
+    for (int s = tid; s < S; s += nt) o[s] = SegKey<T>::decode(keys[s]);
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int s = s_lo + tid; s < s_hi; s += nt) {
+      Key best = keys[s];
+#pragma unroll
+      for (int r = 1; r < 8; ++r)
+        if (r < cs) {
+          const Key x = *cluster.map_shared_rank(keys + s, (rank + r) % cs);
+          best = x > best ? x : best;
+        }
+      o[s] = SegKey<T>::decode(best);
+    }
+    // no CTA leaves (freeing its shared memory) while a peer may still read it
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  }
+}
+
+// The layout for the card's SM count and shared-memory grant.  This mirrors
+// segment_max.py::segment_max_plan rule for rule (the C entry keeps its
+// contract, so it plans for itself; change the two together, the GPU tests
+// hold them equal through segment_max_plan_of).  The maxima go to `out` when a row has
+// more segments than edges (a CTA's copy of all S keys would cost more to
+// set and merge than the edges to fold) or its S keys pass a CTA's grant,
+// else to shared memory.  A row takes the largest cluster of 8, 4 or 2 CTAs
+// whose B * cs CTAs fit one wave of the SMs and whose CTAs keep at least
+// kSegMinWork edges each (edges and segments in the global layout, whose
+// CTAs also set and decode their share of the row), else 1; a CTA's slice
+// is ceil(E / cs) edges rounded up to four.
+constexpr int64_t kSegMinWork = 512;
+
+struct SegPlan {
+  int64_t cluster, per, global;
+};
+
+SegPlan segmax_plan(int64_t B, int64_t E, int64_t S, int64_t key_bytes, int64_t sms,
+                    int64_t cap) {
+  const int64_t global = (S > E || S * key_bytes > cap) ? 1 : 0;
+  const int64_t work = global ? E + S : E;
+  int64_t cs = 1;
+  for (int64_t k = 8; k >= 2; k /= 2)
+    if (B * k <= sms && (work + k - 1) / k >= kSegMinWork) {
+      cs = k;
+      break;
+    }
+  const int64_t per = ((E + cs - 1) / cs + 3) / 4 * 4;
+  return SegPlan{cs, per, global};
+}
+
+// The current device's SM count and opt-in shared memory, read once a
+// device (a process may launch on more than one card).
+void device_limits(int64_t* sms, int64_t* cap) {
+  static int s_sms[kMaxDevices];
+  static size_t s_cap[kMaxDevices];
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kMaxDevices && s_sms[dev] > 0) {
+    *sms = s_sms[dev];
+    *cap = (int64_t)s_cap[dev];
+    return;
+  }
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  *sms = n;
+  *cap = (int64_t)max_smem_optin();
+  if (dev >= 0 && dev < kMaxDevices) {
+    s_cap[dev] = (size_t)*cap;
+    s_sms[dev] = n;
+  }
+}
+
+int64_t seg_key_bytes(int dtype) { return dtype == 1 ? 8 : 4; }
+
+template <typename T>
+cudaError_t launch_segment_max(const void* vals, const void* ids, void* out, int64_t B, int64_t E,
+                               int64_t S, SegPlan plan, cudaStream_t stream) {
+  using Key = typename SegKey<T>::Key;
+  const int64_t cs = plan.cluster;
+  if (!(cs == 1 || cs == 2 || cs == 4 || cs == 8) || plan.per < (E > 0 ? 1 : 0) ||
+      plan.per > 0x7fffffffLL || plan.per * cs < E || B > 0x7fffffffLL / cs ||
+      S > 0x7fffffffLL || !(plan.global == 0 || plan.global == 1))
+    return cudaErrorInvalidValue;
+  const size_t smem = plan.global ? 0 : (size_t)S * sizeof(Key);
+  // (the device's grant is asked only past the 48 KB every block has: the
+  // query costs the host more than the rest of a small launch)
+  if (smem > kDefaultSmem && smem > max_smem_optin()) return cudaErrorInvalidValue;
+  // four edges a thread where a CTA's slice fills two passes of its
+  // threads that way and the rows allow vector loads; else an edge a thread
+  const bool vec = plan.per >= 2 * kSegThreads && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ids) % 16 == 0;
+  auto kernel = plan.global ? (vec ? &segment_max_kernel<T, true, true>
+                                   : &segment_max_kernel<T, true, false>)
+                            : (vec ? &segment_max_kernel<T, false, true>
+                                   : &segment_max_kernel<T, false, false>);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // threads: a slot each (four edges, or one), or the segments a CTA sets,
+  // whichever is more, in whole warps, 64 to 256
+  const int64_t set = plan.global ? (S + cs - 1) / cs : S;
+  const int64_t slots = vec ? plan.per / 4 + 8 : plan.per;
+  int64_t want = slots > set ? slots : set;
+  want = (want + 31) / 32 * 32;
+  const int threads = (int)(want < 64 ? 64 : (want > kSegThreads ? kSegThreads : want));
+  const T* v = static_cast<const T*>(vals);
+  const int32_t* i = static_cast<const int32_t*>(ids);
+  T* o = static_cast<T*>(out);
+  if (cs == 1) {
+    kernel<<<(unsigned)B, threads, smem, stream>>>(v, i, o, E, (int)S, plan.per, 1);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cs));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, v, i, o, E, (int)S, plan.per, (int)cs);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int segment_max_dispatch(const void* vals, const void* ids, void* out, int64_t B, int64_t E,
+                         int64_t S, int dtype, const SegPlan& plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_segment_max<float>(vals, ids, out, B, E, S, plan, s);
+    case 1: return (int)launch_segment_max<double>(vals, ids, out, B, E, S, plan, s);
+    case 2: return (int)launch_segment_max<__half>(vals, ids, out, B, E, S, plan, s);
+    case 3: return (int)launch_segment_max<__nv_bfloat16>(vals, ids, out, B, E, S, plan, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (src/repro_torch/kernels/segment_max.py).
 // dtype: 0 = float32, 1 = float64, 2 = float16, 3 = bfloat16.  vals and ids
 // are contiguous [B, E], out is contiguous [B, S].  Returns the cudaError_t
-// of the launch (nothing is launched when B or S is 0).
+// of the launch (nothing is launched when B or S is 0).  The layout is
+// segmax_plan's for the current device.
 extern "C" int segment_max_launch(const void* vals, const void* ids, void* out, int64_t B,
                                   int64_t E, int64_t S, int dtype, void* stream) {
   if (B < 0 || E < 0 || S < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch<float>(vals, ids, out, B, E, S, s);
-    case 1: return (int)launch<double>(vals, ids, out, B, E, S, s);
-    case 2: return (int)launch<__half>(vals, ids, out, B, E, S, s);
-    case 3: return (int)launch<__nv_bfloat16>(vals, ids, out, B, E, S, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int64_t sms = 0, cap = 0;
+  device_limits(&sms, &cap);
+  return segment_max_dispatch(vals, ids, out, B, E, S, dtype,
+                              segmax_plan(B, E, S, seg_key_bytes(dtype), sms, cap), stream);
+}
+
+// The same under a given layout: cluster (1, 2, 4 or 8 CTAs a row),
+// edges_per_cta (cluster * edges_per_cta >= E) and global (0: the segments
+// in shared memory, 1: in out).  A layout the card cannot take returns an
+// error and launches nothing.
+extern "C" int segment_max_launch_plan(const void* vals, const void* ids, void* out, int64_t B,
+                                       int64_t E, int64_t S, int dtype, int64_t cluster,
+                                       int64_t edges_per_cta, int64_t global, void* stream) {
+  if (B < 0 || E < 0 || S < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return (int)cudaSuccess;
+  return segment_max_dispatch(vals, ids, out, B, E, S, dtype,
+                              SegPlan{cluster, edges_per_cta, global}, stream);
+}
+
+// The layout segment_max_launch takes on the current device:
+// plan[0..2] = {cluster, edges_per_cta, global}.  Only the tests call it,
+// to hold segmax_plan to segment_max_plan.
+extern "C" void segment_max_plan_of(int64_t B, int64_t E, int64_t S, int dtype, int64_t* plan) {
+  int64_t sms = 0, cap = 0;
+  device_limits(&sms, &cap);
+  const SegPlan p = segmax_plan(B, E, S, seg_key_bytes(dtype), sms, cap);
+  plan[0] = p.cluster;
+  plan[1] = p.per;
+  plan[2] = p.global;
 }
 
 // levels is a contiguous [B, N, N] scratch of w's type (rows 0..N-2 of
@@ -1113,15 +1432,17 @@ extern "C" int64_t timing_recursion_max_nodes(int dtype) {
   return (int64_t)(((max_smem_optin() & ~size_t(15)) - timing_head_bytes(0)) / per_node);
 }
 
-// Shared memory a CTA of the timing recursion takes under a plan, and the
-// most the current device grants a block (timing_plan's inputs).
+// Shared memory a CTA of the timing recursion takes under a plan (an input
+// of timing_plan).
 extern "C" int64_t timing_recursion_smem_bytes(int64_t N, int64_t arcs_per_cta, int stages,
                                                int64_t cluster, int dtype) {
   return (int64_t)(dtype == 1 ? timing_smem_bytes<double>(N, arcs_per_cta, stages, cluster)
                               : timing_smem_bytes<float>(N, arcs_per_cta, stages, cluster));
 }
 
-extern "C" int64_t timing_recursion_smem_cap() { return (int64_t)max_smem_optin(); }
+// The most shared memory the current device grants a block (an input of
+// timing_plan and of segment_max_plan).
+extern "C" int64_t smem_cap_optin() { return (int64_t)max_smem_optin(); }
 
 extern "C" const char* segment_max_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

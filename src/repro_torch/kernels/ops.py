@@ -78,14 +78,15 @@ def edge_segment_max(vals: torch.Tensor, seg_ids: torch.Tensor,
     ``[B, E]`` float values and integer ids into ``[B, S]`` (``-inf`` for
     empty segments; out-of-range ids dropped).  Counterpart of
     ``repro.kernels.ops.edge_segment_max``."""
-    if vals.device.type == "cpu":
-        return edge_segment_max_ref(vals, seg_ids, num_segments)
     if vals.is_cuda:
-        ids = seg_ids.to(device=vals.device, dtype=torch.int32).contiguous()
-        res = edge_segment_max_cuda(vals.contiguous(), ids, num_segments)
+        if seg_ids.dtype is not torch.int32 or seg_ids.get_device() != vals.get_device():
+            seg_ids = seg_ids.to(device=vals.device, dtype=torch.int32)
+        res = edge_segment_max_cuda(vals.contiguous(), seg_ids.contiguous(), num_segments)
         if res.numel():
             LAUNCHES["segment_max"] += 1
         return res
+    if vals.device.type == "cpu":
+        return edge_segment_max_ref(vals, seg_ids, num_segments)
     raise ValueError(f"edge_segment_max: no kernel for device {vals.device}")
 
 

@@ -15,9 +15,11 @@ segment gives NaN, and integer dtypes are refused.  The CUDA kernel
 (``csrc/segment_max.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/segment_max.py::edge_segment_max_pallas``: where the
 TPU compares every edge tile with every segment tile (its VPU has no
-scatter), the card keeps a row's running maxima in shared memory and
-folds each edge in with one ``atomicMax`` on an order-preserving integer
-encoding -- O(E) work per row instead of O(E·S).  :func:`edge_segment_max_ref`
+scatter), the card folds each edge into a row's running maxima with
+``atomicMax`` on an order-preserving integer encoding -- O(E) work per row
+instead of O(E·S).  A row is spread over a thread-block cluster of CTAs
+and its maxima are held in shared memory or, past it, in the output, as
+:func:`segment_max_plan` lays the call out.  :func:`edge_segment_max_ref`
 is the same function in plain PyTorch: the CPU path, and what the kernel
 is held against on the card.
 
@@ -115,12 +117,14 @@ def select_segment_max_impl(kernel: str = "auto", *, padded: bool = False,
 
 class _Lib(NamedTuple):
     segment_max: Callable
+    segment_max_plan: Callable
+    segment_max_plan_of: Callable
     karp: Callable
     reach: Callable
     timing: Callable
     timing_max_nodes: Callable
     timing_smem_bytes: Callable
-    timing_smem_cap: Callable
+    smem_cap: Callable
     error_string: Callable
 
 
@@ -133,6 +137,8 @@ def _library() -> _Lib:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     fns = {"segment_max": (lib.segment_max_launch,
                            [ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
+           "segment_max_plan": (lib.segment_max_launch_plan,
+                                [ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, i64, i64, i64, ptr]),
            "karp": (lib.karp_cycle_time_launch,
                     [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
            "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]),
@@ -142,24 +148,29 @@ def _library() -> _Lib:
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.segment_max_plan_of.argtypes = [i64, i64, i64, ctypes.c_int, ctypes.POINTER(i64)]
+    lib.segment_max_plan_of.restype = None
     lib.timing_recursion_max_nodes.argtypes = [ctypes.c_int]
     lib.timing_recursion_max_nodes.restype = i64
     lib.timing_recursion_smem_bytes.argtypes = [i64, i64, ctypes.c_int, i64, ctypes.c_int]
     lib.timing_recursion_smem_bytes.restype = i64
-    lib.timing_recursion_smem_cap.argtypes = []
-    lib.timing_recursion_smem_cap.restype = i64
+    lib.smem_cap_optin.argtypes = []
+    lib.smem_cap_optin.restype = i64
     lib.segment_max_error_string.argtypes = [ctypes.c_int]
     lib.segment_max_error_string.restype = ctypes.c_char_p
-    return _Lib(*(fn for fn, _ in fns.values()), lib.timing_recursion_max_nodes,
-                lib.timing_recursion_smem_bytes, lib.timing_recursion_smem_cap,
+    fns = [fn for fn, _ in fns.values()]
+    return _Lib(*fns[:2], lib.segment_max_plan_of, *fns[2:], lib.timing_recursion_max_nodes,
+                lib.timing_recursion_smem_bytes, lib.smem_cap_optin,
                 lib.segment_max_error_string)
 
 
 def _device_of(t: torch.Tensor):
-    """Make ``t``'s card the current device for a launch, when it is not."""
-    if t.device.index is None or t.device.index == torch.cuda.current_device():
+    """Make ``t``'s card the current device for a launch, when it is not
+    (the bare device query: a CUDA tensor exists, so CUDA is initialised)."""
+    dev = t.get_device()
+    if dev < 0 or dev == torch._C._cuda_getDevice():
         return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
+    return torch.cuda.device(dev)
 
 
 def _raise_on(err: int, what: str, lib: _Lib) -> None:
@@ -168,33 +179,165 @@ def _raise_on(err: int, what: str, lib: _Lib) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
 
 
-@contract("[B,E]", "[B,E]", "S", ret="[B,S]")
-def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
-                          num_segments: int) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  Takes
-    contiguous ``[B, E]`` float values and int32 ids on the card and
-    returns ``[B, S]`` in the values' dtype; raises if the launch fails."""
-    if not (vals.is_cuda and seg_ids.is_cuda and vals.device == seg_ids.device):
+def _stream_of(index: int) -> int:
+    """The current stream of card ``index``, as the raw pointer a launch
+    takes (without building a ``torch.cuda.Stream``: a few µs a call)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _check_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
+                            num_segments: int) -> tuple:
+    """The checks of a standalone segment max on the card, cheapest first;
+    returns ``(card index, dtype code, S)``."""
+    dev = vals.get_device()
+    if dev < 0 or seg_ids.get_device() != dev:
         raise ValueError(f"edge_segment_max_cuda needs CUDA tensors on one device, got "
                          f"{vals.device} and {seg_ids.device}")
-    _check_float(vals)
-    if vals.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(vals.dtype)
+    if code is None:
+        _check_float(vals)
         raise TypeError(f"edge_segment_max_cuda: dtype {vals.dtype} not supported")
-    if vals.dim() != 2 or seg_ids.shape != vals.shape:
+    shape = vals.shape
+    if len(shape) != 2 or seg_ids.shape != shape:
         raise ValueError(f"vals and seg_ids must both be [B, E]; got "
-                         f"{tuple(vals.shape)} and {tuple(seg_ids.shape)}")
-    if seg_ids.dtype != torch.int32 or not (vals.is_contiguous() and seg_ids.is_contiguous()):
+                         f"{tuple(shape)} and {tuple(seg_ids.shape)}")
+    if seg_ids.dtype is not torch.int32 or not (vals.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("edge_segment_max_cuda needs contiguous values and int32 ids")
-    B, E = vals.shape
     S = int(num_segments)
     if S < 0:
         raise ValueError(f"num_segments must be >= 0, got {S}")
-    out = torch.empty((B, S), dtype=vals.dtype, device=vals.device)
+    return dev, code, S
+
+
+@contract("[B,E]", "[B,E]", "S", ret="[B,S]")
+def edge_segment_max_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream, laid out by
+    :func:`segment_max_plan` for the card (the C entry computes the same
+    plan).  Takes contiguous ``[B, E]`` float values and int32 ids on the
+    card and returns ``[B, S]`` in the values' dtype; raises if the launch
+    fails."""
+    dev, code, S = _check_segment_max_cuda(vals, seg_ids, num_segments)
+    B, E = vals.shape
     lib = _library()
     with _device_of(vals):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.segment_max(vals.data_ptr(), seg_ids.data_ptr(), out.data_ptr(),
-                              B, E, S, _DTYPE_CODES[vals.dtype], stream)
+        out = vals.new_empty((B, S))
+        err = lib.segment_max(vals.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), B, E, S, code,
+                              _stream_of(dev))
+    _raise_on(err, "segment_max", lib)
+    return out
+
+
+# Cluster sizes the standalone segment max takes (portable on every sm_90
+# card) and the least work a CTA keeps when a row is split; the C entry's
+# own copy of the rule, csrc/segment_max.cu::segmax_plan, mirrors
+# segment_max_plan.
+SEGMENT_MAX_CLUSTERS = (8, 4, 2)
+SEGMENT_MAX_MIN_WORK_PER_CTA = 512
+
+
+class SegmentMaxPlan(NamedTuple):
+    """How the standalone segment max lays out a call: ``cluster`` CTAs a
+    row, CTA r folding edges ``[r * edges_per_cta, (r + 1) *
+    edges_per_cta)`` of it (the last CTAs may hold fewer, or none), the
+    row's maxima held in each CTA's shared memory (``segments ==
+    "shared"``, ``smem_bytes`` a CTA) or in the output (``"global"``)."""
+    cluster: int
+    edges_per_cta: int
+    segments: str
+    smem_bytes: int
+
+
+@contract("B", "E", "S", None)
+def segment_max_plan(B: int, E: int, S: int, elem_bytes: int, *, num_sms: int,
+                     smem_cap: int) -> SegmentMaxPlan:
+    """The standalone kernel's layout for ``B`` rows of ``E`` edges into
+    ``S`` segments of ``elem_bytes``-byte values.  The maxima live in the
+    output when a row has more segments than edges or its S keys (8 bytes
+    each for float64, 4 for the others) pass ``smem_cap``, else in every
+    CTA's shared memory.  A row takes the largest cluster in
+    :data:`SEGMENT_MAX_CLUSTERS` whose ``B * cluster`` CTAs fit the card's
+    ``num_sms`` (one wave) and whose CTAs keep at least
+    :data:`SEGMENT_MAX_MIN_WORK_PER_CTA` edges each (edges and segments
+    when the maxima live in the output: each CTA also sets and decodes its
+    share of them), else one CTA; each CTA's slice is ``ceil(E /
+    cluster)`` edges rounded up to four (one vector load of ids).  Every
+    edge is read once either way."""
+    smem = S * _key_bytes(elem_bytes)
+    where = "global" if S > E or smem > smem_cap else "shared"
+    work = E + S if where == "global" else E
+    cs = next((k for k in SEGMENT_MAX_CLUSTERS
+               if B * k <= num_sms and -(-work // k) >= SEGMENT_MAX_MIN_WORK_PER_CTA), 1)
+    return SegmentMaxPlan(cs, _edges_per_cta(E, cs), where, smem if where == "shared" else 0)
+
+
+def _key_bytes(elem_bytes: int) -> int:
+    return 8 if elem_bytes == 8 else 4
+
+
+def _edges_per_cta(E: int, cluster: int) -> int:
+    return (-(-E // cluster) + 3) // 4 * 4
+
+
+@contract("E", "S", None, None)
+def segment_max_layouts(E: int, S: int, elem_bytes: int, smem_cap: int) -> list:
+    """Every layout the standalone kernel can take for rows of ``E`` edges
+    into ``S`` segments of ``elem_bytes``-byte values: 1, 2, 4 and 8 CTAs a
+    row, each with the maxima in shared memory (where the S keys fit
+    ``smem_cap``) and in the output.  :func:`segment_max_plan` picks one."""
+    smem = S * _key_bytes(elem_bytes)
+    return [SegmentMaxPlan(cs, _edges_per_cta(E, cs), where, smem if where == "shared" else 0)
+            for cs in (1,) + SEGMENT_MAX_CLUSTERS[::-1]
+            for where in ("shared", "global") if where == "global" or smem <= smem_cap]
+
+
+@functools.cache
+def _smem_cap(index: int) -> int:
+    """The most shared memory card ``index`` grants a block (the input of
+    :func:`segment_max_plan` and :func:`timing_plan`)."""
+    with torch.cuda.device(index):
+        return int(_library().smem_cap())
+
+
+def _card_index(device: torch.device) -> int:
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+@contract("B", "E", "S", None, None)
+def segment_max_plan_on_card(B: int, E: int, S: int, dtype: torch.dtype,
+                             device: torch.device) -> SegmentMaxPlan:
+    """:func:`segment_max_plan` with ``device``'s SM count and shared memory."""
+    index = _card_index(device)
+    return segment_max_plan(B, E, S, torch.empty((), dtype=dtype).element_size(),
+                            num_sms=_num_sms(index), smem_cap=_smem_cap(index))
+
+
+def _segment_max_plan_in_c(B: int, E: int, S: int, dtype: torch.dtype,
+                          device: torch.device) -> tuple:
+    """``(cluster, edges_per_cta, global)``: the layout the C entry
+    ``segment_max_launch`` takes on ``device``; for the tests only, which
+    hold it to :func:`segment_max_plan_on_card`."""
+    plan = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(torch.device(device)):
+        _library().segment_max_plan_of(B, E, S, _DTYPE_CODES[dtype], plan)
+    return tuple(plan)
+
+
+def _launch_segment_max(vals: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                        plan: SegmentMaxPlan) -> torch.Tensor:
+    """The standalone kernel under ``plan``; the inputs are checked as
+    :func:`edge_segment_max_cuda` checks them.  Raises if the card refuses
+    the layout (a cluster it cannot place, shared memory it cannot grant,
+    a split that leaves edges out)."""
+    dev, code, S = _check_segment_max_cuda(vals, seg_ids, num_segments)
+    B, E = vals.shape
+    lib = _library()
+    with _device_of(vals):
+        out = vals.new_empty((B, S))
+        err = lib.segment_max_plan(vals.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), B, E, S,
+                                   code, plan.cluster, plan.edges_per_cta,
+                                   int(plan.segments == "global"), _stream_of(dev))
     _raise_on(err, "segment_max", lib)
     return out
 
@@ -531,12 +674,9 @@ def _num_sms(index: int) -> int:
 def timing_plan_on_card(C: int, E: int, num_nodes: int, dtype: torch.dtype,
                         device: torch.device) -> TimingPlan:
     """:func:`timing_plan` with ``device``'s SM count and shared memory."""
-    dev = torch.device(device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    with torch.cuda.device(index):
-        cap = int(_library().timing_smem_cap())
+    index = _card_index(device)
     return timing_plan(C, E, num_nodes, torch.empty((), dtype=dtype).element_size(),
-                       num_sms=_num_sms(index), smem_cap=cap)
+                       num_sms=_num_sms(index), smem_cap=_smem_cap(index))
 
 
 @contract("[E]", "[E]", "[U,E]", "[C,R]", "N", "*[C,N]", ret="[C,R+1,N]")

@@ -514,9 +514,10 @@ SPEC_CASES = _spec_cases()
 
 
 def test_spec_cases_cover_all_engine_functions():
-    # 75, and the timing kernel's layout rule: timing_smem_bytes, timing_plan,
-    # timing_plan_on_card
-    assert len(SPEC_CASES) == 78
+    # 75, the timing kernel's layout rule: timing_smem_bytes, timing_plan,
+    # timing_plan_on_card; and the standalone segment max's: segment_max_plan,
+    # segment_max_layouts, segment_max_plan_on_card
+    assert len(SPEC_CASES) == 81
 
 
 @pytest.mark.parametrize("rel,name,ref_name", SPEC_CASES)

@@ -128,6 +128,136 @@ def test_segment_max_kernel_nan_and_signed_zero(cuda):
     assert bool(torch.isneginf(got[0, 4:]).all())
 
 
+def _segmax_case(gen, dev, B, E, S, dtype, offset=0):
+    """Values with -inf, NaN, -0.0 and +0.0 entries and ids in [-1, S] (-1
+    and S dropped), ``offset`` elements into their buffers (so off 16-byte
+    alignment when it is not a multiple of 4).  The values are drawn in
+    float64, so a float64 kernel that kept less precision would differ."""
+    vals = torch.randn((B * E + offset,), generator=gen, device=dev, dtype=torch.float64)
+    vals[torch.rand(vals.shape, generator=gen, device=dev) < 0.15] = float("-inf")
+    vals[torch.rand(vals.shape, generator=gen, device=dev) < 0.01] = -0.0
+    vals[torch.rand(vals.shape, generator=gen, device=dev) < 0.01] = 0.0
+    vals[torch.rand(vals.shape, generator=gen, device=dev) < 0.002] = float("nan")
+    ids = torch.randint(-1, S + 1, (B * E + offset,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return vals.to(dtype)[offset:].view(B, E), ids[offset:].view(B, E)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("B,E,S,offset", [(3, 7, 5, 0), (2, 3001, 1, 0), (16, 261, 87, 1),
+                                          (8, 8192, 1024, 0), (2, 5000, 20000, 3),
+                                          (1, 4099, 2, 2)])
+def test_segment_max_every_layout_bit_for_bit(cuda, B, E, S, offset, dtype):
+    """Every layout the plan can take (1, 2, 4, 8 CTAs a row x the maxima in
+    shared memory or in the output), forced through the launcher, on
+    aligned and misaligned rows: S = 1 (every edge collides), S = 20,000,
+    ids -1 and S, NaN and signed zeros."""
+    from repro_torch.kernels.segment_max import (_launch_segment_max, _smem_cap,
+                                                 segment_max_layouts)
+
+    gen = torch.Generator(device=cuda).manual_seed(B * E + S + offset)
+    vals, ids = _segmax_case(gen, cuda, B, E, S, dtype, offset)
+    want = edge_segment_max_ref(vals, ids, S)
+    layouts = segment_max_layouts(E, S, vals.element_size(), _smem_cap(torch.cuda.current_device()))
+    assert len(layouts) == 8
+    before = dict(LAUNCHES)
+    for plan in layouts:
+        got = _launch_segment_max(vals, ids, S, plan)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, S)
+        assert _same(got, want), plan
+    assert LAUNCHES == before  # the count is the dispatcher's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("B,E,S", [(8, 8192, 1024), (2, 5000, 70000), (200, 600, 40),
+                                   (4, 0, 3), (4, 1, 1)])
+def test_segment_max_planned_layout_counts_one_launch_a_call(cuda, B, E, S, dtype):
+    """The wrapper's own layout, the C entry's plan equal to
+    segment_max_plan's (more segments than edges, or S = 70,000 keys past
+    the card's shared memory in every dtype: the maxima go to the output),
+    one launch a call."""
+    from repro_torch.kernels.segment_max import _segment_max_plan_in_c, segment_max_plan_on_card
+
+    plan = segment_max_plan_on_card(B, E, S, dtype, cuda)
+    assert _segment_max_plan_in_c(B, E, S, dtype, cuda) == (
+        plan.cluster, plan.edges_per_cta, int(plan.segments == "global"))
+    assert plan.segments == ("global" if S > E else "shared")
+    gen = torch.Generator(device=cuda).manual_seed(B + E + S)
+    vals, ids = _segmax_case(gen, cuda, B, E, S, dtype)
+    before = LAUNCHES["segment_max"]
+    got = edge_segment_max(vals, ids, S)
+    got2 = edge_segment_max(vals, ids, S)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_max"] == before + 2
+    want = edge_segment_max_ref(vals, ids, S)
+    assert _same(got, want) and _same(got2, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16, torch.bfloat16])
+def test_segment_max_keys_past_shared_memory_with_fewer_segments_than_edges(cuda, dtype):
+    """S <= E but S keys one past the card's shared memory: the plan puts
+    the maxima in the output for the grant alone, and the wrapper's launch
+    equals plain."""
+    from repro_torch.kernels.segment_max import (_segment_max_plan_in_c, _smem_cap,
+                                                 segment_max_plan_on_card)
+
+    S = _smem_cap(torch.cuda.current_device()) // 4 + 1
+    E = S + 1887
+    plan = segment_max_plan_on_card(1, E, S, dtype, cuda)
+    assert plan.segments == "global" and S <= E
+    assert _segment_max_plan_in_c(1, E, S, dtype, cuda) == (plan.cluster, plan.edges_per_cta, 1)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    vals, ids = _segmax_case(gen, cuda, 1, E, S, dtype)
+    before = LAUNCHES["segment_max"]
+    got = edge_segment_max(vals, ids, S)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_max"] == before + 1
+    assert got.dtype == dtype and _same(got, edge_segment_max_ref(vals, ids, S))
+
+
+@pytest.mark.gpu
+def test_segment_max_refused_layouts_raise(cuda):
+    """A layout the card cannot take raises and launches nothing: a cluster
+    size the kernel does not take, a split that leaves edges out, keys past
+    the card's shared memory.  Nothing falls back to another layout."""
+    from repro_torch.kernels.segment_max import SegmentMaxPlan, _launch_segment_max, _smem_cap
+
+    cap = _smem_cap(torch.cuda.current_device())
+    gen = torch.Generator(device=cuda).manual_seed(4000)
+    vals = torch.randn((2, 4000), generator=gen, device=cuda)
+    ids = torch.randint(0, 5, (2, 4000), generator=gen, device=cuda, dtype=torch.int32)
+    big = cap // 4 + 1
+    before = dict(LAUNCHES)
+    for S, plan in ((5, SegmentMaxPlan(16, 252, "shared", 20)),
+                    (5, SegmentMaxPlan(3, 1336, "shared", 20)),
+                    (5, SegmentMaxPlan(2, 1996, "shared", 20)),
+                    (big, SegmentMaxPlan(1, 4000, "shared", big * 4))):
+        with pytest.raises(RuntimeError, match="segment_max kernel launch failed"):
+            _launch_segment_max(vals, ids, S, plan)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    got = _launch_segment_max(vals, ids, big, SegmentMaxPlan(1, 4000, "global", 0))
+    assert _same(got, edge_segment_max_ref(vals, ids, big))
+
+
+@pytest.mark.gpu
+def test_segment_max_misaligned_view_and_int64_ids(cuda):
+    """Rows viewed at a storage offset (off 16-byte alignment: one edge a
+    lane) and int64 ids through the public wrapper: converted, launched
+    once, equal to plain."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    vals, ids = _segmax_case(gen, cuda, 5, 2001, 300, torch.float32, 1)
+    before = LAUNCHES["segment_max"]
+    got = edge_segment_max(vals, ids.long(), 300)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_max"] == before + 1
+    assert _same(got, edge_segment_max_ref(vals, ids, 300))
+
+
 @pytest.mark.gpu
 def test_karp_twin_on_card_bit_identical_to_cpu(cuda):
     from repro_torch.core.maxplus_sparse import batched_cycle_time_sparse_torch
@@ -817,7 +947,7 @@ def test_timing_kernel_at_the_node_limit_and_refused_past_it(cuda, dtype):
     limit = int(lib.timing_max_nodes({torch.float32: 0, torch.float64: 1}[dtype]))
     C, R, U, E = 2, 3, 2, 2 * limit
     plan = timing_plan_on_card(C, E, limit, dtype, cuda)
-    assert plan.stages == 0 and plan.smem_bytes <= int(lib.timing_smem_cap())
+    assert plan.stages == 0 and plan.smem_bytes <= int(lib.smem_cap())
     assert plan.cluster == 1 and plan.smem_bytes == int(lib.timing_smem_bytes(
         limit, plan.arcs_per_cta, 0, 1, dtype == torch.float64))
     gen = torch.Generator(device=cuda).manual_seed(limit)
@@ -836,12 +966,12 @@ def test_timing_kernel_refused_plans_raise(cuda):
     """A plan the card cannot take raises and launches nothing: shared
     memory past the card's grant, a cluster size the kernel does not take,
     a split that leaves arcs out."""
-    from repro_torch.kernels.segment_max import TimingPlan, _library, _launch_timing
+    from repro_torch.kernels.segment_max import TimingPlan, _launch_timing, _smem_cap
 
     gen = torch.Generator(device=cuda).manual_seed(5)
     src, dst, w, ids, _ = _timing_inputs(gen, cuda, 2, 4, 3, 40000, 11, torch.float64, False,
                                          False)
-    cap = int(_library().timing_smem_cap())
+    cap = _smem_cap(torch.cuda.current_device())
     for plan in (TimingPlan(1, 40000, 4, cap + 1), TimingPlan(16, 2500, 2, 0),
                  TimingPlan(2, 10000, 2, 0)):
         with pytest.raises(RuntimeError, match="timing_recursion kernel launch failed"):
