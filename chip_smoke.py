@@ -44,10 +44,17 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    versions, bit for bit (B in {1, 3, 16, 64} x N in {1, 5, 87, 383, 1024}
    x E in {N, 3N, 8192} x one or multi-universe rows x four float dtypes,
    with -inf arcs, an acyclic row and an unreachable node, plus arcs too
-   many for shared memory), and one Karp score timed at the Ebone climb's
+   many for shared memory), each reachability case also under every
+   layout of ``reach_layouts`` (the bitsets at one and two traversals a
+   CTA, the hops over staged arcs, the hops over arcs in global memory),
+   plus paths listed forward and in reverse, rings, stars, E = 0 and
+   padded rows at N in {31, 32, 33, 87, 1023, 1024} and the hop kernel's
+   own N = 1025, 2048 and E = 60,000 at N = 300; one Karp score timed at
+   the Ebone climb's
    shape and the scoring shape beside its plain version, the per-level
    path of PRs 12-14 (one standalone launch a level) and its bound, and
-   one reachability call beside its plain version and its bound;
+   one reachability call beside its plain version, its bound, and the
+   levels and steps of its chain;
 7. drives the design path: ``design_overlay("sparse_rewire", ...)`` on
    the card for the paper's five networks at their real sizes, and the
    hierarchical designer on Ebone and on a 4096-silo clustered WAN, each
@@ -915,16 +922,71 @@ def per_level_karp(torch, src, dst, w, N: int):
                           w.shape[0], N, w.dtype, w.device)
 
 
+def reach_case(torch, gen, dev, kind: str, B: int, N: int, E: int):
+    """``[B, E]`` arcs and a present mask of one kind: ``path`` 0 -> 1 ->
+    .. -> N-1 (E = N - 1) listed in order or (``reversed_path``) in
+    reverse, ``ring`` (E = N), ``star`` (0 -> i, and i -> 0 for even i),
+    every arc present in row 0 and every seventh absent in the others; or
+    ``padded`` (random arcs, row b living on its first m_b nodes)."""
+    if kind == "padded":
+        src, dst, _, present = karp_case(torch, gen, dev, B, N, E, True)
+        return src, dst, present
+    i = torch.arange(E, device=dev, dtype=torch.int32)
+    if kind in ("path", "reversed_path"):
+        s = i if kind == "path" else (E - 1) - i
+        d = s + 1
+    elif kind == "ring":
+        s, d = i, (i + 1) % N
+    else:
+        leaves = torch.arange(1, N, device=dev, dtype=torch.int32)
+        back = leaves[leaves % 2 == 0]
+        s = torch.cat([torch.zeros_like(leaves), back])
+        d = torch.cat([leaves, torch.zeros_like(back)])
+    present = torch.ones((B, E), dtype=torch.bool, device=dev)
+    present[1:, ::7] = False
+    return s.expand(B, E).contiguous(), d.expand(B, E).contiguous(), present
+
+
+def reach_arcs(kind: str, N: int) -> int:
+    return {"path": N - 1, "reversed_path": N - 1, "ring": N,
+            "star": N - 1 + (N - 1) // 2}.get(kind, 3 * N)
+
+
+def reach_every_layout(torch, src, dst, present, N: int, ref, what: str) -> int:
+    """Reachability under every layout the card takes for these inputs,
+    forced, each equal to ``ref``; returns how many ran."""
+    from repro_torch.kernels.segment_max import _launch_reach, _smem_cap, reach_layouts
+
+    layouts = reach_layouts(present.shape[1], N, _smem_cap(torch.cuda.current_device()))
+    for plan in layouts:
+        got = _launch_reach(src, dst, present, N, plan)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"reach {what} under {plan} differs from its plain version")
+    return len(layouts)
+
+
+def own_device_ms(kernels: dict, *names: str):
+    """Mean device ms a launch of the kernels whose names hold one of
+    ``names`` (summed over them), from ``device_kernels``; None if the
+    profiler saw none."""
+    own = [(c, us) for k, (c, us) in kernels.items() if any(n in k for n in names)]
+    if not own:
+        return None
+    return sum(us for _, us in own) / sum(c for c, _ in own) / 1e3
+
+
 def karp_kernel_phase(torch, dev) -> dict:
     """Both persistent K1 entries against their plain versions on the
-    card, bit for bit, then one Karp score timed at the Ebone climb's
-    shape and at the scoring shape."""
+    card, bit for bit (reachability under every layout too), then one Karp
+    score and one reachability call timed at the Ebone climb's shape and
+    at the scoring shape."""
     from repro_torch.kernels import LAUNCHES, karp_cycle_time, reach_from_zero
-    from repro_torch.kernels.segment_max import karp_cycle_time_ref, reach_from_zero_ref
+    from repro_torch.kernels.segment_max import (karp_cycle_time_ref, reach_from_zero_ref,
+                                                 reach_plan_on_card)
 
     gen = torch.Generator(device=dev).manual_seed(4)
     dtypes = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
-    n_karp = n_reach = 0
+    n_karp = n_reach = n_forced = 0
     launches = dict(LAUNCHES)
     for B in (1, 3, 16, 64):
         for N in (1, 5, 87, 383, 1024):
@@ -950,6 +1012,8 @@ def karp_kernel_phase(torch, dev) -> dict:
                     check(N <= 2 or not bool(got[:, :, N - 1].any()),
                           f"reach B={B} N={N} E={E}: the isolated node was reached")
                     n_reach += 1
+                    n_forced += reach_every_layout(torch, src, dst, present, N, ref,
+                                                   f"B={B} N={N} E={E} padded={padded}")
     # arcs past shared memory: read from global memory at every level
     for dtype in dtypes:
         src, dst, w32, present = karp_case(torch, gen, dev, 2, 300, 30000, True)
@@ -957,18 +1021,45 @@ def karp_kernel_phase(torch, dev) -> dict:
         check(torch.equal(karp_cycle_time(src, dst, w, 300), karp_cycle_time_ref(src, dst, w, 300)),
               f"karp with arcs in global memory ({dtype}) differs from its plain version")
         n_karp += 1
-    check(torch.equal(reach_from_zero(src, dst, present, 300),
-                      reach_from_zero_ref(src, dst, present, 300)),
-          "reach with arcs in global memory differs from its plain version")
+    ref = reach_from_zero_ref(src, dst, present, 300)
+    check(torch.equal(reach_from_zero(src, dst, present, 300), ref),
+          "reach with arcs past shared memory differs from its plain version")
     n_reach += 1
+    n_forced += reach_every_layout(torch, src, dst, present, 300, ref, "E=30000")
+    # the shapes of the bitsets' edges, and the hop kernel's own: paths
+    # (forward and reversed), rings, stars, E = 0 and padded rows, N past
+    # 1024, and E = 60,000 arcs at N = 300 (past shared memory for the hops)
+    cases = [(kind, N, reach_arcs(kind, N))
+             for kind in ("path", "reversed_path", "ring", "star", "padded")
+             for N in (31, 32, 33, 87, 1023, 1024)]
+    cases += [("padded", 87, 0), ("padded", 1024, 0), ("padded", 1025, 3075),
+              ("path", 2048, 2047), ("star", 2048, 3070), ("padded", 300, 60000)]
+    picked = {}
+    for kind, N, E in cases:
+        src, dst, present = reach_case(torch, gen, dev, kind, 5, N, E)
+        got = reach_from_zero(src, dst, present, N)
+        torch.cuda.synchronize()
+        ref = reach_from_zero_ref(src, dst, present, N)
+        what = f"{kind} B=5 N={N} E={E}"
+        check(torch.equal(got, ref), f"reach {what} differs from its plain version")
+        check(kind == "padded" or bool(ref[0, 0].all()), f"reach {what}: row 0 not all reached")
+        layout = reach_plan_on_card(E, N, dev).layout
+        picked[layout] = picked.get(layout, 0) + 1
+        n_reach += 1
+        n_forced += reach_every_layout(torch, src, dst, present, N, ref, what)
     check(LAUNCHES["karp"] - launches["karp"] == n_karp
           and LAUNCHES["reach"] - launches["reach"] == n_reach,
           "the sweep's launches were not counted one per call")
+    check(picked.get("hop", 0) == 3 and picked.get("hop_global", 0) == 0,
+          f"reach_plan picked {picked}: the hop kernel for N = 1025 and 2048 only")
     print(f"kernel karp: sweep B in (1,3,16,64) x N in (1,5,87,383,1024) x E in (N,3N,8192) x "
           f"one/multi-universe x f32/f64/f16/bf16, plus E=30000 ({n_karp} cases): bit-identical "
           f"to the plain version; acyclic rows -inf")
-    print(f"kernel reach: the same graphs, forward and backward ({n_reach} cases): identical to "
-          f"the plain version; isolated nodes unreached")
+    print(f"kernel reach: the same graphs, forward and backward, plus paths (forward and "
+          f"reversed), rings, stars and padded rows at N in (31,32,33,87,1023,1024), E=0, "
+          f"N=1025 and 2048, E=60000 at N=300 ({n_reach} cases, layouts picked {picked}; "
+          f"{n_forced} runs under every layout of reach_layouts forced): identical to the plain "
+          f"version; isolated nodes unreached")
 
     shapes = {}
     for name, (B, E, N) in KARP_SHAPES:
@@ -997,19 +1088,26 @@ def karp_kernel_phase(torch, dev) -> dict:
         r_ms = time_ms(torch, lambda: reach_from_zero(src, dst, present, N), reps=reps, warmup=3)
         r_plain = time_ms(torch, lambda: reach_from_zero_ref(src, dst, present, N), reps=3)
         r_bound, r_by, hops = reach_bound(torch, src, dst, present, N)
+        r_levels = max(hops) + 1  # a level a BFS depth, plus the one that finds nothing new
+        # the bitset kernel's chain: a step a reached vertex of the longest traversal
+        steps = int(reach_from_zero(src, dst, present, N).sum(dim=2).max())
+        r_plan = reach_plan_on_card(E, N, dev)
         _, kernels = device_kernels(torch, lambda: [reach_from_zero(src, dst, present, N)
                                                     for _ in range(20)])
-        own = [(c, us) for k, (c, us) in kernels.items() if "reach_kernel" in k]
-        r_dev = own[0][1] / own[0][0] / 1e3 if own else None
-        r_dev_txt = f"{r_dev:.5f}" if r_dev is not None else "not measured"
+        r_dev = own_device_ms(kernels, "reach_")
+        r_dev_txt = (f"{r_dev:.5f} ({r_dev * 1e6 / r_levels:.1f} ns a level, "
+                     f"{r_dev * 1e6 / steps:.1f} a step)" if r_dev is not None
+                     else "not measured")
         print(f"kernel karp B={B} E={E} N={N} f32 ({name}): ms {ms:.4f}  device_ms {dev_txt}  "
               f"plain_ms {plain:.4f}  per-level path (gather + add + segment_max a level) ms "
               f"{per_level:.4f} ({per_level / ms:.1f}x the kernel)  library_ms null  bound_ms "
               f"{bound:.6f} ({by})  max_abs_err {err:.3g}")
         print(f"kernel reach B={B} E={E} N={N} ({name}): ms {r_ms:.4f}  device_ms {r_dev_txt}  "
-              f"plain_ms {r_plain:.4f}  library_ms null  bound_ms {r_bound:.6f} ({r_by}; "
-              f"synchronous hops to the fixpoint, most of a row and direction: {max(hops)} of "
-              f"{N - 1})")
+              f"plain_ms {r_plain:.4f}  library_ms null  bound_ms {r_bound:.6f} ({r_by}; the "
+              f"floor is the chain: levels {r_levels} (BFS depth + 1) and steps {steps} (vertices "
+              f"expanded one after another), the most of a row and direction, N = {N})  layout "
+              f"{r_plan.layout} x {r_plan.rows} a CTA, {r_plan.smem_bytes} bytes of shared "
+              f"memory")
         if name == "ebone_climb":
             check(per_level >= 10 * ms, f"karp at the Ebone climb shape: {ms:.4f} ms is not "
                                         f"10x below the per-level path's {per_level:.4f} ms")
@@ -1018,7 +1116,7 @@ def karp_kernel_phase(torch, dev) -> dict:
                         "yardstick_launches": yardstick,
                         "reach": {"ms": r_ms, "device_ms": r_dev, "plain_ms": r_plain,
                                   "bound_ms": r_bound, "bound_by": r_by, "max_abs_err": 0.0,
-                                  "library_ms": None}}
+                                  "library_ms": None, "levels": r_levels, "steps": steps}}
     return shapes
 
 
@@ -1141,14 +1239,16 @@ def design_phase(torch, dev, wan=(4096, 64)) -> dict:
     if kernels:
         busy = sum(us for _, us in kernels.values()) / 1e6
         n_kernels = sum(c for c, _ in kernels.values())
-        k1 = sum(us for k, (_, us) in kernels.items()
-                 if "karp_kernel" in k or "reach_kernel" in k) / 1e6
+        karp_s = sum(us for k, (_, us) in kernels.items() if "karp_kernel" in k) / 1e6
+        reach = [(c, us) for k, (c, us) in kernels.items() if "reach_" in k]
+        reach_s = sum(us for _, us in reach) / 1e6
         untraced = rows[-1]["wall_s"]
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
         print(f"design ebone profile: traced wall {traced:.4f} s, device busy {busy:.4f} s "
               f"over {n_kernels} kernels ({n_kernels / 97:.0f} per climb step), "
-              f"karp + reach {k1:.4f} s; idle share of the untraced {untraced:.4f} s design "
-              f"{1 - busy / untraced:.4f}")
+              f"karp + reach {karp_s + reach_s:.4f} s (reach {reach_s * 1e3:.4f} ms over "
+              f"{sum(c for c, _ in reach)} launches); idle share of the untraced "
+              f"{untraced:.4f} s design {1 - busy / untraced:.4f}")
         check(n_kernels / 97 <= 300, f"ebone design: {n_kernels / 97:.0f} kernels a climb step")
         for name, (count, us) in top:
             print(f"  design kernel {us / 1e3:9.3f} ms  x{count:<6d} {name[:100]}")

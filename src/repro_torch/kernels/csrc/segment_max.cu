@@ -25,7 +25,9 @@
 //
 // reach_launch computes, for the same arc lists and a present mask, the
 // vertices reachable from vertex 0 along present arcs forward (src ->
-// dst) and backward (dst -> src): out [2, B, N] of 0/1 bytes.
+// dst) and backward (dst -> src): out [2, B, N] of 0/1 bytes, in one
+// launch laid out by segment_max.py::reach_plan (adjacency bitsets for
+// N <= 1024, the hop kernel past that).
 //
 // timing_recursion_launch computes the round-varying Eq. 4 recursion of
 // C Monte-Carlo chains over one arc pool (src, dst) [E] (int32) whose
@@ -67,12 +69,11 @@
 // its lanes' runs of equal ids before the global atomics.  Either way
 // each edge is read once.
 //
-// The two recursions are one launch each: one block per graph row (grid
-// (B, 2) for reachability, a block per direction) runs every level of the
-// chain.  The row's arcs are staged in shared memory once (read from
-// global memory each level when they do not fit), the running level lives
-// in shared memory as keys, and a block barrier stands where the
-// per-level path launched a kernel.  Karp rotates three key buffers (read
+// The Karp recursion is one launch: one block per graph row runs every
+// level of the chain.  The row's arcs are staged in shared memory once
+// (read from global memory each level when they do not fit), the running
+// level lives in shared memory as keys, and a block barrier stands where
+// the per-level path launched a kernel.  Karp rotates three key buffers (read
 // D_{k-1}, fold into D_k, reset the third), so a level costs one pass over
 // the arcs and one barrier; each finished level goes to a [B, N, N]
 // scratch in global memory (L2-resident at the climb's sizes) for the
@@ -81,12 +82,28 @@
 // explicit __fadd_rn/__fdiv_rn-style intrinsics so nothing contracts;
 // 16-bit inputs compute in float and round once to their type, as torch
 // does, so the result equals the plain version bit for bit.
-// Reachability sets a byte per vertex, in place, and stops at the first
-// hop that changes nothing (__syncthreads_or): r only grows, so the
-// fixpoint is the same set that N - 1 synchronous hops reach.  An id
-// outside [0, N) in any recursion, or a round id outside [0, U), stops the
-// kernel (__trap), which the caller sees as a CUDA error at the next
-// synchronise, as with torch's own indexing kernels.
+//
+// Reachability is one launch too, with two layouts (segment_max.py::
+// reach_plan).  For N <= 1024 (every main-path call: Ebone's 87 nodes,
+// Gaia's 11, the WAN's clusters) a row and direction's out-adjacency is N
+// bitsets of W = ceil(N / 32) words in shared memory (N^2 / 8 bytes, 128
+// KB at N = 1024), built with one shared-memory atomicOr a present arc
+// after the arcs are read once from global memory, so any E takes it;
+// then one warp traverses, lane l holding word l of the reached set R and
+// of the pending set P, as a worklist: each step pops the highest pending
+// vertex v (bfind a lane, redux.max over the warp), ORs word l of v's
+// row into R and its new vertices into P, until no lane pends.  Every
+// reached vertex is expanded once, each row read once, and a step is a
+// few warp instructions with no block barrier, where the hop kernel (kept
+// for N > 1024) walks every arc of the row and meets a 32-warp barrier at
+// each hop.  Where two sets of bitsets fit, a CTA holds both directions
+// of a row (two traversals, a warp each) and reads its arcs once for
+// both.  The hop kernel sets a byte per vertex, in place, and stops at
+// the first hop that changes nothing (__syncthreads_or).  R only grows
+// either way, so the fixpoint is the same set that N - 1 synchronous hops
+// reach.  An id outside [0, N) in any recursion, or a round id outside
+// [0, U), stops the kernel (__trap), which the caller sees as a CUDA
+// error at the next synchronise, as with torch's own indexing kernels.
 //
 // The timing recursion spreads each chain over a thread-block cluster of
 // cs CTAs (cs in {1, 2, 4, 8} and the split of the arcs come from
@@ -134,8 +151,13 @@
 // read, B*sizeof(T) written) and its operations (2*B*N*E adds and maxima
 // plus 3*B*N*N for the final formula); its real floor is the chain of N
 // dependent levels, one barrier and one pass over the row's arcs each,
-// which no amount of parallelism across rows removes.  The timing
-// recursion's least time is the larger of its bytes (the U*E*sizeof(T)
+// which no amount of parallelism across rows removes.  Reachability's
+// least time is its bytes, src, dst and present read once (9 bytes an
+// arc: one copy on chip serves both directions and every step) and
+// 2*B*N flags written; its real floor is the bitset kernel's chain of
+// steps, one a reached vertex (N at most), each a dependent shared-memory
+// load, lop3, bfind and redux (PERF.md has the measured ns a step).  The
+// timing recursion's least time is the larger of its bytes (the U*E*sizeof(T)
 // distinct weight rows, E*8 arc ids and C*R*4 round ids read once,
 // C*(R+1)*N*sizeof(T) written) and its operations (2*C*R*E adds and
 // maxima).  Its weights are not cache-resident (U*E*8 is 190.8 MB at
@@ -345,7 +367,8 @@ karp_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
   if (tid == 0) out[b] = A::store(decode_key(*red));
 }
 
-// grid (B, 2): y = 0 follows arcs src -> dst, y = 1 dst -> src.
+// The hop layout of reachability (N > 1024, or forced): grid (B, 2), y = 0
+// follows arcs src -> dst, y = 1 dst -> src.
 template <bool kStaged>
 __global__ void __launch_bounds__(kMaxThreads)
 reach_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
@@ -392,6 +415,102 @@ reach_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
   __syncthreads();
   uint8_t* o = out + ((int64_t)blockIdx.y * B + b) * N;
   for (int v = tid; v < N; v += nt) o[v] = r[v];
+}
+
+// The bitset layout of reachability (N <= 1024): a traversal's out-
+// adjacency as N bitsets of W = ceil(N / 32) words in shared memory, and
+// one warp a traversal, lane l holding word l of the reached set R and of
+// the pending set P (reached, not yet expanded).  rows == 1: grid (B, 2),
+// CTA (b, y) holds direction y of row b.  rows == 2: grid B, CTA b holds
+// both directions of row b (each arc read once for both), warp y
+// traversing direction y.
+constexpr int kReachMaxBitsetNodes = 1024;  // one 32-bit word a lane
+constexpr int kReachArcsPerThread = 4;      // arc loads in flight a thread
+
+__global__ void __launch_bounds__(kMaxThreads)
+reach_bitset_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+                    const uint8_t* __restrict__ present, uint8_t* __restrict__ out,
+                    int B, int E, int N, int rows) {
+  extern __shared__ __align__(16) unsigned int adj[];  // rows x N x W words
+  const int W = (N + 31) >> 5;
+  const int per = N * W;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int y0 = rows == 1 ? (int)blockIdx.y : 0;
+
+  // Build: zero the bitsets (16 bytes a store), one barrier, then one
+  // shared-memory atomicOr a present arc and direction, each thread's
+  // next four arcs loaded before any is used.
+  const int total = rows * per;
+  uint4* adj4 = reinterpret_cast<uint4*>(adj);
+  for (int i = tid; i < (total >> 2); i += nt) adj4[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = (total & ~3) + tid; i < total; i += nt) adj[i] = 0u;
+  __syncthreads();
+  const int64_t off = (int64_t)b * E;
+  for (int e0 = tid; e0 < E; e0 += kReachArcsPerThread * nt) {
+    int32_t s[kReachArcsPerThread], d[kReachArcsPerThread];
+    uint8_t p[kReachArcsPerThread];
+#pragma unroll
+    for (int k = 0; k < kReachArcsPerThread; ++k) {
+      const int e = e0 + k * nt;
+      s[k] = e < E ? src[off + e] : 0;
+      d[k] = e < E ? dst[off + e] : 0;
+      p[k] = e < E ? present[off + e] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kReachArcsPerThread; ++k) {
+      if ((unsigned)s[k] >= (unsigned)N || (unsigned)d[k] >= (unsigned)N) __trap();
+      if (!p[k]) continue;
+      if (rows == 1) {
+        const int t = y0 ? d[k] : s[k], g = y0 ? s[k] : d[k];  // the arc t -> g
+        atomicOr(&adj[t * W + (g >> 5)], 1u << (g & 31));
+      } else {
+        atomicOr(&adj[s[k] * W + (d[k] >> 5)], 1u << (d[k] & 31));
+        atomicOr(&adj[per + d[k] * W + (s[k] >> 5)], 1u << (s[k] & 31));
+      }
+    }
+  }
+  __syncthreads();
+
+  // Traverse: no block barrier from here on, so the other warps leave.
+  const int warp = tid >> 5, lane = tid & 31;
+  if (warp >= rows) return;
+  const int y = rows == 1 ? y0 : warp;
+  // A worklist, one vertex a step: pop the highest pending vertex v (each
+  // lane's highest pending bit by bfind, the warp's maximum by redux), OR
+  // word l of v's row into R and its new vertices into P.  Every reached
+  // vertex is expanded once, in whatever order, so R ends at the same
+  // fixpoint as N - 1 synchronous hops; a step is one dependent chain of a
+  // shared-memory load, a lop3, a bfind and a redux, with no vote or
+  // shuffle.  (A level at a time, its vertices enumerated by ballot,
+  // shuffle and __ffs, cost twice as much a level on a path.)  Lanes past
+  // W read a copy of word W - 1 (in bounds) and hold R full, so they never
+  // pend.  The load and the three-input lop3 are PTX: the compiler would
+  // split P & m | row & ~R into two dependent logic ops on the chain.
+  const uint32_t base = static_cast<uint32_t>(
+      __cvta_generic_to_shared(adj + warp * per + (lane < W ? lane : W - 1)));
+  const uint32_t stride = static_cast<uint32_t>(W) * 4u;
+  const unsigned int hi = static_cast<unsigned int>(lane) << 5;
+  unsigned int reached = lane < W ? (lane == 0 ? 1u : 0u) : 0xffffffffu;
+  unsigned int pending = lane == 0 ? 1u : 0u;
+  int v = 0;
+  while (v >= 0) {
+    const unsigned int pm = pending & (lane == (v >> 5) ? ~(1u << (v & 31)) : 0xffffffffu);
+    unsigned int row, top;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(row) : "r"(base + (uint32_t)v * stride));
+    asm("lop3.b32 %0, %1, %2, %3, 0xF4;" : "=r"(pending) : "r"(pm), "r"(row), "r"(reached));
+    reached |= row;
+    asm("bfind.u32 %0, %1;" : "=r"(top) : "r"(pending));  // 0xffffffff: nothing pends
+    v = __reduce_max_sync(0xffffffffu, static_cast<int>(top | hi));
+  }
+
+  // Write: a word at a time, one byte a lane (32 consecutive bytes a store).
+  uint8_t* o = out + ((int64_t)y * B + b) * N;
+  for (int c = 0; c < W; ++c) {
+    const unsigned int word = __shfl_sync(0xffffffffu, reached, c);
+    const int u = (c << 5) + lane;
+    if (u < N) o[u] = (uint8_t)((word >> lane) & 1u);
+  }
 }
 
 int threads_for(int64_t work) {
@@ -1311,6 +1430,71 @@ int segment_max_dispatch(const void* vals, const void* ids, void* out, int64_t B
   }
 }
 
+// ---------------------------------------------------------------------------
+// Reachability's layout (segment_max.py::reach_plan mirrors it).  layout 0:
+// the bitsets, `rows` traversals a CTA; 1: the hop kernel with the row's
+// arcs staged in shared memory; 2: the hop kernel reading them from global
+// memory.  The bitsets take every N <= 1024 whose N x W words fit the
+// card's shared memory, both directions of a row in one CTA (rows 2: the
+// arcs read once for both) where two sets of bitsets fit, else one (at N
+// = 1024).  Past that the hop kernel, staged where E * 8 + N bytes fit.
+struct ReachPlan {
+  int64_t layout, rows, smem;
+};
+
+int64_t reach_bitset_bytes(int64_t N) { return N * ((N + 31) / 32) * 4; }
+
+ReachPlan reach_plan(int64_t E, int64_t N, int64_t cap) {
+  const int64_t bits = reach_bitset_bytes(N);
+  if (N <= kReachMaxBitsetNodes && bits <= cap) {
+    const int64_t rows = 2 * bits <= cap ? 2 : 1;
+    return ReachPlan{0, rows, rows * bits};
+  }
+  const int64_t staged = E * 2 * (int64_t)sizeof(int32_t) + N;
+  return staged <= cap ? ReachPlan{1, 1, staged} : ReachPlan{2, 1, N};
+}
+
+int reach_dispatch(const void* src, const void* dst, const void* present, void* out, int64_t B,
+                   int64_t E, int64_t N, int64_t layout, int64_t rows, cudaStream_t stream) {
+  if (B < 0 || E < 0 || N < 1 || E > 0x7fffffffLL || N > 0x7fffffffLL || B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* s = static_cast<const int32_t*>(src);
+  const int32_t* d = static_cast<const int32_t*>(dst);
+  const uint8_t* p = static_cast<const uint8_t*>(present);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (layout == 0) {
+    if (N > kReachMaxBitsetNodes || (rows != 1 && rows != 2)) return (int)cudaErrorInvalidValue;
+    if (B == 0) return (int)cudaSuccess;
+    const size_t smem = (size_t)(rows * reach_bitset_bytes(N));
+    // (the device's grant is asked only past the 48 KB every block has)
+    if (smem > kDefaultSmem && smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(&reach_bitset_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)B, rows == 1 ? 2 : 1);
+    // threads: four arcs each, or four bitset words each to zero, in whole
+    // warps, 64 to 1024
+    const int64_t words = rows * reach_bitset_bytes(N) / 16;
+    const int64_t arcs = (E + kReachArcsPerThread - 1) / kReachArcsPerThread;
+    const int64_t work = arcs > words ? arcs : words;
+    int64_t want = (work + 31) / 32 * 32;
+    want = want < 64 ? 64 : (want > kMaxThreads ? kMaxThreads : want);
+    reach_bitset_kernel<<<grid, (unsigned)want, smem, stream>>>(s, d, p, o, (int)B, (int)E,
+                                                                (int)N, (int)rows);
+    return (int)cudaGetLastError();
+  }
+  if ((layout != 1 && layout != 2) || rows != 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const bool staged = layout == 1;
+  const size_t smem = staged ? (size_t)E * 2 * sizeof(int32_t) + (size_t)N : (size_t)N;
+  if (smem > kDefaultSmem && smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
+  auto kernel = staged ? &reach_kernel<true> : &reach_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)B, 2), threads_for(E > N ? E : N), smem, stream>>>(s, d, p, o, (int)B,
+                                                                            (int)E, (int)N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (src/repro_torch/kernels/segment_max.py).
@@ -1373,26 +1557,39 @@ extern "C" int karp_cycle_time_launch(const void* src, const void* dst, const vo
 }
 
 // src, dst are int32 [B, E] in [0, N), present is [B, E] bytes (non-zero
-// for a present arc), out is [2, B, N] bytes: forward, then backward.
+// for a present arc), out is [2, B, N] bytes: forward, then backward.  The
+// layout is reach_plan's for the current device; nothing is launched when
+// B is 0.
 extern "C" int reach_launch(const void* src, const void* dst, const void* present, void* out,
                             int64_t B, int64_t E, int64_t N, void* stream) {
-  if (B < 0 || E < 0 || N < 1 || E > 0x7fffffffLL || N > 0x7fffffffLL || B > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  const size_t flag_bytes = (size_t)N;
-  const size_t staged_bytes = (size_t)E * 2 * sizeof(int32_t) + flag_bytes;
-  const size_t cap = max_smem_optin();
-  if (flag_bytes > cap) return (int)cudaErrorInvalidValue;
-  const bool staged = staged_bytes <= cap;
-  const size_t smem = staged ? staged_bytes : flag_bytes;
-  auto kernel = staged ? &reach_kernel<true> : &reach_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)B, 2);
-  kernel<<<grid, threads_for(E > N ? E : N), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
-      static_cast<const uint8_t*>(present), static_cast<uint8_t*>(out), (int)B, (int)E, (int)N);
-  return (int)cudaGetLastError();
+  int64_t sms = 0, cap = 0;
+  device_limits(&sms, &cap);
+  const ReachPlan p = reach_plan(E, N, cap);
+  return reach_dispatch(src, dst, present, out, B, E, N, p.layout, p.rows,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The same under a given layout (0: bitsets, 1: hops over staged arcs, 2:
+// hops over arcs in global memory) and rows (traversals a CTA: 1 or 2 for
+// the bitsets, 1 for the hops).  A layout the card cannot take returns an
+// error and launches nothing.
+extern "C" int reach_launch_plan(const void* src, const void* dst, const void* present,
+                                 void* out, int64_t B, int64_t E, int64_t N, int64_t layout,
+                                 int64_t rows, void* stream) {
+  return reach_dispatch(src, dst, present, out, B, E, N, layout, rows,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The layout reach_launch takes on the current device: plan[0..2] =
+// {layout, rows, shared-memory bytes a CTA}.  Only the tests call it, to
+// hold reach_plan to segment_max.py::reach_plan.
+extern "C" void reach_plan_of(int64_t E, int64_t N, int64_t* plan) {
+  int64_t sms = 0, cap = 0;
+  device_limits(&sms, &cap);
+  const ReachPlan p = reach_plan(E, N, cap);
+  plan[0] = p.layout;
+  plan[1] = p.rows;
+  plan[2] = p.smem;
 }
 
 // w is contiguous [U, E] (dtype 0 = float32, 1 = float64), src and dst are

@@ -27,7 +27,6 @@ from .mlstm_scan import check_inputs as check_mlstm_inputs
 from .mlstm_scan import mlstm_chunked_ref, mlstm_scan_cuda
 from .segment_max import (
     check_karp_inputs,
-    check_reach_inputs,
     edge_segment_max_cuda,
     edge_segment_max_ref,
     karp_cycle_time_cuda,
@@ -115,17 +114,30 @@ def reach_from_zero(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
     present arcs of ``[B, E]`` lists, forward (``src -> dst``) and
     backward (``dst -> src``).  On the card both directions are one
     launch of the persistent K1 recursion."""
-    if present.device.type == "cpu":
-        return reach_from_zero_ref(src, dst, present, num_nodes)
     if present.is_cuda:
-        check_reach_inputs(src, dst, present, num_nodes)
-        res = reach_from_zero_cuda(src.to(device=present.device, dtype=torch.int32).contiguous(),
-                                   dst.to(device=present.device, dtype=torch.int32).contiguous(),
-                                   present.contiguous(), num_nodes)
+        # checked once, by the CUDA wrapper; nothing is copied that is
+        # already int32 on the card and contiguous
+        dev = present.get_device()
+        res = reach_from_zero_cuda(_card_ids(src, present, dev), _card_ids(dst, present, dev),
+                                   present if present.is_contiguous() else present.contiguous(),
+                                   num_nodes)
         if res.numel():
             LAUNCHES["reach"] += 1
         return res
+    if present.device.type == "cpu":
+        return reach_from_zero_ref(src, dst, present, num_nodes)
     raise ValueError(f"reach_from_zero: no kernel for device {present.device}")
+
+
+def _card_ids(ids: torch.Tensor, like: torch.Tensor, dev: int) -> torch.Tensor:
+    """Integer ``ids`` as contiguous int32 on ``like``'s card (``dev``),
+    copied only where they are not; ids of another type are passed on as
+    they are, for the CUDA wrapper's checks to refuse."""
+    dt = ids.dtype
+    if (dt is not torch.int32 or ids.get_device() != dev) and not (
+            dt.is_floating_point or dt.is_complex or dt is torch.bool):
+        ids = ids.to(device=like.device, dtype=torch.int32)
+    return ids if ids.is_contiguous() else ids.contiguous()
 
 
 def timing_recursion(src: torch.Tensor, dst: torch.Tensor, w_unique: torch.Tensor,

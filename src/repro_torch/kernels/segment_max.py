@@ -30,8 +30,11 @@ each one launch where the per-level path launched once a level:
   min/max formula of a batch of max cycle means, one block per graph
   row (:func:`karp_cycle_time_ref` is the plain scatter loop);
 * :func:`reach_from_zero_cuda` -- the rewire climb's forward and
-  backward reachability from vertex 0, one block per row and direction
-  (:func:`reach_from_zero_ref` is the plain hop loop);
+  backward reachability from vertex 0: for N <= 1024 a row and
+  direction's adjacency as bitsets in shared memory and one warp a
+  traversal, else a block a row and direction hopping over the arcs, as
+  :func:`reach_plan` lays the call out (:func:`reach_from_zero_ref` is the
+  plain hop loop);
 * :func:`timing_recursion_cuda` -- all R rounds of the round-varying
   Eq. 4 recursion of a batch of Monte-Carlo chains (MATCHA pricing), one
   thread-block cluster per chain, its arcs split over the cluster's CTAs
@@ -121,6 +124,8 @@ class _Lib(NamedTuple):
     segment_max_plan_of: Callable
     karp: Callable
     reach: Callable
+    reach_plan: Callable
+    reach_plan_of: Callable
     timing: Callable
     timing_max_nodes: Callable
     timing_smem_bytes: Callable
@@ -142,6 +147,8 @@ def _library() -> _Lib:
            "karp": (lib.karp_cycle_time_launch,
                     [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ctypes.c_int, ptr]),
            "reach": (lib.reach_launch, [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]),
+           "reach_plan": (lib.reach_launch_plan, [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64,
+                                                  ptr]),
            "timing": (lib.timing_recursion_launch,
                       [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64,
                        ctypes.c_int, ctypes.c_int, ptr])}
@@ -150,6 +157,8 @@ def _library() -> _Lib:
         fn.restype = ctypes.c_int
     lib.segment_max_plan_of.argtypes = [i64, i64, i64, ctypes.c_int, ctypes.POINTER(i64)]
     lib.segment_max_plan_of.restype = None
+    lib.reach_plan_of.argtypes = [i64, i64, ctypes.POINTER(i64)]
+    lib.reach_plan_of.restype = None
     lib.timing_recursion_max_nodes.argtypes = [ctypes.c_int]
     lib.timing_recursion_max_nodes.restype = i64
     lib.timing_recursion_smem_bytes.argtypes = [i64, i64, ctypes.c_int, i64, ctypes.c_int]
@@ -159,9 +168,9 @@ def _library() -> _Lib:
     lib.segment_max_error_string.argtypes = [ctypes.c_int]
     lib.segment_max_error_string.restype = ctypes.c_char_p
     fns = [fn for fn, _ in fns.values()]
-    return _Lib(*fns[:2], lib.segment_max_plan_of, *fns[2:], lib.timing_recursion_max_nodes,
-                lib.timing_recursion_smem_bytes, lib.smem_cap_optin,
-                lib.segment_max_error_string)
+    return _Lib(*fns[:2], lib.segment_max_plan_of, *fns[2:5], lib.reach_plan_of, *fns[5:],
+                lib.timing_recursion_max_nodes, lib.timing_recursion_smem_bytes,
+                lib.smem_cap_optin, lib.segment_max_error_string)
 
 
 def _device_of(t: torch.Tensor):
@@ -502,28 +511,143 @@ def reach_from_zero_ref(src: torch.Tensor, dst: torch.Tensor, present: torch.Ten
     return torch.stack([reach(src, (boff + dst).ravel()), reach(dst, (boff + src).ravel())])
 
 
+def _check_reach_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
+                      num_nodes: int) -> tuple:
+    """The checks of a reachability call on the card, types and shapes
+    first (as :func:`check_reach_inputs` orders them), then the device and
+    the layout; returns ``(card index, N)``.  Ids on the card are not read
+    back: one outside ``[0, N)`` stops the kernel."""
+    if present.dtype is not torch.bool:
+        raise TypeError(f"reach_from_zero: present must be bool, got {present.dtype}")
+    if src.dtype is not torch.int32 or dst.dtype is not torch.int32:
+        _check_int_ids("reach_from_zero", src=src, dst=dst)
+    shape = present.shape
+    if len(shape) != 2 or src.shape != shape or dst.shape != shape:
+        raise ValueError(f"src, dst and present must all be [B, E]; got {tuple(src.shape)}, "
+                         f"{tuple(dst.shape)} and {tuple(shape)}")
+    N = int(num_nodes)
+    if N < 1:
+        raise ValueError(f"num_nodes must be >= 1, got {N}")
+    dev = present.get_device()
+    if dev < 0 or src.get_device() != dev or dst.get_device() != dev:
+        raise ValueError(f"reach_from_zero_cuda needs CUDA tensors on one device, got "
+                         f"{src.device}, {dst.device} and {present.device}")
+    if src.dtype is not torch.int32 or dst.dtype is not torch.int32 or not (
+            src.is_contiguous() and dst.is_contiguous() and present.is_contiguous()):
+        raise ValueError("reach_from_zero_cuda needs contiguous int32 ids and mask")
+    return dev, N
+
+
 @contract("[B,E]", "[B,E]", "[B,E]", "N", ret="[2,B,N]")
 def reach_from_zero_cuda(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor,
                          num_nodes: int) -> torch.Tensor:
-    """One launch for both directions, on PyTorch's current stream.  Takes
-    contiguous int32 ``src``/``dst`` and bool ``present``, ``[B, E]``, on
-    one card; returns ``[2, B, N]`` bool, equal to :func:`reach_from_zero_ref`.
-    Raises if the launch fails."""
-    check_reach_inputs(src, dst, present, num_nodes)
-    if not (present.is_cuda and src.device == present.device and dst.device == present.device):
-        raise ValueError(f"reach_from_zero_cuda needs CUDA tensors on one device, got "
-                         f"{src.device}, {dst.device} and {present.device}")
-    if src.dtype != torch.int32 or dst.dtype != torch.int32 or not (
-            src.is_contiguous() and dst.is_contiguous() and present.is_contiguous()):
-        raise ValueError("reach_from_zero_cuda needs contiguous int32 ids and mask")
+    """One launch for both directions, on PyTorch's current stream, laid
+    out by :func:`reach_plan` for the card (the C entry computes the same
+    plan).  Takes contiguous int32 ``src``/``dst`` and bool ``present``,
+    ``[B, E]``, on one card; returns ``[2, B, N]`` bool, equal to
+    :func:`reach_from_zero_ref`.  Raises if the launch fails."""
+    dev, N = _check_reach_cuda(src, dst, present, num_nodes)
     B, E = present.shape
-    N = int(num_nodes)
-    out = torch.empty((2, B, N), dtype=torch.bool, device=present.device)
     lib = _library()
     with _device_of(present):
-        stream = torch.cuda.current_stream(present.device).cuda_stream
+        out = present.new_empty((2, B, N))
         err = lib.reach(src.data_ptr(), dst.data_ptr(), present.data_ptr(), out.data_ptr(),
-                        B, E, N, stream)
+                        B, E, N, _stream_of(dev))
+    _raise_on(err, "reach", lib)
+    return out
+
+
+# Reachability's layouts (the C interface's codes are their indices) and
+# the most nodes the bitsets take (one 32-bit word a lane of a warp); the C
+# entry's own copy of the rule, csrc/segment_max.cu::reach_plan, mirrors
+# reach_plan.
+REACH_LAYOUTS = ("bitset", "hop", "hop_global")
+REACH_MAX_BITSET_NODES = 1024
+
+
+class ReachPlan(NamedTuple):
+    """How reachability lays out a call: ``layout`` ``"bitset"`` (a
+    traversal's adjacency as N bitsets in shared memory, one warp a
+    traversal, ``rows`` traversals a CTA: 1, a direction of one row, or 2,
+    both directions of one row), ``"hop"`` (a CTA a row and direction
+    hopping over the row's arcs staged in shared memory) or
+    ``"hop_global"`` (the same, the arcs read from global memory at every
+    hop); ``smem_bytes`` a CTA."""
+    layout: str
+    rows: int
+    smem_bytes: int
+
+
+def _reach_bitset_bytes(N: int) -> int:
+    return N * -(-N // 32) * 4
+
+
+@contract("E", "N")
+def reach_plan(E: int, num_nodes: int, *, smem_cap: int) -> ReachPlan:
+    """Reachability's layout for rows of ``E`` arcs over N nodes on a card
+    granting ``smem_cap`` bytes a block.  The bitsets take every N up to
+    :data:`REACH_MAX_BITSET_NODES` whose N bitsets of ``ceil(N / 32)``
+    words fit, both directions of a row in one CTA (``rows`` 2, the arcs
+    read once for both) where two sets fit, else one.  Past that the hop
+    kernel, its arcs staged in shared memory where their ``8 * E`` bytes
+    and N flags fit, else read in place."""
+    N = num_nodes
+    bits = _reach_bitset_bytes(N)
+    if N <= REACH_MAX_BITSET_NODES and bits <= smem_cap:
+        rows = 2 if 2 * bits <= smem_cap else 1
+        return ReachPlan("bitset", rows, rows * bits)
+    staged = 8 * E + N
+    return ReachPlan("hop", 1, staged) if staged <= smem_cap else ReachPlan("hop_global", 1, N)
+
+
+@contract("E", "N", None)
+def reach_layouts(E: int, num_nodes: int, smem_cap: int) -> list:
+    """Every layout reachability can take for rows of ``E`` arcs over N
+    nodes on a card granting ``smem_cap`` bytes a block: the bitsets at 1
+    and 2 traversals a CTA where they fit, the hops over staged arcs where
+    they fit, the hops over arcs in global memory where the N flags fit.
+    :func:`reach_plan` picks one."""
+    N = num_nodes
+    bits = _reach_bitset_bytes(N)
+    out = []
+    if N <= REACH_MAX_BITSET_NODES:
+        out += [ReachPlan("bitset", r, r * bits) for r in (1, 2) if r * bits <= smem_cap]
+    if 8 * E + N <= smem_cap:
+        out.append(ReachPlan("hop", 1, 8 * E + N))
+    if N <= smem_cap:
+        out.append(ReachPlan("hop_global", 1, N))
+    return out
+
+
+@contract("E", "N", None)
+def reach_plan_on_card(E: int, num_nodes: int, device: torch.device) -> ReachPlan:
+    """:func:`reach_plan` with ``device``'s shared memory."""
+    return reach_plan(E, num_nodes, smem_cap=_smem_cap(_card_index(device)))
+
+
+def _reach_plan_in_c(E: int, N: int, device: torch.device) -> ReachPlan:
+    """The layout the C entry ``reach_launch`` takes on ``device``; for the
+    tests only, which hold it to :func:`reach_plan_on_card`."""
+    plan = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(torch.device(device)):
+        _library().reach_plan_of(E, N, plan)
+    return ReachPlan(REACH_LAYOUTS[plan[0]], plan[1], plan[2])
+
+
+def _launch_reach(src: torch.Tensor, dst: torch.Tensor, present: torch.Tensor, num_nodes: int,
+                  plan: ReachPlan) -> torch.Tensor:
+    """Reachability under ``plan``; the inputs are checked as
+    :func:`reach_from_zero_cuda` checks them.  Raises if the card refuses
+    the layout (bitsets past 1024 nodes or past its shared memory, staged
+    arcs past it, a ``rows`` the layout does not take)."""
+    dev, N = _check_reach_cuda(src, dst, present, num_nodes)
+    B, E = present.shape
+    lib = _library()
+    with _device_of(present):
+        out = present.new_empty((2, B, N))
+        err = lib.reach_plan(src.data_ptr(), dst.data_ptr(), present.data_ptr(), out.data_ptr(),
+                             B, E, N, REACH_LAYOUTS.index(plan.layout), plan.rows,
+                             _stream_of(dev))
     _raise_on(err, "reach", lib)
     return out
 

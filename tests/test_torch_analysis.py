@@ -515,9 +515,10 @@ SPEC_CASES = _spec_cases()
 
 def test_spec_cases_cover_all_engine_functions():
     # 75, the timing kernel's layout rule: timing_smem_bytes, timing_plan,
-    # timing_plan_on_card; and the standalone segment max's: segment_max_plan,
-    # segment_max_layouts, segment_max_plan_on_card
-    assert len(SPEC_CASES) == 81
+    # timing_plan_on_card; the standalone segment max's: segment_max_plan,
+    # segment_max_layouts, segment_max_plan_on_card; and reachability's:
+    # reach_plan, reach_layouts, reach_plan_on_card
+    assert len(SPEC_CASES) == 84
 
 
 @pytest.mark.parametrize("rel,name,ref_name", SPEC_CASES)

@@ -338,6 +338,188 @@ def test_reach_kernel_matches_plain(cuda, B, N, S):
     assert torch.equal(got, reach_from_zero_ref(src, dst, present, N))
 
 
+def _reach_graph(gen, dev, kind, B, N, E):
+    """``[B, E]`` arcs of one kind: ``random`` or ``empty`` (E = 0; the
+    first half among the first N // 2 nodes, a share absent), ``path`` 0 -> 1 -> .. -> N-1 with
+    its arcs listed in order or (``reversed_path``) in reverse, ``ring``,
+    ``star`` (0 -> i, and i -> 0 for even i), ``padded`` (row b lives on
+    its first m_b nodes, the rest absent: a multi-universe pack)."""
+    src = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, N, (B, E), generator=gen, device=dev, dtype=torch.int32)
+    present = (torch.rand((B, E), generator=gen, device=dev) < 0.6) & (src != dst)
+    if kind in ("random", "empty"):
+        h = E // 2
+        present[:, :h] &= (src[:, :h] < N // 2) & (dst[:, :h] < N // 2)
+    elif kind == "padded":
+        m = torch.randint(1, N + 1, (B, 1), generator=gen, device=dev)
+        m[0] = N
+        present &= (src < m) & (dst < m)
+    else:
+        i = torch.arange(E, device=dev, dtype=torch.int32)
+        if kind in ("path", "reversed_path"):  # E = N - 1
+            a = i if kind == "path" else (E - 1) - i
+            s, d = a, a + 1
+        elif kind == "ring":  # E = N
+            s, d = i, (i + 1) % N
+        else:  # star, E = N - 1 + (N - 1) // 2
+            leaves = torch.arange(1, N, device=dev, dtype=torch.int32)
+            back = leaves[leaves % 2 == 0]
+            s = torch.cat([torch.zeros_like(leaves), back])
+            d = torch.cat([leaves, torch.zeros_like(back)])
+        src, dst = s.expand(B, E).contiguous(), d.expand(B, E).contiguous()
+        present = torch.ones((B, E), dtype=torch.bool, device=dev)
+        present[1:, ::7] = False  # the rows past the first lose every seventh arc
+    return src, dst, present
+
+
+def _reach_arcs(kind, N):
+    return {"path": N - 1, "reversed_path": N - 1, "ring": N,
+            "star": N - 1 + (N - 1) // 2}.get(kind, 3 * N)
+
+
+REACH_CASES = ([(kind, N) for kind in ("random", "path", "reversed_path", "ring", "star",
+                                       "padded")
+                for N in (1, 31, 32, 33, 87, 1023, 1024) if N > 1 or kind == "random"]
+               + [("empty", 87), ("empty", 1024)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,N", REACH_CASES)
+def test_reach_every_layout_bit_for_bit(cuda, kind, N):
+    """Every layout reachability can take (the bitsets at one and two
+    traversals a CTA, the hops over staged arcs, the hops over arcs in
+    global memory),
+    forced through the launcher, on paths listed forward and in reverse,
+    rings, stars, E = 0 and padded multi-universe rows: equal to plain."""
+    from repro_torch.kernels.segment_max import (_launch_reach, _smem_cap, reach_from_zero_ref,
+                                                 reach_layouts)
+
+    B = 5
+    E = 0 if kind == "empty" else _reach_arcs(kind, N)
+    gen = torch.Generator(device=cuda).manual_seed(N * 7 + len(kind))
+    src, dst, present = _reach_graph(gen, cuda, kind, B, N, E)
+    want = reach_from_zero_ref(src, dst, present, N)
+    layouts = reach_layouts(E, N, _smem_cap(torch.cuda.current_device()))
+    assert [p.layout for p in layouts].count("bitset") >= 1
+    before = dict(LAUNCHES)
+    for plan in layouts:
+        got = _launch_reach(src, dst, present, N, plan)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and got.shape == (2, B, N)
+        assert torch.equal(got, want), plan
+    assert LAUNCHES == before  # the count is the dispatcher's
+    if kind in ("path", "reversed_path", "ring", "star"):
+        assert bool(want[0, 0].all())  # row 0 keeps every arc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,E,layout", [(16, 87, 261, "bitset"), (8, 1024, 8192, "bitset"),
+                                          (200, 87, 600, "bitset"), (64, 1024, 8192, "bitset"),
+                                          (3, 1025, 4000, "hop"), (2, 2048, 6000, "hop"),
+                                          (2, 1025, 40000, "hop_global"),
+                                          (2, 300, 60000, "bitset"), (4, 5, 0, "bitset"),
+                                          (1, 87, 261, "bitset"), (7, 33, 99, "bitset")])
+def test_reach_planned_layout_counts_one_launch_a_call(cuda, B, N, E, layout):
+    """The wrapper's own layout, the C entry's plan equal to reach_plan's,
+    one launch a call, equal to plain; past 1024 nodes the hop kernel, its
+    arcs staged or, past shared memory, read in place."""
+    from repro_torch.kernels import reach_from_zero
+    from repro_torch.kernels.segment_max import (_reach_plan_in_c, reach_from_zero_ref,
+                                                 reach_plan_on_card)
+
+    plan = reach_plan_on_card(E, N, cuda)
+    assert plan.layout == layout
+    assert _reach_plan_in_c(E, N, cuda) == plan
+    gen = torch.Generator(device=cuda).manual_seed(B + N + E)
+    src, dst, present = _reach_graph(gen, cuda, "random", B, N, E)
+    before = LAUNCHES["reach"]
+    got = reach_from_zero(src, dst, present, N)
+    got2 = reach_from_zero(src.long(), dst.long(), present, N)
+    torch.cuda.synchronize()
+    assert LAUNCHES["reach"] == before + (2 if B else 0)
+    want = reach_from_zero_ref(src, dst, present, N)
+    assert torch.equal(got, want) and torch.equal(got2, want)
+
+
+@pytest.mark.gpu
+def test_reach_other_layout_with_arcs_past_shared_memory(cuda):
+    """E = 60,000 at N = 300: the plan takes the bitsets (arcs are not
+    staged); the hop kernel, forced, reads the arcs in place, and both
+    equal plain."""
+    from repro_torch.kernels.segment_max import (ReachPlan, _launch_reach, reach_from_zero_ref,
+                                                 reach_plan_on_card)
+
+    gen = torch.Generator(device=cuda).manual_seed(60000)
+    src, dst, present = _reach_graph(gen, cuda, "padded", 3, 300, 60000)
+    want = reach_from_zero_ref(src, dst, present, 300)
+    assert reach_plan_on_card(60000, 300, cuda).layout == "bitset"
+    for plan in (ReachPlan("hop_global", 1, 300), reach_plan_on_card(60000, 300, cuda)):
+        assert torch.equal(_launch_reach(src, dst, present, 300, plan), want), plan
+
+
+@pytest.mark.gpu
+def test_reach_plan_equals_the_c_plan(cuda):
+    from repro_torch.kernels.segment_max import _reach_plan_in_c, reach_plan_on_card
+
+    for N in (1, 11, 87, 383, 1023, 1024, 1025, 2048, 100000):
+        for E in (0, 261, 8192, 29000, 60000):
+            assert _reach_plan_in_c(E, N, cuda) == reach_plan_on_card(E, N, cuda)
+
+
+@pytest.mark.gpu
+def test_reach_refused_layouts_raise(cuda):
+    """A layout the card cannot take raises and launches nothing: bitsets
+    past 1024 nodes or past shared memory, rows other than 1 or 2 for the
+    bitsets or 1 for the hops, staged arcs past shared memory.  Nothing
+    falls back."""
+    from repro_torch.kernels.segment_max import (ReachPlan, _launch_reach, _smem_cap,
+                                                 reach_from_zero_ref)
+
+    cap = _smem_cap(torch.cuda.current_device())
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    cases = [(2048, 100, ReachPlan("bitset", 1, 0)), (1024, 100, ReachPlan("bitset", 2, 0)),
+             (87, 100, ReachPlan("bitset", 0, 0)), (87, 100, ReachPlan("bitset", 4, 0)),
+             (87, cap // 8, ReachPlan("hop", 1, 0)), (87, 100, ReachPlan("hop", 2, 0))]
+    before = dict(LAUNCHES)
+    for N, E, plan in cases:
+        src, dst, present = _reach_graph(gen, cuda, "random", 2, N, E)
+        with pytest.raises(RuntimeError, match="reach kernel launch failed"):
+            _launch_reach(src, dst, present, N, plan)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    src, dst, present = _reach_graph(gen, cuda, "random", 2, 87, 100)
+    assert torch.equal(_launch_reach(src, dst, present, 87, ReachPlan("bitset", 2, 0)),
+                       reach_from_zero_ref(src, dst, present, 87))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bitset", "hop", "hop_global"])
+def test_reach_out_of_range_ids_give_a_cuda_error(cuda, layout):
+    """Every layout stops at an id outside [0, N), on an absent arc too;
+    the fault kills the CUDA context, so it is provoked in a subprocess."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.segment_max import ReachPlan, _launch_reach\n"
+        "d = torch.device('cuda')\n"
+        "src = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=d)\n"
+        "dst = torch.tensor([[1, 2, 5]], dtype=torch.int32, device=d)\n"
+        "present = torch.tensor([[True, True, False]], device=d)\n"
+        f"_launch_reach(src, dst, present, 3, ReachPlan({layout!r}, 1, 0))\n"
+        "torch.cuda.synchronize()\n"
+    )
+    src_dir = Path(__file__).resolve().parent.parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src_dir))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr
+
+
 @pytest.mark.gpu
 def test_climb_launches_one_kernel_per_karp_level(cuda):
     """Now one persistent Karp launch and one reachability launch per

@@ -278,3 +278,187 @@ def test_cuda_wrappers_check_their_inputs(case):
                     karp_cycle_time(src, dst, w, n)
                 with pytest.raises(want):
                     reach_from_zero(src, dst, present_arg, n)
+
+
+# ---------------------------------------------------------------------------
+# Reachability's layouts: the plan's rule, and the bitset traversal in numpy
+
+from repro_torch.kernels.ops import _card_ids  # noqa: E402
+from repro_torch.kernels.segment_max import (  # noqa: E402
+    REACH_MAX_BITSET_NODES,
+    ReachPlan,
+    reach_layouts,
+    reach_plan,
+)
+
+CAP = 232448  # an H100 SXM's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("E,N,want", [
+    (261, 87, ReachPlan("bitset", 2, 2 * 87 * 3 * 4)),        # the Ebone climb
+    (8192, 1024, ReachPlan("bitset", 1, 1024 * 32 * 4)),      # the scoring shape: 128 KB
+    (0, 1, ReachPlan("bitset", 2, 8)),
+    (10, 31, ReachPlan("bitset", 2, 2 * 124)),
+    (10, 32, ReachPlan("bitset", 2, 2 * 128)),
+    (10, 33, ReachPlan("bitset", 2, 2 * 264)),
+    (8192, 1023, ReachPlan("bitset", 1, 1023 * 32 * 4)),
+    (8192, 1000, ReachPlan("bitset", 1, 1000 * 32 * 4)),      # two sets pass the cap
+    (8192, 700, ReachPlan("bitset", 2, 2 * 700 * 22 * 4)),
+    (60000, 300, ReachPlan("bitset", 2, 2 * 300 * 10 * 4)),  # any E: arcs are not staged
+    (8192, 1025, ReachPlan("hop", 1, 8 * 8192 + 1025)),
+    (300, 2048, ReachPlan("hop", 1, 2400 + 2048)),
+    (29000, 1025, ReachPlan("hop_global", 1, 1025)),          # 232,000 + 1025 bytes
+])
+def test_reach_plan_picks(E, N, want):
+    assert reach_plan(E, N, smem_cap=CAP) == want
+    assert want in reach_layouts(E, N, CAP)
+
+
+def test_reach_plan_at_the_limits():
+    # N bitsets exactly filling the grant still take the bitsets; a byte less does not
+    bits = 1024 * 32 * 4
+    assert reach_plan(5, 1024, smem_cap=bits) == ReachPlan("bitset", 1, bits)
+    assert reach_plan(5, 1024, smem_cap=bits - 1) == ReachPlan("hop", 1, 1064)
+    # two sets exactly filling it pair the directions; a byte less does not
+    assert reach_plan(5, 1024, smem_cap=2 * bits) == ReachPlan("bitset", 2, 2 * bits)
+    assert reach_plan(5, 1024, smem_cap=2 * bits - 1) == ReachPlan("bitset", 1, bits)
+    # staged arcs exactly filling it, and one byte past
+    assert reach_plan(12000, 2000, smem_cap=98000) == ReachPlan("hop", 1, 98000)
+    assert reach_plan(12000, 2000, smem_cap=97999) == ReachPlan("hop_global", 1, 2000)
+    # the most nodes the bitsets take
+    assert reach_plan(5, REACH_MAX_BITSET_NODES, smem_cap=1 << 30).layout == "bitset"
+    assert reach_plan(5, REACH_MAX_BITSET_NODES + 1, smem_cap=1 << 30).layout == "hop"
+
+
+@pytest.mark.parametrize("N", [1, 33, 87, 383, 700, 701, 1000, 1024])
+@pytest.mark.parametrize("cap", [49152, 101376, CAP])
+def test_reach_plan_pairs_the_directions_where_two_sets_fit(N, cap):
+    plan = reach_plan(100, N, smem_cap=cap)
+    bits = N * -(-N // 32) * 4
+    if bits > cap:
+        assert plan.layout in ("hop", "hop_global")
+    else:
+        assert plan == ReachPlan("bitset", 2 if 2 * bits <= cap else 1,
+                                 (2 if 2 * bits <= cap else 1) * bits)
+        assert plan.smem_bytes <= cap
+
+
+def test_reach_layouts_lists_every_layout_the_card_takes():
+    cap = CAP
+    assert [(p.layout, p.rows) for p in reach_layouts(261, 87, cap)] == [
+        ("bitset", 1), ("bitset", 2), ("hop", 1), ("hop_global", 1)]
+    assert [(p.layout, p.rows) for p in reach_layouts(8192, 1024, cap)] == [
+        ("bitset", 1), ("hop", 1), ("hop_global", 1)]
+    assert [(p.layout, p.rows) for p in reach_layouts(60000, 300, cap)] == [
+        ("bitset", 1), ("bitset", 2), ("hop_global", 1)]
+    assert [p.layout for p in reach_layouts(300, 2048, cap)] == ["hop", "hop_global"]
+
+
+def _emulated_bitset_reach(src, dst, present, n):
+    """The bitset kernel in numpy: a direction's adjacency as n rows of
+    ceil(n / 32) uint32 words, one bit an arc; lane l of the warp holds
+    word l of the reached set R and of the pending set P.  From R = P =
+    {0}, each step pops the highest pending vertex (each lane's highest
+    bit, the lanes' maximum), ORs its row into R and the row's new bits
+    into P, until nothing pends.  Returns ([2, B, n] bool, [2, B] steps)."""
+    B = src.shape[0]
+    W = -(-n // 32)
+    out = np.zeros((2, B, n), dtype=bool)
+    steps = np.zeros((2, B), dtype=int)
+    for y, (take, seg) in enumerate(((src, dst), (dst, src))):
+        for b in range(B):
+            adj = np.zeros((n, W), dtype=np.uint32)
+            for t, g in zip(take[b][present[b]], seg[b][present[b]]):
+                adj[t, g >> 5] |= np.uint32(1 << (g & 31))
+            R = np.zeros(W, dtype=np.uint32)
+            R[0] = 1
+            P = R.copy()
+            while P.any():
+                steps[y, b] += 1
+                cand = [32 * lane + int(P[lane]).bit_length() - 1 if P[lane] else -1
+                        for lane in range(W)]
+                v = max(cand)
+                P[v >> 5] &= ~np.uint32(1 << (v & 31))
+                P |= adj[v] & ~R
+                R |= adj[v]
+            bits = np.unpackbits(R.view(np.uint8), bitorder="little")[:n]
+            out[y, b] = bits.astype(bool)
+    return out, steps
+
+
+def _named_graph(name, n):
+    """One row of arcs: a path 0 -> 1 -> .. -> n-1 (its arcs listed in
+    order, or in reverse), a ring, or a star (0 -> i for every i, i -> 0 for
+    the even i)."""
+    i = np.arange(n - 1)
+    if name in ("path", "reversed_path"):
+        src, dst = i, i + 1
+        if name == "reversed_path":
+            src, dst = src[::-1], dst[::-1]
+    elif name == "ring":
+        src, dst = np.arange(n), (np.arange(n) + 1) % n
+    else:  # star
+        leaves = np.arange(1, n)
+        back = leaves[leaves % 2 == 0]
+        src = np.concatenate([np.zeros_like(leaves), back])
+        dst = np.concatenate([leaves, np.zeros_like(back)])
+    src, dst = src[None].astype(np.int32), dst[None].astype(np.int32)
+    return src, dst, np.ones(src.shape, dtype=bool)
+
+
+NAMED = ["path", "reversed_path", "ring", "star"]
+
+
+@pytest.mark.parametrize("name", NAMED)
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 87, 1024])
+def test_emulated_bitset_traversal_equals_plain(name, n):
+    src, dst, present = _named_graph(name, n)
+    got, steps = _emulated_bitset_reach(src, dst, present, n)
+    want = reach_from_zero_ref(torch.from_numpy(src), torch.from_numpy(dst),
+                               torch.from_numpy(present), n).numpy()
+    np.testing.assert_array_equal(got, want)
+    # a step a reached vertex: each is expanded once
+    np.testing.assert_array_equal(steps, want.sum(axis=2))
+
+
+@pytest.mark.parametrize("B,n,S,seed", [(1, 1, 2, 0), (4, 6, 12, 1), (6, 16, 24, 2),
+                                        (3, 30, 90, 3), (8, 12, 10, 4), (2, 87, 261, 5),
+                                        (3, 33, 0, 6)])
+def test_emulated_bitset_traversal_on_padded_universes(B, n, S, seed):
+    src, dst, present = _universes(np.random.default_rng(seed), B, n, S)
+    got, _ = _emulated_bitset_reach(src, dst, present, n)
+    want = reach_from_zero_ref(torch.from_numpy(src), torch.from_numpy(dst),
+                               torch.from_numpy(present), n).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", NAMED)
+def test_plain_reach_equals_reference_body_at_1024_nodes(name):
+    n = 1024
+    src, dst, present = _named_graph(name, n)
+    pf = present.astype(np.float32)
+    fwd = _jax_reach(jnp.asarray(src), jnp.asarray(dst.ravel()), pf, 1, n)
+    bwd = _jax_reach(jnp.asarray(dst), jnp.asarray(src.ravel()), pf, 1, n)
+    got = reach_from_zero_ref(torch.from_numpy(src), torch.from_numpy(dst),
+                              torch.from_numpy(present), n)
+    np.testing.assert_array_equal(got[0].numpy(), fwd)
+    np.testing.assert_array_equal(got[1].numpy(), bwd)
+    assert bool(got[0].all())  # every vertex from 0 along the arcs
+    back = {"path": 1, "reversed_path": 1, "ring": n, "star": 1 + (n - 1) // 2}[name]
+    assert int(got[1].sum()) == back
+
+
+def test_card_ids_copies_only_what_it_must():
+    """The public wrapper's id conversion: int32 contiguous ids on the
+    mask's device pass as they are; other integer ids are converted; a
+    view is made contiguous; float ids are left for the wrapper to refuse."""
+    like = torch.ones((2, 6), dtype=torch.bool)
+    ids = torch.arange(12, dtype=torch.int32).view(2, 6)
+    assert _card_ids(ids, like, like.get_device()) is ids
+    wide = _card_ids(ids.long(), like, -1)
+    assert wide.dtype == torch.int32 and torch.equal(wide, ids)
+    view = torch.arange(24, dtype=torch.int32).view(2, 12)[:, ::2]
+    got = _card_ids(view, like, -1)
+    assert got.is_contiguous() and torch.equal(got, view)
+    flt = ids.float()
+    assert _card_ids(flt, like, -1) is flt
