@@ -2775,12 +2775,15 @@ def check_trace_records(torch, records, problems, n_redesigns: int) -> dict:
     epochs = [r["index"] for r in by_kind.get("epoch", [])]
     check(epochs[:2] == [0, 1], f"epoch records {epochs}")
     steps = [r["step"] for r in by_kind.get("round", [])]
-    check(steps == list(range(0, TRACED_STEPS, TRACE_INTERVAL)), f"round records at {steps}")
+    check(steps == list(range(0, TRACED_STEPS, TRACE_INTERVAL))
+          and all(r["duration_ms"] > 0 for r in by_kind["round"]), f"round records at {steps}")
     end = records[-1]
     check(end["kind"] == "run_end", f"last record {end['kind']}")
     span_s = end["spans"]
-    check({"controller.redesign", "train.step", "designer.search_jit"} <= set(span_s)
-          and span_s["train.step"]["count"] == TRACED_STEPS, f"span totals {sorted(span_s)}")
+    check({"controller.redesign", "step", "train.round", "designer.search_jit"} <= set(span_s)
+          and span_s["step"]["count"] == span_s["train.round"]["count"] == TRACED_STEPS
+          and span_s["step.mix"]["device_count"] == TRACED_STEPS,
+          f"span totals {sorted(span_s)}")
     h2d = end["metrics"]["train.h2d_bytes"]
     check(h2d == TRACED_STEPS * 11 * 2 * 2 * 4 * 64 * 4, f"train.h2d_bytes {h2d}")
     check(end["summary"]["recompiles"] == 1 + n_redesigns,
@@ -2862,7 +2865,7 @@ def traced_dynamic_phase(torch, dev) -> dict:
                 by_kind = check_trace_records(torch, records, problems, len(rds))
                 span_s = records[-1]["spans"]
                 run.update(trace_bytes=os.path.getsize(path), records=len(records),
-                           spans=span_s, step_span_s=span_s["train.step"]["total_s"])
+                           spans=span_s, step_span_s=span_s["step"]["total_s"])
                 engine = {name[len("engine."):]: round(v["total_s"], 6)
                           for name, v in span_s.items() if name.startswith("engine.")}
                 designers = ", ".join(f"{name} {v['total_s']:.4f}" for name, v in span_s.items()
@@ -2870,10 +2873,12 @@ def traced_dynamic_phase(torch, dev) -> dict:
                 kinds = ", ".join(f"{kind} {len(v)}" for kind, v in sorted(by_kind.items()))
                 print(f"traced dynamic train {what}: trace {run['trace_bytes']} bytes, "
                       f"{len(records)} records ({kinds}); "
-                      f"span totals s: train.step {run['step_span_s']:.4f} over {TRACED_STEPS}, "
+                      f"span totals s: step {run['step_span_s']:.4f} over {TRACED_STEPS}, "
+                      f"step.mix device {span_s['step.mix']['device_total_s']:.4f}, "
+                      f"step.optimizer device {span_s['step.optimizer']['device_total_s']:.4f}, "
                       f"controller.redesign {span_s['controller.redesign']['total_s']:.4f}, "
                       f"controller.calibrate {span_s['controller.calibrate']['total_s']:.4f}, "
-                      f"{designers}, engine {engine}; train.step {run['step_span_s']:.4f} s "
+                      f"{designers}, engine {engine}; step {run['step_span_s']:.4f} s "
                       f"against the round walls' {sum(run['round_s']):.4f} s (share "
                       f"{run['step_span_s'] / sum(run['round_s']):.4f}, gap "
                       f"{sum(run['round_s']) - run['step_span_s']:.4f} s)")
@@ -4900,7 +4905,7 @@ def run_phases(torch, dev, ref_static: str, ref_dynamic: str, lint, lint_out: st
           f"{dyn_shape['bound_ms']:.4f}); controller phase {ctl['wall_s']:.1f} s; traced "
           f"linkfail median round wall s {tdyn['traced_median_s']:.4f} (untraced "
           f"{tdyn['plain_median_s']:.4f}), trace {tdyn['trace_bytes']} bytes in "
-          f"{tdyn['records']} records, train.step spans s "
+          f"{tdyn['records']} records, step spans s "
           f"{[round(x, 4) for x in tdyn['step_span_s']]} of round walls "
           f"{[round(x, 4) for x in tdyn['round_sum_s']]}; traced phase took {traced_s:.1f} s; "
           f"dynamic phases took {dynamic_s:.1f} s")

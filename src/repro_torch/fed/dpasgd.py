@@ -42,6 +42,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamLayout, init_params_, state_to_tree
+from repro_torch.obs.spans import device_span, span, span_fn
 from repro_torch.optim import Optimizer
 from .gossip import GOSSIP_IMPLS, GossipPlan, gossip_einsum, gossip_einsum_rank, mix, mix_rank
 
@@ -302,7 +303,8 @@ def local_sgd_steps(
             loss = loss_fn(tree, micro)
             loss.backward()
             loss = loss.detach()
-        optimizer.update(grad, opt_state, params, None if step is None else step + m)
+        with device_span("step.optimizer", params.device):
+            optimizer.update(grad, opt_state, params, None if step is None else step + m)
         losses.append(loss)
     return torch.stack(losses).mean()
 
@@ -336,7 +338,14 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
     does, and mixes the row with :func:`~repro_torch.fed.gossip.mix_rank`
     (a ``consensus_arg`` matrix's row with
     :func:`~repro_torch.fed.gossip.gossip_einsum_rank`).  Every active rank
-    calls it each round."""
+    calls it each round.
+
+    With spans on (:mod:`repro_torch.obs.spans`) a call is a ``step`` span
+    holding a ``step.local`` span per silo (attr ``silo``, the silo's row
+    of the stacked state: the queueing of its forwards, backwards and
+    updates, and any wait inside), a ``step.optimizer`` device span
+    per update and one ``step.mix`` device span around the round's mix,
+    the matrix's and the plan's host-to-device copies included."""
     if fed.gossip_impl not in GOSSIP_IMPLS:
         raise KeyError(fed.gossip_impl)
     n_silos = cfg.n_silos
@@ -358,16 +367,19 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
             raise ValueError(f"rank {mesh.rank} trains one of the {len(mesh.active)} active "
                              f"silos {mesh.active}; the config has {n_silos}")
 
+        @span_fn("step")
         def rank_step_fn(state, batch, consensus=None, active_mask=None):
             params, opt_state = state["params"], state["opt_state"]
             if params.shape != (layout.size,):
                 raise ValueError(f"rank state holds {tuple(params.shape)} params, the "
                                  f"config needs [{layout.size}]")
-            loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch, state["step"],
-                                   layout=layout, accum_steps=fed.accum_steps)
+            with span("step.local", silo=mesh.position):
+                loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch,
+                                       state["step"], layout=layout,
+                                       accum_steps=fed.accum_steps)
             if n_silos > 1:
                 loss = mesh.gather_scalars(loss).to(loss.device).mean()
-                with torch.no_grad():
+                with torch.no_grad(), device_span("step.mix", params.device):
                     if consensus_arg and fed.gossip_impl != "none":
                         if consensus is None:
                             raise ValueError("consensus_arg=True: pass the round's consensus "
@@ -383,28 +395,31 @@ def make_train_step(cfg: ModelConfig, fed: DPASGDConfig, optimizer: Optimizer,
 
         return rank_step_fn
 
+    @span_fn("step")
     def step_fn(state, batch, consensus=None, active_mask=None):
         params, opt_state = state["params"], state["opt_state"]
         if params.shape[-1] != layout.size:
             raise ValueError(f"state holds {params.shape[-1]} params per silo, "
                              f"the config needs {layout.size}")
         if n_silos == 1:
-            loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch,
-                                   state["step"], layout=layout,
-                                   accum_steps=fed.accum_steps)
+            with span("step.local", silo=0):
+                loss = local_sgd_steps(loss_fn, optimizer, params, opt_state, batch,
+                                       state["step"], layout=layout,
+                                       accum_steps=fed.accum_steps)
         else:
             grad = torch.empty(layout.size, dtype=params.dtype, device=params.device)
             losses = []
             for i in range(n_silos):
-                losses.append(local_sgd_steps(
-                    loss_fn, optimizer, params[i],
-                    None if opt_state is None else map_slots(lambda x: x[i], opt_state),
-                    {k: v[i] for k, v in batch.items()}, state["step"],
-                    layout=layout, accum_steps=fed.accum_steps, grad=grad))
+                with span("step.local", silo=i):
+                    losses.append(local_sgd_steps(
+                        loss_fn, optimizer, params[i],
+                        None if opt_state is None else map_slots(lambda x: x[i], opt_state),
+                        {k: v[i] for k, v in batch.items()}, state["step"],
+                        layout=layout, accum_steps=fed.accum_steps, grad=grad))
             del grad  # one silo's gradient: freed before the mix allocates its stack
             loss = torch.stack(losses).mean()
             # consensus mix (the paper's technique)
-            with torch.no_grad():
+            with torch.no_grad(), device_span("step.mix", params.device):
                 if consensus_arg and fed.gossip_impl != "none":
                     if consensus is None:
                         raise ValueError("consensus_arg=True: pass the round's consensus matrix")

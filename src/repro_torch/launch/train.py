@@ -264,12 +264,20 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     :func:`~repro_torch.obs.events.run_metadata` with the underlay,
     scenario, designer, objective and steps, and Gaia's or AWS-NA's site
     names; the timeline and the controller write their records into it.
-    Each round's step call runs inside a ``train.step`` span (the loss
-    read after it stays outside, so on the card the span ends when the
-    round's kernels are queued), ``train.h2d_bytes`` counts the host
-    batches moved to ``device``, and every ``metrics_interval`` rounds
-    (0: never) a ``round`` record is written and ``train.round_ms``
-    observes the round's simulated duration.  ``run_end`` carries
+    Each round is a ``train.round`` span (attrs ``round``, ``n``, ``K``)
+    holding ``train.batch`` (drawing the batch and moving it to
+    ``device``), the step's own ``step`` span and its layers
+    (:func:`~repro_torch.fed.dpasgd.make_train_step`), ``train.control``
+    (``observe_round``, the slot swaps and any ``controller.redesign``),
+    ``train.migrate`` (the migration between its two device syncs: the
+    interval of its logged ``wall_s``) and ``train.rebuild`` (the step
+    built again after a swap).  The step's span ends when the step
+    returns, which on the card is after any wait inside it (a
+    host-to-device copy from pageable memory synchronises), not when its
+    kernels are queued; the loss read after it waits for the rest.
+    ``train.h2d_bytes`` counts the host batches moved to ``device``, and
+    every ``metrics_interval`` rounds (0: never) a ``round`` record is
+    written with the round's simulated duration.  ``run_end`` carries
     ``steps``, ``recompiles`` (the train-step builds: the first
     :func:`make_train_step` and one per rebuild on a plan or membership
     swap) and ``wall_s``.  Tracing reads host values only and changes no
@@ -469,160 +477,165 @@ def train(cfg: ModelConfig, *, silos: int = 4, topology: str = "ring",
     step_count = 0  # the shared optimizer step counter, kept on idle ranks too
     t0 = time.time()
     for i in range(steps):
-        if (dynamic or mesh is not None) and dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)  # each round's own peak
-        t_step = time.perf_counter()
-        if mesh is not None:
-            counts = (mesh.recv_bytes, mesh.staged_bytes, mesh.staging_s)
-        if dynamic and rank0:
-            # one round == one communication round of simulated WAN,
-            # simulated *first*, so the consensus mask below (and the
-            # controller after the step) see the epoch the round spans
-            duration = timeline.step()
-        training = mesh is None or mesh.position is not None
-        step_args = ()
-        if sched_mode:
-            round_plan = sched_slot.plan_for_round(i)  # this round's sampled topology
-            A = round_plan.matrix
-            result.consensus.append(A)
-            if dynamic:
-                # renormalize over the silos still active at the end of
-                # this round: a leaver's stale params must not be mixed in
-                # during the one-round lag before the membership rebuild
-                flags = None
-                if rank0:
-                    ep_active = set(timeline.current_active())
-                    flags = [1.0 if v in ep_active else 0.0 for v in active]
-                    n_act = int(sum(flags))
-                    if n_act < len(active):
-                        log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
-                            f"(mid-round churn)")
-                if mesh is not None:
-                    flags = mesh.broadcast(flags)
-                step_args = (A, torch.tensor(flags))
-            else:
-                step_args = (A,)
-        else:
-            round_plan = plan
-        loss = None
-        if training:
-            silos_now = active if mesh is None and dynamic else None
+        with obs_spans.span("train.round", round=i, n=len(active)) as round_span:
+            if (dynamic or mesh is not None) and dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)  # each round's own peak
+            t_step = time.perf_counter()
             if mesh is not None:
-                silos_now = (mesh.rank,)
-            raw = batcher.batch(i, silos=silos_now)
-            if mesh is not None:
-                raw = {k: v[0] for k, v in raw.items()}  # this rank's [s, B, S]
-            if recorder is not None:
-                obs_metrics.counter("train.h2d_bytes").inc(sum(v.nbytes for v in raw.values()))
-            batch = batch_to_device(raw, dev)
-            # the span ends when the step returns (on the card: when its
-            # kernels are queued); the loss read below waits for them
-            with obs_spans.span("train.step"):
-                state, metrics = step_fn(state, batch, *step_args)
-            del batch
-            loss = float(metrics["loss"])
-        step_count += local_steps
-        result.step_seconds.append(time.perf_counter() - t_step)
-        rec = None
-        if dynamic or mesh is not None:
-            rec = {"K": len(round_plan.terms) if round_plan is not None else 0,
-                   "n": len(active)}
-        if mesh is not None:
-            rows_in = 0 if not training else recv_bytes_per_round(
-                round_plan, fed.gossip_impl, mesh.position, 1)
-            rec.update(active=training, wall_s=result.step_seconds[-1], rows_in=rows_in,
-                       recv_bytes=mesh.recv_bytes - counts[0],
-                       staged_bytes=mesh.staged_bytes - counts[1],
-                       staging_s=mesh.staging_s - counts[2])
-        control = None
-        if dynamic and rank0:
-            redesign = controller.observe_round(duration)
-            if redesign is not None:
-                timeline.set_schedule(redesign.schedule)
-                name = (redesign.overlay.name if redesign.overlay
-                        else redesign.schedule.name)
-                rand = ("randomized schedule" if redesign.schedule.is_randomized
-                        else "overlay")
-                log(f"step {i:4d} [t={timeline.now_ms/1e3:7.1f}s sim] controller re-design "
-                    f"-> {rand} {name} tau {redesign.measured_ms:.1f} -> "
-                    f"{redesign.predicted_tau_ms:.1f} ms ({redesign.n_candidates} candidates "
-                    f"in {redesign.elapsed_s*1e3:.0f} ms), bottleneck {redesign.bottleneck}")
-            control = {
-                "active": (mem_slot.active, mem_slot.version)
-                if mem_slot.version != built_mem_version else None,
-                "plan": slot.plan if slot is not None and slot.version != built_version
-                else None,
-                "schedule": (sched_slot.schedule, sched_slot.silos, sched_slot.history[-1][1])
-                if sched_slot is not None and sched_slot.version != sent_sched_version
-                else None}
-            built_mem_version = mem_slot.version
-            built_version = slot.version if slot is not None else 0
-            sent_sched_version = sched_slot.version if sched_slot is not None else 0
-        if dynamic and mesh is not None:
-            # every rank: the round's loss (from an active silo) and rank 0's
-            # swaps, in one exchange on the control group
-            reports = mesh.all_gather_objects({"loss": loss, "control": control})
-            loss = next(r["loss"] for r in reports if r["loss"] is not None)
-            control = reports[0]["control"]
-            if control["schedule"] is not None and not rank0:
-                schedule, silos_order, label = control["schedule"]
-                sched_slot.swap_schedule(schedule, label=label, silos=silos_order)
-        result.losses.append(loss)
-        if dynamic:
-            rebuild = False
-            if control["active"] is not None:
-                new_active, version = control["active"]
-                if mesh is None:
-                    # rebinding ``state`` drops the old buffers before the
-                    # step is rebuilt over the new silo count
-                    state = _migrate_membership(
-                        state, cfg, dev, active, new_active, version, i,
-                        churn_checkpoint, verify_migration, on_migration, log)
+                counts = (mesh.recv_bytes, mesh.staged_bytes, mesh.staging_s)
+            if dynamic and rank0:
+                # one round == one communication round of simulated WAN,
+                # simulated *first*, so the consensus mask below (and the
+                # controller after the step) see the epoch the round spans
+                duration = timeline.step()
+            training = mesh is None or mesh.position is not None
+            step_args = ()
+            if sched_mode:
+                round_plan = sched_slot.plan_for_round(i)  # this round's sampled topology
+                A = round_plan.matrix
+                result.consensus.append(A)
+                if dynamic:
+                    # renormalize over the silos still active at the end of
+                    # this round: a leaver's stale params must not be mixed in
+                    # during the one-round lag before the membership rebuild
+                    flags = None
+                    if rank0:
+                        ep_active = set(timeline.current_active())
+                        flags = [1.0 if v in ep_active else 0.0 for v in active]
+                        n_act = int(sum(flags))
+                        if n_act < len(active):
+                            log(f"step {i:4d} consensus masked to {n_act}/{len(active)} silos "
+                                f"(mid-round churn)")
+                    if mesh is not None:
+                        flags = mesh.broadcast(flags)
+                    step_args = (A, torch.tensor(flags))
                 else:
-                    state = _migrate_ranks(
-                        state, cfg, opt, mesh, active, new_active, version, i, step_count,
-                        churn_checkpoint, on_migration, log, rank_log)
-                active = new_active
-                n = len(active)
-                cfg = dataclasses.replace(cfg, n_silos=n)
-                rebuild = True
-            if control["plan"] is not None:
-                # hot-swap: rebuild the train step on the new plan
-                plan = control["plan"]
-                rebuild = True
-            if rebuild:
-                step_fn = None
-                if mesh is None or mesh.position is not None:
-                    step_fn = make_train_step(cfg, fed, opt, plan, consensus_arg=sched_mode,
-                                              mesh=mesh)
-                builds += 1
-            # sched_slot swaps need no rebuild: the consensus matrix is a
-            # step input and matrix_for_round follows the new schedule
-        peak = ""
-        if rec is not None and dev.type == "cuda":
-            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-            peak = f" peak {rec['peak_bytes'] / 2**30:.2f} GiB"
-        if rec is not None:
-            result.rounds.append(rec)
-        if dynamic:
-            log(f"round {i} wall {result.step_seconds[-1]:.4f} s K {rec['K']} n {rec['n']}"
-                + peak)
-        if recorder is not None and metrics_interval and i % metrics_interval == 0:
-            recorder.emit(
-                "round",
-                step=i,
-                duration_ms=duration if dynamic else None,
-                predicted_window_ms=(controller.expected_window_ms
-                                     if controller is not None else None),
-                measured_window_ms=(controller.last_measured_ms
-                                    if controller is not None else None),
-                drift=controller.last_drift if controller is not None else None,
-            )
+                    step_args = (A,)
+            else:
+                round_plan = plan
+            round_span.set(K=len(round_plan.terms) if round_plan is not None else 0)
+            loss = None
+            if training:
+                silos_now = active if mesh is None and dynamic else None
+                if mesh is not None:
+                    silos_now = (mesh.rank,)
+                with obs_spans.span("train.batch"):
+                    raw = batcher.batch(i, silos=silos_now)
+                    if mesh is not None:
+                        raw = {k: v[0] for k, v in raw.items()}  # this rank's [s, B, S]
+                    if recorder is not None:
+                        obs_metrics.counter("train.h2d_bytes").inc(
+                            sum(v.nbytes for v in raw.values()))
+                    batch = batch_to_device(raw, dev)
+                # the step's own ``step`` span; the loss read below waits for
+                # the kernels it queued
+                state, metrics = step_fn(state, batch, *step_args)
+                del batch
+                loss = float(metrics["loss"])
+            step_count += local_steps
+            result.step_seconds.append(time.perf_counter() - t_step)
+            rec = None
+            if dynamic or mesh is not None:
+                rec = {"K": len(round_plan.terms) if round_plan is not None else 0,
+                       "n": len(active)}
+            if mesh is not None:
+                rows_in = 0 if not training else recv_bytes_per_round(
+                    round_plan, fed.gossip_impl, mesh.position, 1)
+                rec.update(active=training, wall_s=result.step_seconds[-1], rows_in=rows_in,
+                           recv_bytes=mesh.recv_bytes - counts[0],
+                           staged_bytes=mesh.staged_bytes - counts[1],
+                           staging_s=mesh.staging_s - counts[2])
+            control = None
+            if dynamic and rank0:
+                with obs_spans.span("train.control"):
+                    redesign = controller.observe_round(duration)
+                    if redesign is not None:
+                        timeline.set_schedule(redesign.schedule)
+                        name = (redesign.overlay.name if redesign.overlay
+                                else redesign.schedule.name)
+                        rand = ("randomized schedule" if redesign.schedule.is_randomized
+                                else "overlay")
+                        log(f"step {i:4d} [t={timeline.now_ms/1e3:7.1f}s sim] controller "
+                            f"re-design -> {rand} {name} tau {redesign.measured_ms:.1f} -> "
+                            f"{redesign.predicted_tau_ms:.1f} ms ({redesign.n_candidates} "
+                            f"candidates in {redesign.elapsed_s*1e3:.0f} ms), bottleneck "
+                            f"{redesign.bottleneck}")
+                    control = {
+                        "active": (mem_slot.active, mem_slot.version)
+                        if mem_slot.version != built_mem_version else None,
+                        "plan": slot.plan if slot is not None and slot.version != built_version
+                        else None,
+                        "schedule": (sched_slot.schedule, sched_slot.silos,
+                                     sched_slot.history[-1][1])
+                        if sched_slot is not None and sched_slot.version != sent_sched_version
+                        else None}
+                    built_mem_version = mem_slot.version
+                    built_version = slot.version if slot is not None else 0
+                    sent_sched_version = sched_slot.version if sched_slot is not None else 0
+            if dynamic and mesh is not None:
+                # every rank: the round's loss (from an active silo) and rank 0's
+                # swaps, in one exchange on the control group
+                reports = mesh.all_gather_objects({"loss": loss, "control": control})
+                loss = next(r["loss"] for r in reports if r["loss"] is not None)
+                control = reports[0]["control"]
+                if control["schedule"] is not None and not rank0:
+                    schedule, silos_order, label = control["schedule"]
+                    sched_slot.swap_schedule(schedule, label=label, silos=silos_order)
+            result.losses.append(loss)
             if dynamic:
-                obs_metrics.histogram("train.round_ms").observe(duration)
-            obs_metrics.gauge("train.recompiles").set(builds)
-        if i % max(1, steps // 10) == 0 or i == steps - 1:
-            log(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)")
+                rebuild = False
+                if control["active"] is not None:
+                    new_active, version = control["active"]
+                    if mesh is None:
+                        # rebinding ``state`` drops the old buffers before the
+                        # step is rebuilt over the new silo count
+                        state = _migrate_membership(
+                            state, cfg, dev, active, new_active, version, i,
+                            churn_checkpoint, verify_migration, on_migration, log)
+                    else:
+                        state = _migrate_ranks(
+                            state, cfg, opt, mesh, active, new_active, version, i, step_count,
+                            churn_checkpoint, on_migration, log, rank_log)
+                    active = new_active
+                    n = len(active)
+                    cfg = dataclasses.replace(cfg, n_silos=n)
+                    rebuild = True
+                if control["plan"] is not None:
+                    # hot-swap: rebuild the train step on the new plan
+                    plan = control["plan"]
+                    rebuild = True
+                if rebuild:
+                    step_fn = None
+                    if mesh is None or mesh.position is not None:
+                        with obs_spans.span("train.rebuild"):
+                            step_fn = make_train_step(cfg, fed, opt, plan,
+                                                      consensus_arg=sched_mode, mesh=mesh)
+                    builds += 1
+                # sched_slot swaps need no rebuild: the consensus matrix is a
+                # step input and matrix_for_round follows the new schedule
+            peak = ""
+            if rec is not None and dev.type == "cuda":
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+                peak = f" peak {rec['peak_bytes'] / 2**30:.2f} GiB"
+            if rec is not None:
+                result.rounds.append(rec)
+            if dynamic:
+                log(f"round {i} wall {result.step_seconds[-1]:.4f} s K {rec['K']} n {rec['n']}"
+                    + peak)
+            if recorder is not None and metrics_interval and i % metrics_interval == 0:
+                recorder.emit(
+                    "round",
+                    step=i,
+                    duration_ms=duration if dynamic else None,
+                    predicted_window_ms=(controller.expected_window_ms
+                                         if controller is not None else None),
+                    measured_window_ms=(controller.last_measured_ms
+                                        if controller is not None else None),
+                    drift=controller.last_drift if controller is not None else None,
+                )
+                obs_metrics.gauge("train.recompiles").set(builds)
+            if i % max(1, steps // 10) == 0 or i == steps - 1:
+                log(f"step {i:4d} loss {loss:.4f} ({time.time() - t0:.1f}s)")
     if dynamic and rank0:
         final = controller.schedule
         desc = (f"randomized schedule {final.name} (C_b={getattr(final, 'budget', 0):g})"
@@ -672,10 +685,11 @@ def _migrate_membership(state, cfg, dev, active, new_active, version, i,
     from repro_torch.models import ParamLayout, model_specs
 
     _sync(dev)
-    t_mig = time.perf_counter()
-    new_state, joined, left = migrate_silo_state(state, active, new_active)
-    _sync(dev)
-    wall = time.perf_counter() - t_mig
+    with obs_spans.span("train.migrate", n_before=len(active), n_after=len(new_active)):
+        t_mig = time.perf_counter()
+        new_state, joined, left = migrate_silo_state(state, active, new_active)
+        _sync(dev)
+        wall = time.perf_counter() - t_mig
     paths = []
     if churn_checkpoint and left:
         from repro_torch.checkpoint import save_silo_checkpoint
@@ -721,11 +735,12 @@ def _migrate_ranks(state, cfg, opt, mesh, active, new_active, version, i, step,
         paths.append(save_silo_checkpoint(churn_checkpoint, mesh.rank, row, step=i))
         rank_log(f"step {i:4d} leaver silo {mesh.rank} checkpoint -> {paths[-1]}")
     _sync(mesh.device)
-    t_mig = time.perf_counter()
-    state, joined, left = migrate_rank_state(state, mesh, active, new_active, size=layout.size,
-                                             optimizer=opt, step=step)
-    _sync(mesh.device)
-    wall = time.perf_counter() - t_mig
+    with obs_spans.span("train.migrate", n_before=len(active), n_after=len(new_active)):
+        t_mig = time.perf_counter()
+        state, joined, left = migrate_rank_state(state, mesh, active, new_active,
+                                                 size=layout.size, optimizer=opt, step=step)
+        _sync(mesh.device)
+        wall = time.perf_counter() - t_mig
     if on_migration is not None:
         on_migration({"old_active": active, "new_active": new_active, "joined": joined,
                       "left": left, "wall_s": wall, "checkpoints": paths})

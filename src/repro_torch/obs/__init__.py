@@ -4,9 +4,13 @@ record kinds).
 
 * :mod:`~repro_torch.obs.spans`   — nested host wall-clock spans over
   *host-level* entry points (engine calls, designer searches, redesigns,
-  train steps).  Default off; the disabled path is one flag read.  A span
-  never synchronises with the card: around a call that only queues
-  kernels it measures the queueing.
+  the train round and the layers of its step).  Default off; the
+  disabled path is one flag read.  A span never synchronises with the
+  card: around a call that only queues kernels it measures the queueing,
+  around one that waits inside (the step's host-to-device copies) the
+  wait too.  A ``device_span`` also times its range on the card with a
+  CUDA event pair, read only when the summary is; with a
+  ``torch.profiler`` recording, every span is a profiler range too.
 * :mod:`~repro_torch.obs.metrics` — process-local counters / gauges /
   histograms (redesign count & latency, candidate throughput, slot
   versions, train-step builds, predicted-vs-measured drift, h→d bytes).
@@ -28,6 +32,7 @@ that is or may become a captured CUDA graph.
 from .spans import (
     Span,
     SpanRecord,
+    device_span,
     disable,
     enable,
     enabled,
@@ -70,6 +75,7 @@ __all__ = [
     "StructuredLogger",
     "TRACE_SCHEMA_VERSION",
     "counter",
+    "device_span",
     "disable",
     "enable",
     "enabled",

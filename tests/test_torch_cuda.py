@@ -1573,3 +1573,32 @@ def test_dryrun_halves_the_batch_until_the_decode_cache_fits(cuda):
     assert all("out of memory" in f["error"].lower() for f in r["oom"])
     assert 0 < r["roofline"]["share"] <= 1.0
     assert r["peak_bytes"] <= torch.cuda.get_device_properties(cuda).total_memory
+
+
+@pytest.mark.gpu
+def test_device_span_reads_its_kernel_time_within_the_wall(cuda):
+    """A ``device_span`` around a known kernel (an in-place scale of 2^26
+    floats) reads above 0 and no more than CUDA events around the whole
+    ``with`` block; nothing is read until the summary is."""
+    from repro_torch.obs import spans
+
+    x = torch.ones(1 << 26, device=cuda)
+    x.mul_(1.0)
+    torch.cuda.synchronize()
+    spans.reset()
+    spans.enable()
+    try:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        with spans.device_span("scale", x.device):
+            x.mul_(2.0)
+        b.record()
+        assert len(spans._PENDING) == 1
+        got = spans.summary()["scale"]
+        wall = a.elapsed_time(b) / 1e3
+        assert got["device_count"] == 1 and 0 < got["device_total_s"] <= wall
+        (rec,) = spans.pop_finished()
+        assert rec.device_s == got["device_total_s"]
+    finally:
+        spans.disable()
+        spans.reset()

@@ -13,6 +13,7 @@ torch generator, not ``jax.random``), the churn trace replays through
 the reference's slot protocol, and a traced ``--dynamic`` run trains
 exactly as an untraced one."""
 
+import dataclasses
 import importlib.util
 import io
 import json
@@ -136,6 +137,97 @@ class TestSpans:
             pass
         spans.reset()
         assert spans.summary() == {} and spans.pop_finished() == []
+
+    def test_disabled_device_span_is_the_shared_noop_and_imports_nothing(self, monkeypatch):
+        def no_event(*args, **kwargs):
+            raise AssertionError("a disabled device span created a CUDA event")
+
+        monkeypatch.setattr(torch.cuda, "Event", no_event)
+        monkeypatch.setattr(torch.cuda, "current_stream", no_event)
+        s = spans.device_span("x", torch.device("cuda"))
+        assert s is spans.span("y") is spans.device_span("z")
+        with s:
+            pass
+        assert spans.summary() == {}
+        code = ("import sys\n"
+                "from repro_torch.obs import spans\n"
+                "with spans.device_span('x', None, k=1):\n"
+                "    pass\n"
+                "assert spans.device_span('x') is spans.span('y')\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'numpy'))\n"
+                "assert not bad, bad\n")
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    def test_device_span_on_the_cpu_records_host_time_only(self):
+        spans.enable()
+        with spans.device_span("dev", torch.device("cpu"), silo=3):
+            pass
+        (rec,) = spans.pop_finished()
+        assert rec.attrs == {"silo": 3} and rec.device_s is None and rec.duration_s >= 0
+        assert set(spans.summary()["dev"]) == {"count", "total_s", "max_s", "mean_s"}
+
+    def test_device_span_events_are_read_with_the_summary(self, monkeypatch):
+        """The event pairs stay unread at exit; the summary and the ring
+        read them, and past ``_PENDING_MAX`` only the pairs the card has
+        passed are folded, without a wait."""
+        log_ = []
+
+        class Event:
+            clock = 0.0
+
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                self.t, self.done = None, True
+
+            def record(self, stream):
+                log_.append(("record", stream))
+                Event.clock += 0.5
+                self.t = Event.clock
+
+            def query(self):
+                return self.done
+
+            def synchronize(self):
+                log_.append(("sync",))
+
+            def elapsed_time(self, end):
+                return end.t - self.t  # ms
+
+        class Cuda:
+            pass
+
+        fake = type("T", (), {})()
+        fake.cuda = Cuda()
+        fake.cuda.Event = Event
+        fake.cuda.current_stream = lambda device: f"stream {device}"
+        fake.autograd = torch.autograd
+        monkeypatch.setattr(spans, "_torch", lambda: fake)
+        dev = torch.device("cuda", 1)
+        spans.enable()
+        with spans.span("outer"):
+            for _ in range(3):
+                with spans.device_span("dev", dev, k=1):
+                    pass
+        assert log_ == [("record", "stream cuda:1")] * 6  # no wait at exit
+        s = spans.summary()
+        assert log_[6:] == [("sync",)] * 3
+        assert s["dev"]["device_count"] == 3 and s["dev"]["device_total_s"] == pytest.approx(1.5e-3)
+        assert s["dev"]["device_max_s"] == pytest.approx(5e-4)
+        assert "device_count" not in s["outer"]
+        recs = spans.pop_finished()
+        assert [r.device_s for r in recs if r.name == "dev"] == [pytest.approx(5e-4)] * 3
+        assert [r.parent for r in recs if r.name == "dev"] == ["outer"] * 3
+        monkeypatch.setattr(spans, "_PENDING_MAX", 4)
+        del log_[:]
+        for k in range(5):
+            with spans.device_span("dev", dev):
+                if k == 3:
+                    spans._PENDING[1][3].done = False   # the card is behind from pair 1
+        assert ("sync",) not in log_ and len(spans._PENDING) == 4
+        assert spans._AGG["dev"][3] == 3 + 1
 
 
 # ---------------------------------------------------------------------------
@@ -600,14 +692,98 @@ def test_tracing_changes_no_result_of_dynamic_training(tmp_path):
     end = records[-1]
     assert end["kind"] == "run_end"
     assert end["summary"]["steps"] == 24 and end["summary"]["recompiles"] == 2
-    assert end["spans"]["train.step"]["count"] == 24
+    assert end["spans"]["step"]["count"] == end["spans"]["train.round"]["count"] == 24
     assert {"controller.redesign", "designer.search_jit"} <= set(end["spans"])
     m = end["metrics"]
-    assert m["train.recompiles"] == 2 and m["train.round_ms"]["count"] == 5
+    assert m["train.recompiles"] == 2 and len(rounds) == 5
     # 11 silos x (tokens, labels) of 1 x 1 x 8 int32 ids a round
     assert m["train.h2d_bytes"] == 24 * 11 * 2 * 8 * 4
     assert m["slot.plan_version"] == 2 and m["controller.redesigns"] == 1
     assert any("trace-written" in line for line in lines)
+
+
+def _within(inner, outer):
+    return outer.t_start_s <= inner.t_start_s and \
+        inner.t_start_s + inner.duration_s <= outer.t_start_s + outer.duration_s
+
+
+def test_step_spans_are_profiler_ranges_nested_as_the_spans_nest():
+    """With spans on, a reduced DPASGD step under a CPU ``torch.profiler``
+    shows ``step`` around one ``step.local`` a silo, each around its
+    ``step.optimizer`` updates, and ``step.mix`` beside them; with spans
+    off no such range appears."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed import DPASGDConfig, init_state, make_train_step, plan_for_n_silos
+    from repro_torch.optim import momentum
+
+    cfg = dataclasses.replace(_small_internlm2(), n_silos=2)
+    opt = momentum(0.05, 0.9)
+    step = make_train_step(cfg, DPASGDConfig(local_steps=2, gossip_impl="pallas"), opt,
+                           plan_for_n_silos("ring", 2))
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 1, 8), generator=torch.Generator().manual_seed(0))
+    names = ("step", "step.local", "step.optimizer", "step.mix")
+
+    def ranges():
+        state = init_state(cfg, opt, device="cpu")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, {"tokens": tok, "labels": tok})
+        return {n: sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                          if e.name == n) for n in names}
+
+    assert ranges() == {n: [] for n in names}
+    spans.enable()
+    got = ranges()
+    assert [len(got[n]) for n in names] == [1, 2, 4, 1]
+    (outer,) = got["step"]
+
+    def inside(a, b):
+        return b[0] <= a[0] and a[1] <= b[1]
+
+    assert all(inside(r, outer) for n in names[1:] for r in got[n])
+    assert all(sum(inside(o, loc) for loc in got["step.local"]) == 1
+               for o in got["step.optimizer"])
+    assert not any(inside(got["step.mix"][0], loc) for loc in got["step.local"])
+    recs = {r.name: r for r in spans.pop_finished()}
+    assert recs["step.local"].parent == "step" and recs["step.optimizer"].parent == "step.local"
+    assert recs["step.mix"].parent == "step" and recs["step.mix"].device_s is None
+
+
+def test_span_counts_follow_the_round_structure_under_churn(tmp_path):
+    """A traced reduced ``--dynamic`` churn run: each ``train.round`` holds
+    one ``train.batch``, ``step`` and ``step.mix``, n ``step.local`` and
+    n s ``step.optimizer`` spans (n the round's silos), one
+    ``train.control``; ``train.migrate`` once per migration, each its
+    logged wall, and a ``train.rebuild`` for each step built again."""
+    migrations = []
+    s = 2
+    res = train(_small_internlm2(), dynamic=True, scenario="churn", steps=12,
+                gossip_impl="pallas", seq_len=8, batch_per_silo=1, local_steps=s, device="cpu",
+                trace_out=str(tmp_path / "t.jsonl"), on_migration=migrations.append,
+                log=lambda line: None)
+    recs = spans.pop_finished()
+    rounds = [r for r in recs if r.name == "train.round"]
+    assert [r.attrs["round"] for r in rounds] == list(range(12))
+    assert [r.attrs["n"] for r in rounds] == [rec["n"] for rec in res.rounds]
+    assert [r.attrs["K"] for r in rounds] == [rec["K"] for rec in res.rounds]
+    assert sorted({r.attrs["n"] for r in rounds}) == [10, 11]
+    for rnd in rounds:
+        inner = [r for r in recs if r is not rnd and _within(r, rnd)]
+        count = {name: sum(r.name == name for r in inner)
+                 for name in ("train.batch", "step", "step.local", "step.optimizer", "step.mix",
+                              "train.control")}
+        n = rnd.attrs["n"]
+        assert count == {"train.batch": 1, "step": 1, "step.local": n, "step.optimizer": n * s,
+                         "step.mix": 1, "train.control": 1}, rnd.attrs
+        assert sorted(r.attrs["silo"] for r in inner if r.name == "step.local") == list(range(n))
+    mig = [r for r in recs if r.name == "train.migrate"]
+    assert len(migrations) == 2 and len(mig) == 2
+    for r, m in zip(mig, migrations):
+        assert r.duration_s >= m["wall_s"] and r.duration_s - m["wall_s"] < 1e-3
+        assert (r.attrs["n_before"], r.attrs["n_after"]) == (len(m["old_active"]),
+                                                            len(m["new_active"]))
+    end = events.read_trace(str(tmp_path / "t.jsonl"))[-1]
+    assert sum(r.name == "train.rebuild" for r in recs) == end["summary"]["recompiles"] - 1 >= 2
 
 
 def test_cli_trace_out_passes_obs_report_check(tmp_path, capsys):
